@@ -39,3 +39,9 @@ class st:  # noqa: N801 — mirrors `hypothesis.strategies as st`
     @staticmethod
     def sampled_from(*_a, **_k):
         return None
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); each such "
+        "test skips itself where torch sees none")
