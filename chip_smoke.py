@@ -1,11 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: builds its CUDA kernels from this checkout, holds each against its
-plain PyTorch version, drives the main path through the user entry points
-(``build_flycoo`` -> ``engine.init`` -> ``engine.all_modes`` -> ``cp_als``)
-at the paper's nell1 tensor (scale 0.1, rank 32) and the 5-mode twitch
-tensor (scale 0.01), checks the outputs against the COO oracle
-``mttkrp_ref``, and times the kernels at the main path's shapes.
+plain PyTorch version, drives the port's paths through the user entry
+points, checks the outputs against the COO oracle ``mttkrp_ref``, and
+times the kernels at each path's shapes.
+
+  [1]  card, nvcc build;  [2] kernels vs plain at toy shapes
+  [3]-[6]  the main path (``build_flycoo`` -> ``engine.init`` ->
+       ``engine.all_modes`` -> ``cp_als``, backend ``cuda_fused``) at the
+       paper's nell1 tensor (scale 0.1, rank 32), ``fuse_remap=False``,
+       the 5-mode twitch tensor (scale 0.01), kernel times
+  [7]  the plan-space path (``make_engine(PlanSpec(backend="cuda"),
+       cache=PlanCache())``, the pre-gathered baseline) at nell1 scale
+       0.1, compact, with ``cp_als``
+  [8]  the rect schedule at nell1 scale 0.01: ``cuda_fused`` with and
+       without the fused remap, and ``cuda``
+  [9]  ``autotune`` over backend x schedule x P x dedup at nell1 scale
+       0.01, measured by CUDA events
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -37,6 +48,7 @@ function on absolute inputs) and ``u = 2**-24``:
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -53,11 +65,24 @@ FIT_ATOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 RANK = 32
-SOURCE = "src/repro_torch/kernels/csrc/mttkrp_compact.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {
+    "mttkrp_fused_remap_compact": CSRC + "mttkrp_gather.cu",
+    "mttkrp_fused_gather_compact": CSRC + "mttkrp_gather.cu",
+    "mttkrp_fused_compact": CSRC + "mttkrp_pregathered.cu",
+    "mttkrp_fused_remap": CSRC + "mttkrp_gather.cu",
+    "mttkrp_fused_gather": CSRC + "mttkrp_gather.cu",
+    "mttkrp_fused": CSRC + "mttkrp_pregathered.cu",
+}
 REPLACES = {
     "mttkrp_fused_remap_compact": "src/repro/kernels/mttkrp_kernel.py:583",
     "mttkrp_fused_gather_compact": "src/repro/kernels/mttkrp_kernel.py:466",
+    "mttkrp_fused_compact": "src/repro/kernels/mttkrp_kernel.py:173",
+    "mttkrp_fused_remap": "src/repro/kernels/mttkrp_kernel.py:517",
+    "mttkrp_fused_gather": "src/repro/kernels/mttkrp_kernel.py:420",
+    "mttkrp_fused": "src/repro/kernels/mttkrp_kernel.py:132",
 }
+RECT_NEW = ("mttkrp_fused_remap", "mttkrp_fused_gather", "mttkrp_fused")
 
 
 def log(msg: str) -> None:
@@ -271,10 +296,32 @@ def phase_card():
     log(f"[1] nvcc build {time.perf_counter() - t0:.1f} s")
     for lib, text in build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "Compiling" in line):
+            if ("ptxas info" in line and ("registers" in line
+                                          or "Compiling" in line)
+                    or "spill" in line):
                 log(f"[1] {lib}: {line.strip()}")
     return name, smi
+
+
+def toy_cases():
+    """Phase 2's tensors, nmodes 3-6: ``(tag, constructor, its arguments,
+    rank, dedup)``."""
+    from repro_torch.core import random_tensor, zipf_tensor
+
+    return [
+        ("random3", random_tensor, dict(dims=(230, 170, 110), nnz=7000,
+                                        seed=3, rows_pp=16, block_p=128),
+         32, True),
+        ("zipf4-heavy-dedup", zipf_tensor,
+         dict(dims=(500, 400, 300, 200), nnz=20000, a=2.0, seed=4,
+              rows_pp=16, block_p=128), 32, True),
+        ("random5-empty-parts", random_tensor,
+         dict(dims=(64, 50, 40, 30, 20), nnz=40, seed=5, rows_pp=2,
+              block_p=32), 16, True),
+        ("zipf6-trivial-tables", zipf_tensor,
+         dict(dims=(40, 30, 20, 10, 8, 6), nnz=3000, a=1.5, seed=6,
+              rows_pp=8, block_p=32), 8, False),
+    ]
 
 
 def phase_kernels(kmt):
@@ -282,22 +329,10 @@ def phase_kernels(kmt):
     empty partitions, trivial (dedup-off) tables."""
     import torch
     from repro_torch import engine
-    from repro_torch.core import random_tensor, zipf_tensor
     from repro_torch.engine import ExecutionConfig
 
-    cases = [
-        ("random3", random_tensor((230, 170, 110), 7000, seed=3, rows_pp=16,
-                                  block_p=128), 32, True),
-        ("zipf4-heavy-dedup", zipf_tensor((500, 400, 300, 200), 20000,
-                                          a=2.0, seed=4, rows_pp=16,
-                                          block_p=128), 32, True),
-        ("random5-empty-parts", random_tensor((64, 50, 40, 30, 20), 40,
-                                              seed=5, rows_pp=2, block_p=32),
-         16, True),
-        ("zipf6-trivial-tables", zipf_tensor((40, 30, 20, 10, 8, 6), 3000,
-                                             a=1.5, seed=6, rows_pp=8,
-                                             block_p=32), 8, False),
-    ]
+    cases = [(tag, make(**kw), rank, dedup)
+             for tag, make, kw, rank, dedup in toy_cases()]
     from repro_torch.engine.api import mode_layout
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -450,7 +485,8 @@ def phase_times(kmt, t, state0, factors, report, reps):
 
     n = t.nmodes
     rows = []
-    errs = dict.fromkeys(REPLACES, 0.0)
+    errs = dict.fromkeys(("mttkrp_fused_remap_compact",
+                          "mttkrp_fused_gather_compact"), 0.0)
     state = state0
     for _ in range(n):
         d = state.mode
@@ -507,15 +543,421 @@ def phase_times(kmt, t, state0, factors, report, reps):
     return rows, errs
 
 
-def kernels_record(rows, launches, errs):
+# --------------------------------------------------------------------------
+# The four kernels of the plan-space path: [2b], [7], [8], [9].
+# --------------------------------------------------------------------------
+def run_new(kmt, name, L, factors, d, plan, smax=None, plain=False):
+    """Kernel ``name`` (or its plain version) on mode ``d``'s layout
+    ``L``, with the operands its backend builds: the pre-gathered
+    ``(S, N-1, R)`` operand for ``cuda``, the ``(N-1, S)`` row table for
+    rect ``cuda_fused``."""
+    from repro_torch.engine.backends import fused_lidx, pregather
+
+    inputs = tuple(f for w, f in enumerate(factors) if w != d)
+    fn = getattr(kmt, name + "_plain" if plain else name)
+    rect = dict(kappa=plan.kappa, rows_pp=plan.rows_pp,
+                blocks_pp=plan.blocks_pp, block_p=plan.block_p)
+    extra = {} if plain else {"pstart": L["pstart"]}
+    if name == "mttkrp_fused_compact":
+        return fn(pregather(L["idx"], factors, d), L["val"], L["lrow"],
+                  L["bpart"], kappa=plan.kappa, rows_pp=plan.rows_pp,
+                  nblocks=plan.nblocks, block_p=plan.block_p, **extra)
+    if name == "mttkrp_fused":
+        return fn(pregather(L["idx"], factors, d), L["val"], L["lrow"],
+                  **rect, **extra)
+    lidx = fused_lidx(L["idx"], d)
+    if name == "mttkrp_fused_gather":
+        return fn(L["val"], L["lrow"], lidx, inputs, **rect, **extra)
+    return fn(L["val"], L["idx"], L["alpha"], L["lrow"], lidx, inputs,
+              smax=smax, next_mode=(d + 1) % len(factors), **rect, **extra)
+
+
+def torch_ec(L, factors, d, plan, config, smax=None):
+    """The ``torch`` backend's EC (+ its ``index_copy_`` remap when
+    ``smax`` is given): each kernel's multi-call yardstick."""
+    from repro_torch.engine.backends import ec_torch
+    from repro_torch.kernels.mttkrp import remap_plain
+
+    out = ec_torch(L, factors, d, plan=plan, config=config)
+    if smax is None:
+        return out
+    return out, remap_plain(L["val"], L["idx"], L["alpha"], smax=smax,
+                            next_mode=(d + 1) % len(factors))
+
+
+def torch_row_stats(L, factors, d, plan, config):
+    """Per ``out_rel`` element, the absolute sum of its terms and their
+    count (the ``torch`` backend on absolute inputs and on ones), for any
+    schedule."""
+    import torch
+
+    abs_sum = torch_ec(dict(L, val=L["val"].abs()),
+                       [f.abs() for f in factors], d, plan, config)
+    terms = torch_ec(dict(L, val=torch.ones_like(L["val"])),
+                     [torch.ones_like(f) for f in factors], d, plan, config)
+    return abs_sum, terms
+
+
+def check_new_kernels(kmt, state, L, factors, d, tag, names):
+    """Each kernel of ``names`` against its plain version on mode ``d``'s
+    layout: ``out_rel`` within the two-sided limit, remap outputs bitwise.
+    Returns each kernel's max |kernel - plain|."""
+    plan = state.statics[d]
+    lim = limit(*torch_row_stats(L, factors, d, plan, state.config),
+                state.nmodes, sides=2)
+    errs = {}
+    for name in names:
+        got = run_new(kmt, name, L, factors, d, plan, state.smax)
+        want = run_new(kmt, name, L, factors, d, plan, state.smax,
+                       plain=True)
+        if name == "mttkrp_fused_remap":
+            for field, g, w in zip(("nval", "nidx", "nalpha"), got[1:],
+                                   want[1:]):
+                exact(f"{tag} mode {d} {name} {field}", g, w)
+            got, want = got[0], want[0]
+        errs[name] = close_to(f"{tag} mode {d} {name} out_rel", got, want,
+                              lim)[0]
+    return errs
+
+
+def new_byte_bound(name, L, plan, d, smax, n, rank):
+    """Bytes the function must move on this run's data: ``lrow`` for
+    every slot (it says which slots are alive), and for the alive slots
+    only ``val`` and either their pre-gathered operand rows
+    (``mttkrp_fused[_compact]``) or their ``lidx`` entries plus each
+    factor row in use once (the gather kernels); the block-start table;
+    ``out_rel`` written once; the remap adds the alive slots' ``idx`` and
+    ``alpha`` read and the whole next layout written."""
+    import torch
+
+    s = plan.padded_nnz
+    alive = L["lrow"] >= 0
+    a = int(alive.sum())
+    b = 4 * (s + a + plan.kappa + 1 + plan.relabeled_rows * rank)
+    rows_used = 0
+    if name in ("mttkrp_fused", "mttkrp_fused_compact"):
+        b += 4 * a * (n - 1) * rank
+    else:
+        rows_used = sum(int(torch.unique(L["idx"][:, w][alive]).numel())
+                        for w in range(n) if w != d)
+        b += 4 * (a * (n - 1) + rows_used * rank)
+    if name == "mttkrp_fused_remap":
+        b += 4 * (2 * a * n + smax * (1 + 2 * n))
+    return b, rows_used, a
+
+
+def time_new_kernels(kmt, state, factors, names, reps, tag):
+    """Per mode of one rotation: each kernel of ``names`` against its
+    plain version (raising), then kernel, plain and ``torch`` backend
+    times (CUDA events; the ``cuda`` backend's PyTorch gather timed
+    apart), byte bound. Returns (rows, max |kernel - plain| per kernel)."""
+    from repro_torch import engine
+    from repro_torch.engine.api import mode_layout
+    from repro_torch.engine.backends import pregather
+
+    n = state.nmodes
+    rows, errs = [], dict.fromkeys(names, 0.0)
+    for _ in range(n):
+        d = state.mode
+        plan = state.statics[d]
+        L = mode_layout(state, (state.val, state.idx, state.alpha), d)
+        for k, e in check_new_kernels(kmt, state, L, factors, d, tag,
+                                      names).items():
+            errs[k] = max(errs[k], e)
+        row = {"mode": d, "kappa": plan.kappa, "rows_pp": plan.rows_pp,
+               "nblocks": plan.nblocks, "slots": plan.padded_nnz}
+        for name in names:
+            smax = state.smax if name == "mttkrp_fused_remap" else None
+            nbytes, rows_used, a = new_byte_bound(name, L, plan, d,
+                                                  state.smax, n, RANK)
+            flops = a * RANK * n
+            r = {}
+            if name in ("mttkrp_fused", "mttkrp_fused_compact"):
+                # the kernel's time excludes its operand's PyTorch gather
+                args = (pregather(L["idx"], factors, d), L["val"],
+                        L["lrow"])
+                kw = dict(kappa=plan.kappa, rows_pp=plan.rows_pp,
+                          block_p=plan.block_p, pstart=L["pstart"])
+                if name == "mttkrp_fused":
+                    kernel = functools.partial(kmt.mttkrp_fused, *args,
+                                               blocks_pp=plan.blocks_pp,
+                                               **kw)
+                else:
+                    kernel = functools.partial(
+                        kmt.mttkrp_fused_compact, *args, L["bpart"],
+                        nblocks=plan.nblocks, **kw)
+                args = None
+                r["gather_ms"] = cuda_ms(
+                    functools.partial(pregather, L["idx"], factors, d), reps)
+            else:
+                kernel = functools.partial(run_new, kmt, name, L, factors, d,
+                                           plan, state.smax)
+            r.update({
+                "ms": cuda_ms(kernel, reps),
+                "plain_ms": cuda_ms(lambda: run_new(
+                    kmt, name, L, factors, d, plan, state.smax,
+                    plain=True), reps),
+                "torch_backend_ms": cuda_ms(lambda: torch_ec(
+                    L, factors, d, plan, state.config, smax), reps),
+                "bytes": nbytes, "alive_slots": a,
+                "factor_rows_used": rows_used, "flops": flops,
+                "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                      flops / F32_FLOP_PER_S),
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                             >= flops / F32_FLOP_PER_S else "operations")})
+            kernel = None   # frees the pre-gathered operand
+            row[name] = r
+            log(f"[{tag}] mode {d} {name}: {r['ms']:.3f} ms (plain "
+                f"{r['plain_ms']:.3f}, torch backend "
+                f"{r['torch_backend_ms']:.3f}"
+                + (f", gather {r['gather_ms']:.3f}" if "gather_ms" in r
+                   else "")
+                + f", bound {r['bound_ms']:.4f}) | blocks {plan.nblocks} "
+                f"kappa {plan.kappa} alive {a} of {plan.padded_nnz} slots")
+        rows.append(row)
+        _, state = engine.mttkrp(state, factors)
+    return rows, errs
+
+
+def phase_kernels_baseline(kmt):
+    """[2b] The four kernels of the plan-space path against their plain
+    versions at phase 2's shapes (nmodes 3-6, empty partitions): the
+    pre-gathered compact kernel on the compact plans, the rect kernels on
+    rect plans of the same tensors."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.engine.api import mode_layout
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for tag, make, kw, rank, _ in toy_cases():
+        for schedule, backend, names in (
+                ("compact", "cuda", ("mttkrp_fused_compact",)),
+                ("rect", "cuda_fused", RECT_NEW)):
+            t = make(**kw, schedule=schedule)
+            state = engine.init(t, ExecutionConfig(backend=backend))
+            factors = [torch.randn((d, rank), generator=g, device="cuda")
+                       for d in t.dims]
+            err = 0.0
+            for _ in range(t.nmodes):
+                d = state.mode
+                L = mode_layout(state, (state.val, state.idx, state.alpha),
+                                d)
+                err = max(err, *check_new_kernels(
+                    kmt, state, L, factors, d, f"{tag} {schedule}",
+                    names).values())
+                _, state = engine.mttkrp(state, factors)
+            torch.cuda.synchronize()
+            empty = sum(int((p.part_nnz == 0).sum()) for p in t.plans)
+            log(f"[2b] {tag} {schedule}: {', '.join(names)} == plain "
+                f"(empty partitions {empty}, max|err| {err:.2e})")
+
+
+def check_rotation(tag, outs, oracle, state0, state1, n):
+    errs, shares = zip(*(close_to(f"{tag} mode {d} vs mttkrp_ref", outs[d],
+                                  *oracle[d]) for d in range(n)))
+    for name in ("val", "idx", "alpha"):
+        exact(f"{tag} layout {name} after rotation", getattr(state1, name),
+              getattr(state0, name))
+    return max(errs), max(shares)
+
+
+def phase_cuda_compact(kmt, coo, factors, oracle, torch_fits, report,
+                       reps):
+    """[7] The plan-space path on the pre-gathered baseline at nell1 scale
+    0.1 (the main path's full size): ``make_engine(coo, PlanSpec(backend=
+    "cuda"), cache=PlanCache())``, one rotation against the oracle,
+    ``cp_als`` under the spec's config against the ``torch`` backend's
+    fits of phase 3 (same data, plans and initial factors), then the
+    kernel's times."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import PlanCache, cp_als
+    from repro_torch.engine import PlanSpec, make_engine
+    from repro_torch.engine.api import as_flycoo
+
+    n = len(coo[2])
+    spec = PlanSpec(backend="cuda", rank_hint=RANK)
+    cache = PlanCache()
+    t0 = time.perf_counter()
+    kmt.reset_launch_counts()
+    state0 = make_engine(coo, spec, cache=cache)
+    host_s = time.perf_counter() - t0
+    outs, state1 = engine.all_modes(state0, factors)
+    t = as_flycoo(coo, spec.to_config(), cache)
+    res = cp_als(t, RANK, iters=3, config=spec.to_config(), factors=factors)
+    torch.cuda.synchronize()
+    launches = kmt.LAUNCHES["mttkrp_fused_compact"]
+    if launches == 0:
+        raise AssertionError("the cuda backend never launched "
+                             "mttkrp_fused_compact")
+    err, share = check_rotation("[7] nell1 cuda", outs, oracle, state0,
+                                state1, n)
+    fit_diff = max(abs(a - b) for a, b in zip(res.fits, torch_fits))
+    if not all(f == f and abs(f) < 1e30 for f in res.fits) \
+            or fit_diff > FIT_ATOL:
+        raise AssertionError(f"fits {res.fits} vs torch backend "
+                             f"{torch_fits}")
+    log(f"[7] make_engine(PlanSpec(backend='cuda')): plan + init "
+        f"{host_s:.1f} s, cache {cache.stats()}; all_modes == mttkrp_ref "
+        f"(max err {err:.3e}, {share:.2e} of the limit); layout bitwise "
+        f"back; mttkrp_fused_compact launches {launches}; cp_als fits "
+        f"{res.fits} (max diff to torch backend {fit_diff:.2e})")
+    rows, errs = time_new_kernels(kmt, state0, factors,
+                                  ("mttkrp_fused_compact",), reps, "7")
+    report["cuda_compact"] = {"fits": res.fits, "fit_diff": fit_diff,
+                              "max_err": err, "max_err_share": share,
+                              "host_s": host_s, "cache": cache.stats(),
+                              "times": rows}
+    return rows, errs, {"mttkrp_fused_compact": launches}
+
+
+def phase_rect(kmt, report, reps):
+    """[8] The rect schedule at nell1 scale 0.01 through ``make_engine``:
+    ``cuda_fused`` with the fused remap (``mttkrp_fused_remap``), without
+    it (``mttkrp_fused_gather``), and ``cuda`` (``mttkrp_fused``), each
+    against the oracle with the layout bitwise back, then the kernels'
+    times.
+
+    Not at scale 0.1: rect pads every partition to the hottest one, so
+    mode 2 there has 1.65G slots, and one resident layout (val + idx +
+    alpha, 28 B a slot at N = 3) takes 46 GB; the remap writes a second.
+    At scale 0.01 both layouts take about 2 GB. The slot counts, printed
+    before anything is placed, are the paper's case for the compact
+    schedule (Fig. 8)."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import PlanCache, init_factors, spec, synthesize
+    from repro_torch.engine import PlanSpec, make_engine
+    from repro_torch.engine.api import as_flycoo
+
+    t0 = time.perf_counter()
+    ts = spec("nell1", scale=0.01)
+    indices, values = synthesize(ts, seed=0)
+    coo = (indices, values, ts.dims)
+    n = len(ts.dims)
+    cache = PlanCache()
+    sizes = {}
+    for schedule in ("compact", "rect"):
+        cfg = PlanSpec(backend="cuda_fused", schedule=schedule,
+                       rank_hint=RANK).to_config()
+        sizes[schedule] = [p.padded_nnz for p in
+                           as_flycoo(coo, cfg, cache).plans]
+    smax = max(sizes["rect"])
+    layout_b = smax * 4 * (1 + 2 * n)
+    operand_b = smax * (n - 1) * RANK * 4
+    log(f"[8] nell1 scale 0.01: dims {ts.dims} nnz {len(values)}; slots "
+        f"per mode compact {sizes['compact']} rect {sizes['rect']} "
+        f"({len(values) / smax:.1%} of rect S_max alive); rect layout "
+        f"{layout_b / 1e9:.2f} GB (x2 during a remap), pre-gathered "
+        f"operand {operand_b / 1e9:.2f} GB; host "
+        f"{time.perf_counter() - t0:.1f} s")
+    factors = init_factors(torch.Generator(device="cuda").manual_seed(2),
+                           ts.dims, RANK)
+    torch.cuda.reset_peak_memory_stats()
+    oracle = mttkrp_oracle(torch.from_numpy(indices).cuda(),
+                           torch.from_numpy(values).cuda(), factors, ts.dims)
+    launches, timing_state = {}, None
+    for backend, fuse, name in (("cuda_fused", True, "mttkrp_fused_remap"),
+                                ("cuda_fused", False, "mttkrp_fused_gather"),
+                                ("cuda", True, "mttkrp_fused")):
+        kmt.reset_launch_counts()
+        state0 = make_engine(coo, PlanSpec(backend=backend, schedule="rect",
+                                           fuse_remap=fuse, rank_hint=RANK),
+                             cache=cache)
+        outs, state1 = engine.all_modes(state0, factors)
+        torch.cuda.synchronize()
+        launches[name] = kmt.LAUNCHES[name]
+        if launches[name] == 0:
+            raise AssertionError(f"rect {backend} never launched {name}")
+        err, share = check_rotation(f"[8] rect {name}", outs, oracle,
+                                    state0, state1, n)
+        log(f"[8] rect {backend} fuse_remap={fuse}: all_modes == "
+            f"mttkrp_ref (max err {err:.3e}, {share:.2e} of the limit); "
+            f"layout bitwise back; {name} launches {launches[name]}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        timing_state = timing_state or state0
+        del outs, state1
+    rows, errs = time_new_kernels(kmt, timing_state, factors, RECT_NEW, reps,
+                                  "8")
+    report["rect"] = {"dims": ts.dims, "nnz": len(values), "slots": sizes,
+                      "layout_bytes": layout_b, "operand_bytes": operand_b,
+                      "cache": cache.stats(), "times": rows}
+    return coo, cache, rows, errs, launches
+
+
+def phase_autotune(coo, cache, report):
+    """[9] ``autotune`` over backend x schedule x P x dedup at nell1 scale
+    0.01; ``measure`` is the CUDA-event ms of one ``all_modes`` (after a
+    warm-up rotation) of ``make_engine(coo, spec, cache=cache)``. The
+    hill-climb starts at the modeled pick, whose modeled cost must not
+    exceed the default's."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import init_factors
+    from repro_torch.engine import PlanSpace, PlanSpec, autotune, \
+        make_engine
+
+    factors = init_factors(torch.Generator(device="cuda").manual_seed(3),
+                           coo[2], RANK)
+
+    def measure(spec):
+        state = make_engine(coo, spec, cache=cache)
+        return cuda_ms(lambda: engine.all_modes(state, factors), 1)
+
+    space = PlanSpace(backend=("cuda_fused", "cuda"),
+                      schedule=("compact", "rect"), block_p=(64, 128, 256),
+                      dedup=(True, False),
+                      base=PlanSpec(backend="cuda_fused", rank_hint=RANK))
+    t0 = time.perf_counter()
+    res = autotune(*coo, space, measure=measure, cache=cache, seed=0)
+    tune_s = time.perf_counter() - t0
+
+    def name(s):
+        return (f"{s.backend}/{s.schedule}/P{s.block_p}"
+                + ("" if s.dedup else "/nodedup"))
+
+    pick = res.trace[0]["spec"]
+    if res.modeled[pick] > res.modeled[res.default]:
+        raise AssertionError(f"modeled pick {name(pick)} "
+                             f"{res.modeled[pick]} > default "
+                             f"{res.modeled[res.default]}")
+    top = sorted(res.analytic.items(), key=lambda kv: kv[1])
+    log(f"[9] autotune: space {len(res.analytic)} specs, {tune_s:.1f} s, "
+        f"cache {cache.stats()}")
+    log("[9] analytic top 4: " + "; ".join(
+        f"{name(s)} {c:.4g}" for s, c in top[:4]))
+    log("[9] modeled: " + "; ".join(
+        f"{name(s)} {c:.4g}" for s, c in res.modeled.items()))
+    log("[9] measured ms: " + "; ".join(
+        f"{name(s)} {t:.3f}" for s, t in res.measured.items()))
+    log("[9] hill climb: " + " | ".join(
+        f"{st['step']}: {name(st['spec'])} {st['time']:.3f} ms "
+        f"({st['move']})" for st in res.trace))
+    log(f"[9] modeled pick {name(pick)} ({res.modeled[pick]:.4g} <= default "
+        f"{name(res.default)} {res.modeled[res.default]:.4g}); measured "
+        f"pick {name(res.best)} (modeled {res.modeled[res.best]:.4g})")
+    report["autotune"] = {
+        "space": len(res.analytic), "seconds": tune_s,
+        "analytic_top": [(name(s), c) for s, c in top[:4]],
+        "modeled": {name(s): c for s, c in res.modeled.items()},
+        "measured_ms": {name(s): t for s, t in res.measured.items()},
+        "trace": [(st["step"], name(st["spec"]), st["time"], st["move"])
+                  for st in res.trace],
+        "modeled_pick": name(pick), "measured_pick": name(res.best),
+        "default": name(res.default)}
+
+
+def kernels_record(per_kernel, launches, errs):
+    """The ``kernels`` JSON line: ``per_kernel`` maps each kernel to its
+    per-mode timing rows and a note of the tensor they were timed at."""
     out = []
-    for kname in ("mttkrp_fused_remap_compact",
-                  "mttkrp_fused_gather_compact"):
+    for kname, (rows, where) in per_kernel.items():
         per = [r[kname] for r in rows]
         bytes_ms = 1e3 * sum(p["bytes"] for p in per) / HBM_BYTES_PER_S
         ops_ms = 1e3 * sum(p["flops"] for p in per) / F32_FLOP_PER_S
-        out.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
+        rec = {
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": errs[kname],
             "ms": sum(p["ms"] for p in per),
@@ -524,17 +966,19 @@ def kernels_record(rows, launches, errs):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
             "torch_backend_ms": sum(p["torch_backend_ms"] for p in per),
-            "per": "one rotation over the 3 modes of nell1 (scale 0.1, "
-                   "R 32); library_ms null: no single PyTorch call "
-                   "computes MTTKRP",
-        })
+            "per": f"one rotation over the modes of {where}; library_ms "
+                   "null: no single PyTorch call computes MTTKRP",
+        }
+        if "gather_ms" in per[0]:
+            rec["gather_ms"] = sum(p["gather_ms"] for p in per)
+        out.append(rec)
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels only (phases 1-2)")
+                    help="build and check the kernels only (phases 1-2b)")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per measurement (after a warm-up)")
     args = ap.parse_args(argv)
@@ -551,6 +995,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     name, smi = phase_card()
     phase_kernels(kmt)
+    phase_kernels_baseline(kmt)
     if args.quick:
         log(f"quick run passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -558,7 +1003,26 @@ def main(argv=None) -> int:
     t, state0, factors, launches = main_path(kmt, report)
     phase_twitch(kmt)
     rows, errs = phase_times(kmt, t, state0, factors, report, args.reps)
-    kernels = kernels_record(rows, launches, errs)
+    nell1 = "nell1 (scale 0.1, compact, R 32)"
+    per_kernel = {k: (rows, nell1) for k in errs}
+    coo = (t.indices, t.values, t.dims)
+    oracle = mttkrp_oracle(torch.from_numpy(t.indices).cuda(),
+                           torch.from_numpy(t.values).cuda(), factors,
+                           t.dims)
+    del state0, t
+    rows7, errs7, launches7 = phase_cuda_compact(
+        kmt, coo, factors, oracle, report["nell1"]["torch_fits"], report,
+        args.reps)
+    del oracle
+    per_kernel["mttkrp_fused_compact"] = (rows7, nell1)
+    coo8, cache8, rows8, errs8, launches8 = phase_rect(kmt, report,
+                                                       args.reps)
+    for k in RECT_NEW:
+        per_kernel[k] = (rows8, "nell1 (scale 0.01, rect, R 32)")
+    phase_autotune(coo8, cache8, report)
+    kernels = kernels_record(per_kernel,
+                             {**launches, **launches7, **launches8},
+                             {**errs, **errs7, **errs8})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

@@ -24,6 +24,7 @@ reads each slot's operand at ``upos``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -65,6 +66,15 @@ def _dedup_tables_batched(rows: np.ndarray, nblocks: int, block_p: int):
     fix, bix, six = np.nonzero(isnew)
     uidx[fix, bix, upos_sorted[fix, bix, six]] = srt[fix, bix, six]
     return uidx.reshape(f, s), upos.reshape(f, s), nuniq
+
+
+def dedup_tables_from_rows(rows: np.ndarray, nblocks: int, block_p: int):
+    """Single-factor form of :func:`_dedup_tables_batched`: ``rows`` is
+    ``(S,)`` with ``_ROW_SENTINEL`` marking pad slots; returns ``(uidx
+    (S,), upos (S,), nuniq (nblocks,))`` int32."""
+    uidx, upos, nuniq = _dedup_tables_batched(
+        np.asarray(rows)[None, :], nblocks, block_p)
+    return uidx[0], upos[0], nuniq[0]
 
 
 @dataclasses.dataclass
@@ -145,6 +155,31 @@ class FlycooTensor:
         nuniq = np.full((nm1, plan.nblocks), plan.block_p, dtype=np.int32)
         return uidx, upos, nuniq
 
+    def dma_row_model(self, d: int) -> dict:
+        """Modeled factor-row copies for the mode-``d`` in-kernel gather:
+        per-slot copies (``nblocks * P`` per input factor, what a kernel
+        without dedup stages) against per-block-unique copies (``sum
+        nuniq``). The ratio is the in-block hot-row re-fetch factor the
+        dedup stage removes."""
+        plan = self.plans[d]
+        nm1 = self.nmodes - 1
+        _, _, nuniq = self.dedup_tables(d)
+        per_slot = plan.nblocks * plan.block_p * nm1
+        return {
+            "per_slot_rows": int(per_slot),
+            "dedup_rows": int(nuniq.sum()),
+            "dedup_reduction_x": float(per_slot / max(int(nuniq.sum()), 1)),
+        }
+
+    def memory_bits_per_element(self, float_bits: int = 32) -> float:
+        """Paper Sec. 3.5.1: N*log2(|X|) + sum_h log2(I_h) + delta_float."""
+        n = self.nmodes
+        return (
+            n * math.log2(max(self.nnz, 2))
+            + sum(math.log2(max(i, 2)) for i in self.dims)
+            + float_bits
+        )
+
 
 def build_flycoo(
     indices: np.ndarray,
@@ -154,11 +189,17 @@ def build_flycoo(
     rows_pp: int | None = None,
     block_p: int = 128,
     schedule: str = DEFAULT_SCHEDULE,
+    degrees: Sequence[np.ndarray] | None = None,
+    plans: Sequence[ModePlan] | None = None,
 ) -> FlycooTensor:
     """Preprocess a COO tensor into FLYCOO format (paper Sec. 5.7 cost:
     O(nnz log nnz) per mode, touching only nonzeros).
 
-    ``kappa`` may be per-mode (a sequence).
+    ``kappa`` may be per-mode (a sequence). ``degrees`` (per-mode
+    ``bincount`` vectors) lets the plan cache hand down the histograms it
+    already computed; ``plans`` skips :func:`plan_mode` entirely (the
+    cache-hit path: the caller guarantees the plans match this element
+    list, so the index range scan is skipped too).
     """
     indices = np.ascontiguousarray(np.asarray(indices, dtype=np.int32))
     values = np.ascontiguousarray(np.asarray(values, dtype=np.float32))
@@ -168,6 +209,11 @@ def build_flycoo(
     if len(dims) != n or n < 3:
         raise ValueError("the paper targets tensors of mode >= 3 with one "
                          f"dim per index column; got dims {tuple(dims)}")
+    if plans is not None:
+        if len(plans) != n:
+            raise ValueError(f"{len(plans)} plans for {n} modes")
+        return FlycooTensor(tuple(int(x) for x in dims), indices, values,
+                            list(plans))
     idx_t = np.ascontiguousarray(indices.T)
     for d in range(n):
         if idx_t[d].min(initial=0) < 0 or idx_t[d].max(initial=0) >= dims[d]:
@@ -179,5 +225,6 @@ def build_flycoo(
         with _obs_span("plan.mode", mode=d, nnz=int(values.shape[0])):
             plans.append(plan_mode(
                 idx_t[d], int(dims[d]), d, kappa=kappas[d], rows_pp=rows_pp,
-                block_p=block_p, schedule=schedule))
+                block_p=block_p, schedule=schedule,
+                degrees=None if degrees is None else degrees[d]))
     return FlycooTensor(tuple(int(x) for x in dims), indices, values, plans)

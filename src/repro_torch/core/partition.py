@@ -1,7 +1,8 @@
 """Tensor partitioning scheme (paper Alg. 1) + row relabeling.
 
 The port's copy of ``repro.core.partition`` (``ModePlan``, ``plan_mode``
-and its helpers), kept bitwise-equal to the reference by the tests.
+and its helpers, ``plan_from_structure`` and ``plan_mode_reference``),
+kept bitwise-equal to the reference by the tests.
 
 Per output mode d:
   1. order mode-d vertices (output factor rows) by the number of incident
@@ -198,6 +199,92 @@ def plan_mode(
         schedule=schedule,
         nblocks=nblocks,
         row_relabel=row_relabel,
+        slot_of_elem=slot_of_elem,
+        part_nnz=part_nnz,
+        block_part=block_part,
+        max_degree=int(degrees.max(initial=0)),
+    )
+
+
+def plan_from_structure(indices_d: np.ndarray, base: ModePlan) -> ModePlan:
+    """Rebuild a plan for a *reordered* element list from a cached one.
+
+    Everything order-invariant — the degree sort, the cyclic deal, the
+    relabeling and the block layout — is reused from ``base`` verbatim
+    (shared arrays); only the order-dependent ``slot_of_elem`` is
+    recomputed. The caller guarantees ``indices_d`` has exactly ``base``'s
+    degree per vertex (the plan cache checks per-mode degree equality
+    before taking this path); the result is then bitwise-equal to a cold
+    :func:`plan_mode` on ``indices_d``.
+    """
+    part_of_vertex = (base.row_relabel // base.rows_pp).astype(
+        _part_dtype(base.kappa))
+    block_start = np.concatenate(
+        [[0], np.cumsum(np.bincount(base.block_part,
+                                    minlength=base.kappa))])
+    slot_of_elem = _slots_for(np.asarray(indices_d), part_of_vertex,
+                              base.part_nnz, block_start, base.block_p)
+    return dataclasses.replace(base, slot_of_elem=slot_of_elem)
+
+
+def plan_mode_reference(
+    indices_d: np.ndarray,
+    dim: int,
+    mode: int,
+    kappa: int | None = None,
+    rows_pp: int | None = None,
+    block_p: int = DEFAULT_BLOCK_P,
+    schedule: str = DEFAULT_SCHEDULE,
+) -> ModePlan:
+    """The straightforward (unvectorized) Alg. 1: the bitwise parity oracle
+    of :func:`plan_mode`, in wide dtypes with two gathers."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
+    indices_d = np.asarray(indices_d, dtype=np.int64)
+    nnz = indices_d.shape[0]
+    if kappa is None:
+        kappa = choose_kappa(dim, rows_pp or DEFAULT_ROWS_PER_PARTITION)
+    kappa = min(kappa, dim)  # never more partitions than rows
+    rows_pp = math.ceil(dim / kappa)
+
+    degrees = np.bincount(indices_d, minlength=dim)
+    vsort = np.argsort(-degrees, kind="stable")  # (I_d,) vertex ids
+
+    part_of_rank = np.arange(dim) % kappa
+    local_of_rank = np.arange(dim) // kappa
+    row_relabel = np.empty(dim, dtype=np.int64)
+    row_relabel[vsort] = part_of_rank * rows_pp + local_of_rank
+    part_of_vertex = np.empty(dim, dtype=np.int64)
+    part_of_vertex[vsort] = part_of_rank
+
+    part_of_elem = part_of_vertex[indices_d]
+    part_nnz = np.bincount(part_of_elem, minlength=kappa)
+
+    blocks_pp = max(1, math.ceil(int(part_nnz.max(initial=0)) / block_p))
+    if schedule == "rect":
+        part_blocks = np.full(kappa, blocks_pp, dtype=np.int64)
+    else:
+        part_blocks = np.maximum(1, -(-part_nnz // block_p))
+    block_start = np.concatenate([[0], np.cumsum(part_blocks)])  # (kappa+1,)
+    nblocks = int(block_start[-1])
+    block_part = np.repeat(np.arange(kappa), part_blocks).astype(np.int32)
+
+    order = np.argsort(part_of_elem, kind="stable")
+    rank_within = np.empty(nnz, dtype=np.int64)
+    part_starts = np.concatenate([[0], np.cumsum(part_nnz)])
+    rank_within[order] = np.arange(nnz) - part_starts[part_of_elem[order]]
+    slot_of_elem = block_start[part_of_elem] * block_p + rank_within
+
+    return ModePlan(
+        mode=mode,
+        kappa=int(kappa),
+        rows_pp=int(rows_pp),
+        block_p=int(block_p),
+        blocks_pp=int(blocks_pp),
+        dim=int(dim),
+        schedule=schedule,
+        nblocks=nblocks,
+        row_relabel=row_relabel.astype(np.int32),
         slot_of_elem=slot_of_elem,
         part_nnz=part_nnz,
         block_part=block_part,

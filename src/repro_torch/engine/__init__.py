@@ -1,11 +1,27 @@
-"""The port's functional spMTTKRP engine (see :mod:`.api`)."""
+"""The port's functional spMTTKRP engine (see :mod:`.api`), and above it
+the plan-space entry points: :func:`make_engine` builds an engine from
+one :class:`PlanSpec` through the plan cache, and :func:`autotune` picks
+a spec from a :class:`PlanSpace`.
+
+Observability (:mod:`repro_torch.obs`): spans ``factory.make_engine``,
+``autotune``, ``autotune.analytic``, ``autotune.exact``,
+``autotune.hill_climb``, ``autotune.measure``, ``plan.cache_lookup`` and
+the ``engine.*`` spans; counters ``engine_dispatches`` (per entry point)
+and ``plan_cache_outcomes`` (hit / structural / miss / disk_corrupt).
+"""
 from .api import (DISPATCH_COUNTS, FoldFn, all_modes, init, mttkrp,
                   reset_counters)
+from .autotune import (AutotuneResult, analytic_cost, autotune, hill_climb,
+                       modeled_cost)
 from .backends import BACKENDS, get_backend, register_backend
 from .config import ExecutionConfig
+from .factory import SPACE_DIMS, PlanSpace, PlanSpec, make_engine
 from .state import EngineState, ModeSched, ModeStatic
 
 __all__ = ["init", "mttkrp", "all_modes", "reset_counters",
            "DISPATCH_COUNTS", "FoldFn", "BACKENDS", "get_backend",
            "register_backend", "ExecutionConfig",
-           "EngineState", "ModeSched", "ModeStatic"]
+           "EngineState", "ModeSched", "ModeStatic", "PlanSpec",
+           "PlanSpace", "make_engine", "SPACE_DIMS", "autotune",
+           "AutotuneResult", "analytic_cost", "modeled_cost",
+           "hill_climb"]

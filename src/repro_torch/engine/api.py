@@ -45,19 +45,21 @@ def reset_counters() -> None:
 # init
 # --------------------------------------------------------------------------
 def init(tensor, config: ExecutionConfig | None = None,
-         start_mode: int = 0) -> EngineState:
+         start_mode: int = 0, *, cache=None) -> EngineState:
     """Build the device-resident engine state for ``tensor``.
 
     ``tensor`` is a prebuilt :class:`~repro_torch.core.flycoo.FlycooTensor`
     (its plans govern the layout) or a raw COO triple ``(indices, values,
     dims)`` — then the plans are built here under ``config``'s kappa
-    policy. The state holds the ``start_mode`` layout, padded to the
-    uniform slot count ``S_max``, on ``config.torch_device``.
+    policy (:func:`as_flycoo`), through ``cache`` (a
+    :class:`~repro_torch.core.plancache.PlanCache`) when one is given. The
+    state holds the ``start_mode`` layout, padded to the uniform slot
+    count ``S_max``, on ``config.torch_device``.
     """
     config = config or ExecutionConfig()
     dev = config.torch_device
     with span("engine.init", start_mode=start_mode) as sp:
-        tensor = _as_flycoo(tensor, config)
+        tensor = as_flycoo(tensor, config, cache=cache)
         n = tensor.nmodes
         if not 0 <= start_mode < n:
             raise ValueError(
@@ -121,16 +123,21 @@ def _mode_sched(tensor, d: int, config: ExecutionConfig) -> ModeSched:
     return mode_sched_arrays(plan.block_part, plan.kappa, dedup)
 
 
-def _as_flycoo(tensor, config: ExecutionConfig):
+def as_flycoo(tensor, config: ExecutionConfig, cache=None):
+    """``tensor`` as a :class:`~repro_torch.core.flycoo.FlycooTensor`: a
+    prebuilt one as it is; a COO triple ``(indices, values, dims)``
+    planned under ``config`` (per-mode ``kappa_for``, ``block_p``,
+    ``schedule``), through ``cache`` when one is given."""
     from repro_torch.core.flycoo import FlycooTensor, build_flycoo
 
     if isinstance(tensor, FlycooTensor):
         return tensor
     indices, values, dims = tensor
     n = len(dims)
-    return build_flycoo(indices, values, dims,
-                        kappa=[config.kappa_for(int(i), n) for i in dims],
-                        block_p=config.block_p, schedule=config.schedule)
+    build = cache.get_tensor if cache is not None else build_flycoo
+    return build(indices, values, dims,
+                 kappa=[config.kappa_for(int(i), n) for i in dims],
+                 block_p=config.block_p, schedule=config.schedule)
 
 
 # --------------------------------------------------------------------------
@@ -224,4 +231,4 @@ def all_modes(state: EngineState, factors: Sequence[torch.Tensor], *,
 
 
 __all__ = ["init", "mttkrp", "all_modes", "reset_counters", "mode_layout",
-           "mode_sched_arrays", "DISPATCH_COUNTS", "FoldFn"]
+           "mode_sched_arrays", "as_flycoo", "DISPATCH_COUNTS", "FoldFn"]

@@ -18,17 +18,24 @@ A backend may expose ``fused_remap``,
 
 doing EC and the Alg. 3 remap in one kernel pass.
 
-Registered backends (reference name in brackets):
+Registered backends (reference name in brackets); every backend serves
+both block schedules (``plan.schedule``):
   ==========  ============================================================
   torch       [xla] ``index_select`` gathers, ``index_add_`` segment sum
               over the relabeled rows (the default)
   ref         [ref] an alias of ``torch`` (eager PyTorch has no fusion
               for the two to differ in)
-  cuda_fused  [pallas_fused] the hand-written Hopper kernels
-              (``kernels/csrc/mttkrp_compact.cu``): one CTA per
-              partition, dedup-staged factor rows, shared-memory
-              accumulator; ``fused_remap`` adds the Alg. 3 scatter.
-              Compact schedule only.
+  cuda        [pallas] the fusion baseline (paper Fig. 7): a PyTorch
+              ``index_select`` + ``stack`` materializes the ``(S, N-1, R)``
+              operand in device memory, then the hand-written Hopper
+              kernel ``kernels/csrc/mttkrp_pregathered.cu`` reduces it,
+              one CTA per partition
+  cuda_fused  [pallas_fused] the hand-written Hopper kernels of
+              ``kernels/csrc/mttkrp_gather.cu``: one CTA per partition
+              gathers its factor rows into shared memory itself (compact:
+              dedup-staged unique rows; rect: each alive slot's row) and
+              keeps a shared-memory accumulator; ``fused_remap`` adds the
+              Alg. 3 scatter
   ==========  ============================================================
 """
 from __future__ import annotations
@@ -135,41 +142,80 @@ def ec_torch(layout, factors, mode: int, *, plan: ModeStatic,
 BACKENDS["ref"] = ec_torch
 
 
-def _require_compact(plan: ModeStatic):
-    if plan.schedule != "compact":
-        raise NotImplementedError(
-            "cuda_fused runs the compact schedule only; the rect-schedule "
-            "kernels are ROADMAP Queue B items 4-5 (mttkrp_fused_remap, "
-            "mttkrp_fused_gather), not yet ported")
-
-
 def _inputs(factors, mode: int):
     return tuple(f for w, f in enumerate(factors) if w != mode)
+
+
+def pregather(idx, factors, mode: int) -> torch.Tensor:
+    """The ``(S, N-1, R)`` operand of the ``cuda`` backend: each slot's
+    input-factor rows, gathered by PyTorch into device memory (as the
+    reference gathers it in XLA). Pads gather in-bounds row 0."""
+    return torch.stack([f.index_select(0, idx[:, w])
+                        for w, f in enumerate(factors) if w != mode], dim=1)
+
+
+@register_backend("cuda")
+def ec_cuda(layout, factors, mode: int, *, plan: ModeStatic,
+            config: ExecutionConfig) -> torch.Tensor:
+    """The pre-gathered baseline: :func:`pregather`, then
+    ``mttkrp_fused_compact`` / ``mttkrp_fused`` (rect)."""
+    gathered = pregather(layout["idx"], factors, mode)
+    if plan.schedule == "compact":
+        return kmt.mttkrp_fused_compact(
+            gathered, layout["val"], layout["lrow"], layout["bpart"],
+            kappa=plan.kappa, rows_pp=plan.rows_pp, nblocks=plan.nblocks,
+            block_p=plan.block_p, pstart=layout.get("pstart"))
+    return kmt.mttkrp_fused(
+        gathered, layout["val"], layout["lrow"], kappa=plan.kappa,
+        rows_pp=plan.rows_pp, blocks_pp=plan.blocks_pp, block_p=plan.block_p,
+        pstart=layout.get("pstart"))
+
+
+def fused_lidx(idx, mode: int) -> torch.Tensor:
+    """``(N-1, S)`` int32 row of each input factor per slot (rect); pads
+    hold in-bounds 0 and are skipped by the kernel (lrow < 0)."""
+    return torch.stack([idx[:, w] for w in range(idx.shape[1])
+                        if w != mode]).contiguous()
 
 
 @register_backend("cuda_fused")
 def ec_cuda_fused(layout, factors, mode: int, *, plan: ModeStatic,
                   config: ExecutionConfig) -> torch.Tensor:
-    """The Hopper compact EC kernel (``mttkrp_fused_gather_compact``)."""
-    _require_compact(plan)
-    return kmt.mttkrp_fused_gather_compact(
-        layout["val"], layout["lrow"], layout["upos"], layout["bpart"],
-        layout["uidx"], layout["nuniq"], _inputs(factors, mode),
-        kappa=plan.kappa, rows_pp=plan.rows_pp, nblocks=plan.nblocks,
-        block_p=plan.block_p, pstart=layout["pstart"])
+    """The in-kernel gather EC: ``mttkrp_fused_gather_compact`` (dedup-
+    staged) or ``mttkrp_fused_gather`` (rect)."""
+    inputs = _inputs(factors, mode)
+    if plan.schedule == "compact":
+        return kmt.mttkrp_fused_gather_compact(
+            layout["val"], layout["lrow"], layout["upos"], layout["bpart"],
+            layout["uidx"], layout["nuniq"], inputs, kappa=plan.kappa,
+            rows_pp=plan.rows_pp, nblocks=plan.nblocks,
+            block_p=plan.block_p, pstart=layout.get("pstart"))
+    return kmt.mttkrp_fused_gather(
+        layout["val"], layout["lrow"], fused_lidx(layout["idx"], mode),
+        inputs, kappa=plan.kappa, rows_pp=plan.rows_pp,
+        blocks_pp=plan.blocks_pp, block_p=plan.block_p,
+        pstart=layout.get("pstart"))
 
 
 def _cuda_fused_remap(layout, factors, mode: int, *, plan: ModeStatic,
                       config: ExecutionConfig, smax: int, next_mode: int):
-    """EC + Alg. 3 remap in ONE kernel pass
-    (``mttkrp_fused_remap_compact``)."""
-    _require_compact(plan)
-    out_rel, nval, nidx, nalpha = kmt.mttkrp_fused_remap_compact(
-        layout["val"], layout["idx"], layout["alpha"], layout["lrow"],
-        layout["upos"], layout["bpart"], layout["uidx"], layout["nuniq"],
-        _inputs(factors, mode), kappa=plan.kappa, rows_pp=plan.rows_pp,
-        nblocks=plan.nblocks, block_p=plan.block_p, smax=smax,
-        next_mode=next_mode, pstart=layout["pstart"])
+    """EC + Alg. 3 remap in ONE kernel pass (``mttkrp_fused_remap_compact``
+    or, under rect, ``mttkrp_fused_remap``)."""
+    inputs = _inputs(factors, mode)
+    if plan.schedule == "compact":
+        out_rel, nval, nidx, nalpha = kmt.mttkrp_fused_remap_compact(
+            layout["val"], layout["idx"], layout["alpha"], layout["lrow"],
+            layout["upos"], layout["bpart"], layout["uidx"], layout["nuniq"],
+            inputs, kappa=plan.kappa, rows_pp=plan.rows_pp,
+            nblocks=plan.nblocks, block_p=plan.block_p, smax=smax,
+            next_mode=next_mode, pstart=layout.get("pstart"))
+    else:
+        out_rel, nval, nidx, nalpha = kmt.mttkrp_fused_remap(
+            layout["val"], layout["idx"], layout["alpha"], layout["lrow"],
+            fused_lidx(layout["idx"], mode), inputs, kappa=plan.kappa,
+            rows_pp=plan.rows_pp, blocks_pp=plan.blocks_pp,
+            block_p=plan.block_p, smax=smax, next_mode=next_mode,
+            pstart=layout.get("pstart"))
     return out_rel, (nval, nidx, nalpha)
 
 
@@ -179,4 +225,5 @@ ec_cuda_fused.needs_dedup = True
 
 
 __all__ = ["BACKENDS", "register_backend", "get_backend", "compute_lrow",
-           "ec_torch", "ec_cuda_fused"]
+           "ec_torch", "ec_cuda", "ec_cuda_fused", "pregather",
+           "fused_lidx"]

@@ -6,12 +6,17 @@ interpret mode), plus ``device``. The streaming fields (``residency``,
 ``chunk_nnz``, ``device_budget_bytes``, ``stream_ring``) come with the
 streaming slice; ``donate`` has no meaning in eager PyTorch.
 
-Backends map one-to-one onto the reference's:
+Backends map one-to-one onto the reference's; each serves both block
+schedules:
 
   ===========  ==============  ==========================================
   port         reference       what runs
   ===========  ==============  ==========================================
-  cuda_fused   pallas_fused    hand-written Hopper kernels (EC + remap)
+  cuda_fused   pallas_fused    hand-written Hopper kernels that gather
+                               the factor rows themselves (EC + remap)
+  cuda         pallas          PyTorch gathers the ``(S, N-1, R)``
+                               operand, a hand-written Hopper kernel
+                               reduces it (the fusion baseline)
   torch        xla (default)   ``index_select`` + ``index_add_``
   ref          ref             an alias of ``torch``
   ===========  ==============  ==========================================
@@ -24,6 +29,11 @@ also keeps at least ``min_partitions`` (default ``2 x 132``, twice the
 H100's SM count, capped at the mode's size) partitions so a short mode
 still spreads over the SMs. With ``min_partitions=1`` and the same
 ``rows_pp`` the plans equal the reference's.
+
+The reference derives its VMEM budget from the device budget
+(``derive_vmem_budget``); the port has no counterpart. A Hopper block's
+shared memory is the card's fixed 227 KB, not a share of device memory,
+so ``smem_budget_bytes`` defaults to that and nothing derives it.
 """
 from __future__ import annotations
 
@@ -45,7 +55,7 @@ class ExecutionConfig:
     """Static execution policy for the engine (frozen, hashable).
 
     Attributes:
-      backend: ``cuda_fused`` | ``torch`` | ``ref``.
+      backend: ``cuda_fused`` | ``cuda`` | ``torch`` | ``ref``.
       device: where the engine state lives. ``None`` means ``"cuda"``; a
         config asking for CUDA on a machine without a card raises here
         rather than running somewhere else.

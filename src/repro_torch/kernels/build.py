@@ -27,10 +27,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # name -> C signatures (restype, argtypes) to declare on load.
 SIGNATURES = {
-    "mttkrp_compact": {
-        "mttkrp_compact_launch": (_I, [_VP] * 6 + [_VP, _I] + [_I] * 5
-                                  + [_VP, _VP, _VP, _I, _I]
-                                  + [_VP, _VP, _VP, _VP]),
+    "mttkrp_gather": {
+        "mttkrp_gather_launch": (_I, [_VP] * 7 + [_I] * 7 + [_VP] * 3
+                                 + [_I] * 2 + [_VP] * 4),
+    },
+    "mttkrp_pregathered": {
+        "mttkrp_pregathered_launch": (_I, [_VP] * 4 + [_I] * 5 + [_VP] * 2),
     },
 }
 

@@ -129,12 +129,112 @@ def test_backends_match_reference_xla(schedule, backend, fuse):
 
 
 def test_cuda_fused_refuses_rect_schedule():
+    """``cuda_fused`` takes the rect schedule too (``mttkrp_fused_remap``,
+    or ``mttkrp_fused_gather`` with ``fuse_remap=False``): on the CPU it
+    runs their plain versions, launches nothing, and matches the COO
+    oracle."""
+    from repro_torch.core import mttkrp_ref
+    from repro_torch.kernels import mttkrp as kmt
+
     idx, val, dims, facs, kw = _case(3, schedule="rect")
-    state = engine.init(build_flycoo(idx, val, dims, **kw),
-                        ExecutionConfig(backend="cuda_fused", device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue B items 4-5"):
-        engine.all_modes(state, interop.factors_from_numpy(facs,
-                                                           device="cpu"))
+    tf = interop.factors_from_numpy(facs, device="cpu")
+    ti, tv = torch.from_numpy(idx), torch.from_numpy(val)
+    before = dict(kmt.LAUNCHES)
+    for fuse in (True, False):
+        state = engine.init(build_flycoo(idx, val, dims, **kw),
+                            ExecutionConfig(backend="cuda_fused",
+                                            device="cpu", fuse_remap=fuse))
+        outs, nxt = engine.all_modes(state, tf)
+        for d in range(3):
+            np.testing.assert_allclose(
+                outs[d].numpy(), mttkrp_ref(ti, tv, tf, d, dims[d]).numpy(),
+                **TOL)
+        _same_layout(nxt, state)
+    assert kmt.LAUNCHES == before
+
+
+@pytest.mark.parametrize("backend,schedule,fuse", [
+    ("cuda", "compact", True), ("cuda", "rect", True),
+    ("cuda_fused", "rect", True), ("cuda_fused", "rect", False)])
+def test_cuda_backends_match_reference_pallas(backend, schedule, fuse):
+    """``cuda`` (both schedules) and rect ``cuda_fused`` against the
+    reference's ``pallas`` / ``pallas_fused`` on the same plans: every
+    mode's output within the tolerance, the layout bitwise equal to the
+    reference's after the rotation and back at its start."""
+    idx, val, dims, facs, kw = _case(4, nnz=220, seed=5, schedule=schedule,
+                                     block_p=16)
+    ref_backend = {"cuda": "pallas", "cuda_fused": "pallas_fused"}[backend]
+    r0 = rengine.init(rbuild(idx, val, dims, **kw),
+                      RConfig(backend=ref_backend, interpret=True,
+                              fuse_remap=fuse), start_mode=1)
+    cfg = ExecutionConfig(backend=backend, device="cpu", fuse_remap=fuse)
+    t0 = _ported(r0, cfg)
+    routs, r1 = rengine.all_modes(r0, tuple(jnp.asarray(f) for f in facs))
+    touts, t1 = engine.all_modes(t0, interop.factors_from_numpy(
+        facs, device="cpu"))
+    for d in range(4):
+        np.testing.assert_allclose(touts[d].numpy(), np.asarray(routs[d]),
+                                   **TOL)
+    _same_layout(t1, r1)
+    _same_layout(t1, t0)
+
+
+@pytest.mark.parametrize("backend,schedule", [
+    ("torch", "compact"), ("torch", "rect"), ("cuda", "compact"),
+    ("cuda", "rect")])
+def test_mode_step_matches_reference(backend, schedule):
+    """``core.mode_step`` against the reference's on one mode's layout:
+    ``out_rel`` within the tolerance, the next layout bitwise."""
+    from repro.core.mttkrp import mode_step as rmode_step
+    from repro_torch.core import mode_step
+
+    idx, val, dims, facs, kw = _case(3, seed=9, schedule=schedule)
+    rt = rbuild(idx, val, dims, **kw)
+    d = 1
+    r0 = rengine.init(rt, RConfig(), start_mode=d)
+    plan = rt.plans[d]
+    sd, nxt_size = plan.padded_nnz, rt.plans[2].padded_nnz
+    lay = {k: np.asarray(getattr(r0, k))[:sd] for k in ("val", "idx",
+                                                        "alpha")}
+    lay["bpart"] = plan.block_part
+    skw = dict(mode=d, rows_pp=plan.rows_pp, blocks_pp=plan.blocks_pp,
+               block_p=plan.block_p, kappa=plan.kappa, next_size=nxt_size,
+               schedule=schedule, nblocks=plan.nblocks)
+    ref_backend = {"torch": "xla", "cuda": "pallas"}[backend]
+    rout, rnext = rmode_step({k: jnp.asarray(v) for k, v in lay.items()},
+                             tuple(jnp.asarray(f) for f in facs),
+                             jnp.asarray(plan.row_relabel),
+                             backend=ref_backend, interpret=True, **skw)
+    tout, tnext = mode_step({k: torch.from_numpy(np.array(v))
+                             for k, v in lay.items()},
+                            interop.factors_from_numpy(facs, device="cpu"),
+                            torch.from_numpy(plan.row_relabel),
+                            backend=backend, **skw)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(rout), **TOL)
+    for k in ("val", "idx", "alpha"):
+        np.testing.assert_array_equal(tnext[k].numpy(),
+                                      np.asarray(rnext[k]))
+
+
+def test_mttkrp_executor_is_a_deprecated_engine_shim():
+    from repro_torch.core import MTTKRPExecutor, mttkrp_ref
+
+    idx, val, dims, facs, kw = _case(3, seed=4)
+    t = build_flycoo(idx, val, dims, **kw)
+    with pytest.warns(DeprecationWarning, match="deprecated"):
+        exe = MTTKRPExecutor(t, backend="cuda", device="cpu")
+    tf = interop.factors_from_numpy(facs, device="cpu")
+    ti, tv = torch.from_numpy(idx), torch.from_numpy(val)
+    out0 = exe.step(tf)
+    assert exe.current_mode == 1
+    outs = exe.all_modes(tf)          # from mode 1, back to mode 1
+    assert exe.current_mode == 1
+    for d, out in [(0, out0)] + list(enumerate(outs)):
+        np.testing.assert_allclose(
+            out.numpy(), mttkrp_ref(ti, tv, tf, d, dims[d]).numpy(), **TOL)
+    assert exe.layout["val"].shape[0] == t.plans[1].padded_nnz
+    exe.reset()
+    assert exe.current_mode == 0 and exe.state.mode == 0
 
 
 def test_fold_hook_and_mode_guard():

@@ -1,8 +1,9 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions, the ``cuda_fused`` rotation against the COO oracle, and CPD on
-the card. Every test is marked ``gpu`` and skips itself where torch sees
-no card. The file imports neither ``jax`` nor ``repro``, so it runs on a
-machine with PyTorch and the CUDA toolkit only:
+versions, the ``cuda_fused`` and ``cuda`` rotations (both schedules)
+against the COO oracle, and CPD on the card. Every test is marked
+``gpu`` and skips itself where torch sees no card. The file imports
+neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
+the CUDA toolkit only:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -80,7 +81,7 @@ def test_cuda_kernels_match_plain(cuda, part_blocks, p, nm1, r, empty):
                                           nuniq, facs, **gkw)
     want = kmt.mttkrp_fused_remap_compact_plain(*args, **kw)
     torch.cuda.synchronize()
-    for k in before:
+    for k in ("mttkrp_fused_remap_compact", "mttkrp_fused_gather_compact"):
         assert kmt.LAUNCHES[k] == before[k] + 1
     torch.testing.assert_close(got[0], want[0], **TOL)
     torch.testing.assert_close(gat, want[0], **TOL)
@@ -109,6 +110,86 @@ def test_cuda_wrapper_raises_never_falls_back(cuda):
         kmt.mttkrp_fused_gather_compact(
             val, lrow, upos, bpart, uidx, nuniq, facs,
             **dict(gkw, rows_pp=4000))
+
+
+def _rect_case(seed, kappa, blocks_pp, p, nm1, r, rows_pp=8, empty=None):
+    """Rect-schedule inputs: each partition's alive slots first, then pads
+    (as a rect plan lays them out), hot factor rows; partition ``empty``
+    (if given) holds only pads. Returns the tensors of every rect and
+    pre-gathered wrapper."""
+    rng = np.random.default_rng(seed)
+    s = kappa * blocks_pp * p
+    dims_in = [int(d) for d in rng.integers(8, 40, nm1)]
+    facs = [rng.standard_normal((d, r)).astype(np.float32) for d in dims_in]
+    lidx = np.stack([np.where(rng.random(s) < 0.7, rng.integers(0, 4, s),
+                              rng.integers(0, d, s))
+                     for d in dims_in]).astype(np.int32)
+    fill = rng.integers(0, blocks_pp * p + 1, kappa)
+    if empty is not None:
+        fill[empty] = 0
+    local = np.arange(s) % (blocks_pp * p)
+    lrow = np.where(local < np.repeat(fill, blocks_pp * p),
+                    rng.integers(0, rows_pp, s), -1).astype(np.int32)
+    val = np.where(lrow < 0, 0, rng.standard_normal(s)).astype(np.float32)
+    n = nm1 + 1
+    smax = s + 24
+    alive = lrow >= 0
+    idx = rng.integers(0, 50, (s, n)).astype(np.int32)
+    alpha = np.full((s, n), -1, np.int32)
+    alpha[alive] = rng.integers(0, smax, (int(alive.sum()), n))
+    alpha[alive, 1] = rng.permutation(smax)[: int(alive.sum())]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    gathered = np.stack([facs[w][lidx[w]] for w in range(nm1)], axis=1)
+    bpart = np.repeat(np.arange(kappa), blocks_pp).astype(np.int32)
+    return (dict(val=t(val), idx=t(idx), alpha=t(alpha), lrow=t(lrow),
+                 lidx=t(lidx), gathered=t(gathered), bpart=t(bpart),
+                 facs=tuple(t(f) for f in facs)),
+            dict(kappa=kappa, rows_pp=rows_pp, blocks_pp=blocks_pp,
+                 block_p=p, smax=smax, next_mode=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kappa,blocks_pp,p,nm1,r,empty", [
+    (2, 1, 8, 2, 8, None), (4, 3, 16, 3, 32, None), (3, 2, 32, 5, 16, 1),
+    (3, 2, 128, 2, 32, 0), (2, 3, 128, 4, 64, None)])
+def test_cuda_rect_and_pregathered_kernels_match_plain(cuda, kappa,
+                                                       blocks_pp, p, nm1, r,
+                                                       empty):
+    """``mttkrp_fused_remap``, ``mttkrp_fused_gather``, ``mttkrp_fused``
+    and ``mttkrp_fused_compact`` (on the rect plan's descriptor, which
+    the compact kernel walks alike) against their plain versions, each
+    launching once."""
+    a, kw = _rect_case(kappa * 13 + nm1, kappa, blocks_pp, p, nm1, r,
+                       empty=empty)
+    a = {k: (tuple(f.to(cuda) for f in v) if k == "facs" else v.to(cuda))
+         for k, v in a.items()}
+    rect = {k: kw[k] for k in ("kappa", "rows_pp", "blocks_pp", "block_p")}
+    comp = dict(kappa=kappa, rows_pp=kw["rows_pp"],
+                nblocks=kappa * blocks_pp, block_p=p)
+    remap = (a["val"], a["idx"], a["alpha"], a["lrow"], a["lidx"], a["facs"])
+    before = dict(kmt.LAUNCHES)
+    got = {
+        "mttkrp_fused_remap": kmt.mttkrp_fused_remap(*remap, **kw),
+        "mttkrp_fused_gather": kmt.mttkrp_fused_gather(
+            a["val"], a["lrow"], a["lidx"], a["facs"], **rect),
+        "mttkrp_fused": kmt.mttkrp_fused(a["gathered"], a["val"], a["lrow"],
+                                         **rect),
+        "mttkrp_fused_compact": kmt.mttkrp_fused_compact(
+            a["gathered"], a["val"], a["lrow"], a["bpart"], **comp)}
+    want = kmt.mttkrp_fused_remap_plain(*remap, **kw)
+    torch.cuda.synchronize()
+    for k in got:
+        assert kmt.LAUNCHES[k] == before[k] + 1
+        out = got[k][0] if k == "mttkrp_fused_remap" else got[k]
+        torch.testing.assert_close(out, want[0], **TOL)
+        if empty is not None:
+            rows = slice(empty * kw["rows_pp"], (empty + 1) * kw["rows_pp"])
+            assert not out[rows].any()
+    for g, w in zip(got["mttkrp_fused_remap"][1:], want[1:]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(
+        kmt.mttkrp_fused_plain(a["gathered"], a["val"], a["lrow"], **rect),
+        want[0], **TOL)
 
 
 def _coo(nmodes, nnz, seed):
@@ -146,12 +227,43 @@ def test_cuda_rotation_launches_kernels_and_matches_oracle(cuda, nmodes):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("backend,schedule,fuse,name", [
+    ("cuda_fused", "rect", True, "mttkrp_fused_remap"),
+    ("cuda_fused", "rect", False, "mttkrp_fused_gather"),
+    ("cuda", "rect", True, "mttkrp_fused"),
+    ("cuda", "compact", True, "mttkrp_fused_compact")])
+@pytest.mark.parametrize("nmodes", [3, 5])
+def test_cuda_rect_and_baseline_rotations_match_oracle(cuda, backend,
+                                                       schedule, fuse, name,
+                                                       nmodes):
+    from repro_torch.engine import PlanSpec, make_engine
+
+    idx, val, dims, rng = _coo(nmodes, 2000, nmodes + 7)
+    facs = [torch.from_numpy(rng.standard_normal((d, 32))
+                             .astype(np.float32)).to(cuda) for d in dims]
+    ti, tv = torch.from_numpy(idx).to(cuda), torch.from_numpy(val).to(cuda)
+    spec = PlanSpec(backend=backend, schedule=schedule, fuse_remap=fuse,
+                    rows_pp=4, block_p=8)
+    state = make_engine((idx, val, dims), spec, start_mode=1, cache=False)
+    before = kmt.LAUNCHES[name]
+    outs, nxt = engine.all_modes(state, facs)
+    torch.cuda.synchronize()
+    assert kmt.LAUNCHES[name] == before + nmodes
+    for d in range(nmodes):
+        torch.testing.assert_close(
+            outs[d], mttkrp_ref(ti, tv, facs, d, dims[d]), **TOL)
+    for a in ("val", "idx", "alpha"):
+        assert torch.equal(getattr(nxt, a), getattr(state, a))
+
+
+@pytest.mark.gpu
 def test_cp_als_cuda_fused_matches_torch_backend(cuda):
     idx, val, dims, rng = _coo(5, 3000, 1)
     t = build_flycoo(idx, val, dims, rows_pp=8, block_p=16)
     init = [rng.random((d, 8)).astype(np.float32) for d in dims]
     fits = [cp_als(t, 8, iters=3, factors=init,
                    config=ExecutionConfig(backend=b)).fits
-            for b in ("cuda_fused", "torch")]
+            for b in ("cuda_fused", "cuda", "torch")]
     assert all(np.isfinite(fits[0]))
-    assert fits[0] == pytest.approx(fits[1], abs=1e-4)
+    assert fits[0] == pytest.approx(fits[2], abs=1e-4)
+    assert fits[1] == pytest.approx(fits[2], abs=1e-4)

@@ -1,9 +1,10 @@
-"""The port's compact spMTTKRP kernels against the reference Pallas kernels.
+"""The port's spMTTKRP kernels against the reference Pallas kernels.
 
 On the CPU a wrapper runs its plain PyTorch version (a CPU tensor is the
 only reason it does); those are held against
-``repro.kernels.ops.*(interpret=True)`` on the inputs of the reference
-kernel tests (``tests/test_kernels.py::_compact_case``). The CUDA kernels
+``repro.kernels.ops.*(interpret=True)`` on the inputs and shapes of the
+reference kernel tests (``tests/test_kernels.py``: its rect shapes,
+``_gather_case`` and ``_compact_case``). The CUDA kernels
 themselves are held against the plain versions on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 
@@ -17,7 +18,7 @@ import torch
 
 from repro.kernels import ops
 from repro_torch.kernels import mttkrp as kmt
-from test_kernels import _compact_case
+from test_kernels import _compact_case, _gather_case
 
 
 def _t(x, dtype=None):
@@ -90,6 +91,82 @@ def test_plain_remap_compact_matches_pallas(shape, fac):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+RECT = [(2, 8, 1, 8), (4, 16, 3, 16), (8, 4, 2, 32), (3, 128, 2, 128)]
+
+
+@pytest.mark.parametrize("kappa,rows_pp,blocks_pp,p", RECT)
+@pytest.mark.parametrize("nm1,r", [(2, 8), (3, 32)])
+def test_plain_fused_matches_pallas(kappa, rows_pp, blocks_pp, p, nm1, r):
+    """Rect EC over a pre-gathered operand (the reference test's inputs:
+    random rows, pads zeroed)."""
+    rng = np.random.default_rng(kappa * 1000 + nm1)
+    s = kappa * blocks_pp * p
+    g = rng.standard_normal((s, nm1, r)).astype(np.float32)
+    val = rng.standard_normal(s).astype(np.float32)
+    lrow = rng.integers(-1, rows_pp, s).astype(np.int32)
+    val[lrow < 0] = 0.0
+    kw = dict(kappa=kappa, rows_pp=rows_pp, blocks_pp=blocks_pp, block_p=p)
+    want = ops.mttkrp_fused(g, val, lrow, interpret=True, **kw)
+    got = kmt.mttkrp_fused(_t(g), _t(val), _t(lrow), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,fac", CASES)
+def test_plain_fused_compact_matches_pallas(shape, fac):
+    (kappa, part_blocks, p), (nm1, r) = shape, fac
+    c = _compact_case(kappa * 10 + p, kappa, part_blocks, p, nm1, r)
+    kw = dict(kappa=c["kappa"], rows_pp=c["rows_pp"], nblocks=c["nblocks"],
+              block_p=c["p"])
+    want = ops.mttkrp_fused_compact(c["gathered"], c["val"], c["lrow"],
+                                    c["bpart"], interpret=True, **kw)
+    a = _port_args(c)
+    got = kmt.mttkrp_fused_compact(_t(c["gathered"]), a["val"], a["lrow"],
+                                   a["bpart"], **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _rect_gather_args(c):
+    facs, lidx, val, lrow, _ = c
+    return (_t(val), _t(lrow), _t(lidx, np.int32),
+            tuple(_t(f) for f in facs))
+
+
+@pytest.mark.parametrize("kappa,rows_pp,blocks_pp,p", RECT[:3])
+@pytest.mark.parametrize("nm1,r", [(2, 8), (3, 32), (5, 16)])
+def test_plain_gather_matches_pallas(kappa, rows_pp, blocks_pp, p, nm1, r):
+    c = _gather_case(kappa * 100 + nm1, kappa, rows_pp, blocks_pp, p, nm1, r)
+    facs, lidx, val, lrow, _ = c
+    kw = dict(kappa=kappa, rows_pp=rows_pp, blocks_pp=blocks_pp, block_p=p)
+    want = ops.mttkrp_fused_gather(val, lrow, lidx, facs, interpret=True,
+                                   **kw)
+    got = kmt.mttkrp_fused_gather(*_rect_gather_args(c), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("kappa,rows_pp,blocks_pp,p,nm1,r", [
+    (2, 8, 1, 8, 2, 8), (3, 4, 2, 16, 3, 32)])
+def test_plain_remap_matches_pallas(kappa, rows_pp, blocks_pp, p, nm1, r):
+    c = _gather_case(7 * kappa + p, kappa, rows_pp, blocks_pp, p, nm1, r)
+    facs, lidx, val, lrow, _ = c
+    idx, alpha, smax = _remap_inputs(
+        {"nblocks": kappa * blocks_pp, "p": p, "nm1": nm1, "lrow": lrow},
+        p + nm1)
+    kw = dict(kappa=kappa, rows_pp=rows_pp, blocks_pp=blocks_pp, block_p=p,
+              smax=smax, next_mode=1)
+    want = ops.mttkrp_fused_remap(val, idx, alpha, lrow, lidx, facs,
+                                  interpret=True, **kw)
+    v, lr, li, fs = _rect_gather_args(c)
+    got = kmt.mttkrp_fused_remap(v, _t(idx), _t(alpha), lr, li, fs, **kw)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-4, atol=1e-4)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_block_starts_from_descriptor():
     bpart = torch.tensor([0, 0, 0, 1, 2, 2, 3], dtype=torch.int32)
     assert kmt.block_starts(bpart, 4).tolist() == [0, 3, 4, 6, 7]
@@ -115,3 +192,49 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="does not fit"):
         kmt.mttkrp_fused_gather_compact(*args, kappa=2, rows_pp=4000,
                                         nblocks=2, block_p=8)
+
+
+def _meta_calls(rows_pp):
+    """Each rect / pre-gathered wrapper on meta tensors of a 2-partition,
+    2-block plan (P = 8, R = 32, three modes)."""
+    s, nm1, r = 16, 2, 32
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    val, lrow = torch.empty(s, **meta), torch.empty(s, **i32)
+    idx = alpha = torch.empty((s, nm1 + 1), **i32)
+    lidx = torch.empty((nm1, s), **i32)
+    gathered = torch.empty((s, nm1, r), **meta)
+    bpart = torch.empty(2, **i32)
+    facs = tuple(torch.empty((5, r), **meta) for _ in range(nm1))
+    rect = dict(kappa=2, rows_pp=rows_pp, blocks_pp=1, block_p=8)
+    return {
+        "mttkrp_fused": lambda: kmt.mttkrp_fused(gathered, val, lrow,
+                                                 **rect),
+        "mttkrp_fused_compact": lambda: kmt.mttkrp_fused_compact(
+            gathered, val, lrow, bpart, kappa=2, rows_pp=rows_pp,
+            nblocks=2, block_p=8),
+        "mttkrp_fused_gather": lambda: kmt.mttkrp_fused_gather(
+            val, lrow, lidx, facs, **rect),
+        "mttkrp_fused_remap": lambda: kmt.mttkrp_fused_remap(
+            val, idx, alpha, lrow, lidx, facs, smax=20, next_mode=1,
+            **rect),
+    }
+
+
+@pytest.mark.parametrize("name", ["mttkrp_fused", "mttkrp_fused_compact",
+                                  "mttkrp_fused_gather",
+                                  "mttkrp_fused_remap"])
+def test_rect_and_pregathered_wrappers_refuse(name):
+    """The same refusals for the four other wrappers. At R = 32 the
+    227 KB hold 1816 rows: the gather kernels stage 2 x 8 factor rows
+    beside the accumulator, the pre-gathered ones stage none, so a
+    1810-row tile fits only the latter."""
+    pregathered = name in ("mttkrp_fused", "mttkrp_fused_compact")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _meta_calls(rows_pp=4)[name]()
+    with pytest.raises(ValueError, match="CUDA tensors" if pregathered
+                       else "does not fit"):
+        _meta_calls(rows_pp=1810)[name]()
+    with pytest.raises(ValueError, match="does not fit"):
+        _meta_calls(rows_pp=1817)[name]()
+    assert kmt.LAUNCHES[name] == 0

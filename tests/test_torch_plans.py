@@ -82,6 +82,61 @@ def test_plan_mode_bitwise(kappa, rows_pp, block_p):
             rpartition.plan_mode(idx[:, 0], dims[0], 0, **kw))
 
 
+@pytest.mark.parametrize("schedule", ["compact", "rect"])
+@pytest.mark.parametrize("kappa,rows_pp,block_p", [
+    (None, None, 128), (5, None, 16), (None, 3, 4)])
+def test_plan_mode_reference_and_structure_bitwise(schedule, kappa, rows_pp,
+                                                   block_p):
+    """``plan_mode_reference`` equals the reference's and the vectorized
+    ``plan_mode``; ``plan_from_structure`` on a permuted element list
+    equals the reference's and a cold plan of that list."""
+    idx, _, dims = _coo("zipf", 4, seed=5)
+    kw = dict(kappa=kappa, rows_pp=rows_pp, block_p=block_p,
+              schedule=schedule)
+    for d in range(4):
+        ref = tpartition.plan_mode_reference(idx[:, d], dims[d], d, **kw)
+        _assert_plans_equal(
+            ref, rpartition.plan_mode_reference(idx[:, d], dims[d], d, **kw))
+        fast = tpartition.plan_mode(idx[:, d], dims[d], d, **kw)
+        for f in PLAN_FIELDS:
+            assert np.array_equal(getattr(ref, f), getattr(fast, f)), f
+        perm = np.random.default_rng(d).permutation(len(idx))
+        col = idx[perm, d]
+        got = tpartition.plan_from_structure(col, fast)
+        _assert_plans_equal(got, rpartition.plan_from_structure(col, fast))
+        _assert_plans_equal(got, tpartition.plan_mode(col, dims[d], d, **kw))
+
+
+def test_flycoo_models_and_cache_arguments_bitwise():
+    """``dedup_tables_from_rows``, ``dma_row_model`` and
+    ``memory_bits_per_element`` equal the reference's; ``build_flycoo``
+    with ``degrees=`` plans the same, and with ``plans=`` takes them
+    verbatim."""
+    idx, val, dims = _coo("zipf", 3, seed=4)
+    kw = dict(rows_pp=4, block_p=8)
+    t = tflycoo.build_flycoo(idx, val, dims, **kw)
+    r = rflycoo.build_flycoo(idx, val, dims, **kw)
+    for d in range(3):
+        assert t.dma_row_model(d) == r.dma_row_model(d)
+        plan = t.plans[d]
+        rows = t._slot_rows(d)[0]
+        for a, b in zip(
+                tflycoo.dedup_tables_from_rows(rows, plan.nblocks, 8),
+                rflycoo.dedup_tables_from_rows(rows, plan.nblocks, 8)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    for bits in (16, 32):
+        assert t.memory_bits_per_element(bits) == \
+            r.memory_bits_per_element(bits)
+    degrees = [np.bincount(idx[:, d], minlength=dims[d]) for d in range(3)]
+    td = tflycoo.build_flycoo(idx, val, dims, degrees=degrees, **kw)
+    for a, b in zip(td.plans, r.plans):
+        _assert_plans_equal(a, b)
+    tp = tflycoo.build_flycoo(idx, val, dims, plans=t.plans)
+    assert all(a is b for a, b in zip(tp.plans, t.plans))
+    with pytest.raises(ValueError, match="plans for"):
+        tflycoo.build_flycoo(idx, val, dims, plans=t.plans[:2])
+
+
 @pytest.mark.parametrize("name,scale", [("nell1", 1e-4), ("twitch", 2e-5),
                                         ("vast", 1e-4), ("zipf", 1e-5)])
 def test_synthesize_bitwise(name, scale):
