@@ -17,6 +17,14 @@ times the kernels at each path's shapes.
        without the fused remap, and ``cuda``
   [9]  ``autotune`` over backend x schedule x P x dedup at nell1 scale
        0.01, measured by CUDA events
+  [2c] the ``wkv6`` kernel against its plain version at the reference
+       kernel tests' shapes and at the model's rows (BH 160, T 256)
+  [10] RWKV-6 at the full width of ``rwkv6-3b`` (32 layers, f32 params,
+       random weights from a seed): the prefill ``forward`` in bf16 at
+       B 4, S 4096 (one ``wkv6`` launch a layer, timed), layer 0's kernel
+       inputs held against the plain version, a float32 cross-check of
+       ``forward`` against ``Engine.prefill`` (4 layers), and
+       ``Engine.generate`` serving 4 requests of 16 + 32 tokens
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -44,6 +52,24 @@ function on absolute inputs) and ``u = 2**-24``:
   * CPD fits, cuda_fused against the torch backend from the same initial
     factors: ``FIT_ATOL`` (the per-mode differences above, through three
     sweeps of R x R solves).
+  * ``wkv6`` against its plain version, both float32. With ``A`` the same
+    recurrence on ``|r|, |k|, w, |v|, |u|`` (in float64): per element
+    ``2 * LAMBDA * (2 sqrt(t + 1) + sqrt(K) + 3) * u * A``. Each step
+    rounds the state update at most twice (relative to the state, which
+    on absolute inputs never exceeds ``A``'s state, since the decays are
+    positive), so after t + 1 steps the state carries a random walk of
+    ~2 sqrt(t + 1) roundings; the readout is a sum of K terms, and each
+    term has ~3 roundings of its own; one share for each side. The limit
+    is held against itself: the kernel run with u = 0 (no bonus term) and
+    with w shifted one step late (w_{t-1} in step t) must fail it.
+  * RWKV-6 float32 cross-check, ``forward(prompt)[:, -1]`` (the kernel)
+    against ``Engine.prefill(prompt)`` (the decode recurrence) at full
+    width: max |difference| <= ``XCHECK_ATOL`` on logits of size ~1. The
+    two differ by matmul summation order (M = B*S against M = B, sums
+    over d = 2560 and d_ff = 8960, ~sqrt(d) u relative each) and the
+    kernel's readout order, through 4 layers of ~10 matmuls: ~1e-4 at
+    most; a wrong decay or bonus moves logits by ~1e-1. Greedy tokens
+    must agree.
 """
 from __future__ import annotations
 
@@ -62,6 +88,7 @@ U = 2.0 ** -24                 # float32 unit roundoff
 LAMBDA = 2.0
 GATE_DROP = 0.02               # share of the hottest row's terms dropped
 FIT_ATOL = 1e-5
+XCHECK_ATOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 RANK = 32
@@ -73,6 +100,7 @@ SOURCES = {
     "mttkrp_fused_remap": CSRC + "mttkrp_gather.cu",
     "mttkrp_fused_gather": CSRC + "mttkrp_gather.cu",
     "mttkrp_fused": CSRC + "mttkrp_pregathered.cu",
+    "wkv6": CSRC + "wkv6.cu",
 }
 REPLACES = {
     "mttkrp_fused_remap_compact": "src/repro/kernels/mttkrp_kernel.py:583",
@@ -81,6 +109,7 @@ REPLACES = {
     "mttkrp_fused_remap": "src/repro/kernels/mttkrp_kernel.py:517",
     "mttkrp_fused_gather": "src/repro/kernels/mttkrp_kernel.py:420",
     "mttkrp_fused": "src/repro/kernels/mttkrp_kernel.py:132",
+    "wkv6": "src/repro/kernels/wkv6.py:53",
 }
 RECT_NEW = ("mttkrp_fused_remap", "mttkrp_fused_gather", "mttkrp_fused")
 
@@ -948,6 +977,306 @@ def phase_autotune(coo, cache, report):
         "default": name(res.default)}
 
 
+# --------------------------------------------------------------------------
+# RWKV-6: [2c] and [10].
+# --------------------------------------------------------------------------
+WKV_SHAPES = ((2, 16, 8, 8), (4, 32, 16, 32), (1, 64, 64, 64),
+              (160, 256, 64, 64))
+RWKV_ARCH = "rwkv6-3b"
+RWKV_BATCH, RWKV_SEQ = 4, 4096        # prefill_32k cut 8x in B and in S
+WB_LORA_STD = 0.15                     # wb_lora is zero at init
+
+
+def wkv_case(bh, t, k, v, seed):
+    """The reference kernel tests' inputs: normal r, k, v, u; w uniform in
+    [0.5, 0.999]."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, kk, vv = (torch.randn(s, generator=g, device="cuda")
+                 for s in ((bh, t, k), (bh, t, k), (bh, t, v)))
+    w = 0.5 + 0.499 * torch.rand((bh, t, k), generator=g, device="cuda")
+    u = torch.randn((bh, k), generator=g, device="cuda")
+    return r, kk, w, vv, u
+
+
+def wkv_limit(kw6, args, sides=2):
+    """Per-element limit of a float32 ``wkv6`` (see the module
+    docstring)."""
+    import torch
+
+    a = kw6.wkv6_scan(*(x.double().abs() for x in args))
+    t = torch.arange(a.shape[1], device=a.device, dtype=torch.float64)
+    steps = 2 * (t + 1).sqrt()[None, :, None]
+    return sides * LAMBDA * (steps + args[0].shape[-1] ** 0.5 + 3) * U * a
+
+
+def wkv_check(kw6, args, tag):
+    """Kernel against plain within the limit, and the limit against
+    itself; returns (max error, its share of the limit)."""
+    import torch
+
+    r, k, w, v, u = args
+    want = kw6.wkv6_plain(*args)
+    lim = wkv_limit(kw6, args)
+    res = close_to(f"{tag} wkv6", kw6.wkv6(*args), want, lim)
+    late = torch.cat([w[:, :1], w[:, :-1]], dim=1).contiguous()
+    for variant, bad in (("u = 0", (r, k, w, v, torch.zeros_like(u))),
+                         ("w_{t-1}", (r, k, late, v, u))):
+        if not ((kw6.wkv6(*bad).double() - want.double()).abs() > lim).any():
+            raise AssertionError(f"{tag} wkv6: the limit does not catch "
+                                 f"the {variant} variant")
+    return res
+
+
+def phase_wkv6(kw6):
+    """[2c] ``wkv6`` against its plain version at the reference kernel
+    tests' shapes and at the model's rows."""
+    import torch
+
+    for i, shape in enumerate(WKV_SHAPES):
+        err, share = wkv_check(kw6, wkv_case(*shape, seed=i), "[2c]")
+        torch.cuda.synchronize()
+        log(f"[2c] wkv6 (BH, T, K, V) = {shape} == plain (max err "
+            f"{err:.3e}, {share:.3f} of the limit); u = 0 and w_(t-1) "
+            "variants fail it")
+
+
+def wkv_bound(args):
+    """``(bytes, flops)`` the WKV function must move and do: r, k, w, v,
+    u read once, y written once; 5 K V flops a step (readout 2, decay 1,
+    outer product 1, update 1)."""
+    r, _, _, v, _ = args
+    bh, t, k = r.shape
+    vd = v.shape[-1]
+    return 4 * (bh * t * (3 * k + 2 * vd) + bh * k), 5 * k * vd * t * bh
+
+
+def device_breakdown(fn):
+    """Device time of one call of ``fn`` by kernel class, from
+    ``torch.profiler``: ms in ``wkv6``, in matrix products (cuBLAS,
+    CUTLASS and nvjet kernels) and in all other kernels, the number of
+    kernels, the host's wall ms (call + synchronize) and the device's
+    busy share of it; ``None`` for the device numbers if the profiler
+    saw no device time (then they are not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    ms = {"wkv6": 0.0, "matmul": 0.0, "other": 0.0}
+    top, n = [], 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = e.device_time_total / 1e3
+        name = e.key.lower()
+        kind = ("wkv6" if "wkv6" in name else "matmul"
+                if any(w in name for w in ("gemm", "xmma", "nvjet",
+                                           "cutlass")) else "other")
+        ms[kind] += t
+        n += e.count
+        top.append((t, e.count, e.key[:90]))
+    busy = sum(ms.values())
+    top.sort(reverse=True)
+    return {"wall_ms": wall, "kernels": n,
+            "device_ms": ms if busy else None,
+            "busy_share": busy / wall if busy else None,
+            "top": [{"ms": t, "count": c, "name": k} for t, c, k in top[:8]]}
+
+
+def breakdown_line(b):
+    if b["device_ms"] is None:
+        return (f"wall {b['wall_ms']:.1f} ms; the profiler saw no device "
+                "time (device split not measured)")
+    ms = b["device_ms"]
+    return (f"wall {b['wall_ms']:.1f} ms, {b['kernels']} kernels, device "
+            f"busy {b['busy_share']:.1%}: wkv6 {ms['wkv6']:.1f}, matmul "
+            f"{ms['matmul']:.1f}, other {ms['other']:.1f} ms")
+
+
+def rwkv_model(cfg, seed):
+    """The port's own init on the card from ``seed``, with ``wb_lora``
+    drawn non-zero (a seeded generator on the card) so the decay varies
+    per step and per channel."""
+    import torch
+    from repro_torch.models import transformer
+
+    model = transformer.init_model(cfg, seed, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for layer in model.layers:
+        layer.wb_lora.normal_(0.0, WB_LORA_STD, generator=g)
+    return model
+
+
+def phase_rwkv(kw6, report, reps):
+    """[10] RWKV-6 at the full width of ``rwkv6-3b``: prefill ``forward``
+    (the main path of ``wkv6``), the kernel at layer 0's inputs, the
+    float32 cross-check, and ``Engine.generate``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv, transformer
+    from repro_torch.models.common import apply_norm
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_config(RWKV_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = rwkv_model(cfg, 0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    log(f"[10] {RWKV_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params:,} params ({gb:.2f} "
+        f"GB) initialised in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (RWKV_BATCH, RWKV_SEQ), generator=g,
+                           device="cuda")
+    out = {"params": n_params, "batch": RWKV_BATCH, "seq": RWKV_SEQ}
+
+    # The main path: one prefill forward, bf16.
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        kw6.reset_launch_counts()
+        logits = transformer.forward(model, cfg, tokens)
+        torch.cuda.synchronize()
+        launches = kw6.LAUNCHES["wkv6"]
+        if launches != cfg.n_layers:
+            raise AssertionError(f"[10] forward launched wkv6 {launches} "
+                                 f"times, expected {cfg.n_layers}")
+        if logits.shape != (RWKV_BATCH, RWKV_SEQ, cfg.vocab_padded) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"[10] forward logits {tuple(logits.shape)}"
+                                 " not finite or of the wrong shape")
+        out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del logits
+        out["forward_ms"] = cuda_ms(
+            lambda: transformer.forward(model, cfg, tokens), 2)
+        log(f"[10] forward (B {RWKV_BATCH}, S {RWKV_SEQ}, bf16): "
+            f"{out['forward_ms']:.1f} ms, wkv6 launches {launches}, peak "
+            f"{out['prefill_peak_gib']:.2f} GiB")
+        out["forward_profile"] = device_breakdown(
+            lambda: transformer.forward(model, cfg, tokens))
+        log(f"[10] forward profile: {breakdown_line(out['forward_profile'])}")
+
+        # The kernel at layer 0's inputs, full shape.
+        x0 = apply_norm(model.layers[0].ln1,
+                        transformer.embed_lookup(model, tokens, cfg), cfg)
+        args = rwkv.wkv_inputs(model.layers[0], x0, cfg)[:5]
+        del x0
+        err, share = wkv_check(kw6, args, "[10] layer 0")
+        nbytes, flops = wkv_bound(args)
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, \
+            1e3 * flops / F32_FLOP_PER_S
+        wkv = {"ms": cuda_ms(lambda: kw6.wkv6(*args), reps),
+               "plain_ms": cuda_ms(lambda: kw6.wkv6_plain(*args), 1),
+               "bytes": nbytes, "flops": flops,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "max_abs_err": err, "launches": launches,
+               "decay_range": [float(args[2].min()), float(args[2].max())]}
+        del args
+        log(f"[10] wkv6 at layer 0 (BH {RWKV_BATCH * rwkv.n_heads(cfg)}, T "
+            f"{RWKV_SEQ}, 64, 64) == plain (max err {err:.3e}, {share:.3f} "
+            f"of the limit; decay in [{wkv['decay_range'][0]:.5f}, "
+            f"{wkv['decay_range'][1]:.5f}]): {wkv['ms']:.3f} ms a launch "
+            f"(plain {wkv['plain_ms']:.1f}, bound {wkv['bound_ms']:.4f} by "
+            f"{wkv['bound_by']})")
+
+        # float32 cross-check: the kernel path against the decode path.
+        cfg4 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
+        model4 = rwkv_model(cfg4, 3)
+        prompt = torch.randint(0, cfg.vocab, (RWKV_BATCH, 128), generator=g,
+                               device="cuda")
+        fl = transformer.forward(model4, cfg4, prompt)[:, -1].float()
+        pl = Engine(model4, cfg4, ServeConfig(RWKV_BATCH, 256),
+                    device="cuda").prefill(prompt)[:, -1].float()
+        xerr = float((fl - pl).abs().max())
+        if not xerr <= XCHECK_ATOL:
+            raise AssertionError(f"[10] f32 forward vs Engine.prefill: max "
+                                 f"|diff| {xerr:.3e} > {XCHECK_ATOL}")
+        if not torch.equal(fl[:, :cfg.vocab].argmax(-1),
+                           pl[:, :cfg.vocab].argmax(-1)):
+            raise AssertionError("[10] f32 forward and Engine.prefill pick "
+                                 "different greedy tokens")
+        seq = prompt[:, :16]
+        toks = Engine(model4, cfg4, ServeConfig(RWKV_BATCH, 64),
+                      device="cuda").generate(seq, 8)
+        for _ in range(8):
+            nxt = transformer.forward(model4, cfg4, seq)[:, -1, :cfg.vocab]
+            seq = torch.cat([seq, nxt.argmax(-1)[:, None]], dim=1)
+        if not torch.equal(toks, seq[:, 16:]):
+            raise AssertionError("[10] greedy tokens of Engine.generate and "
+                                 "of forward differ")
+        out["xcheck_max_abs_diff"] = xerr
+        out["xcheck_max_abs_logit"] = float(fl.abs().max())
+        del model4, fl, pl
+        log(f"[10] f32, 4 layers: forward(prompt)[:, -1] == Engine.prefill "
+            f"(S 128, max |diff| {xerr:.3e} <= {XCHECK_ATOL}, max |logit| "
+            f"{out['xcheck_max_abs_logit']:.2f}); 8 greedy tokens of "
+            "Engine.generate == forward's")
+
+    # Serving at full depth, bf16: 4 requests, 16 prompt + 32 new tokens.
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg.vocab, (RWKV_BATCH, 16), generator=g,
+                           device="cuda")
+    serve = []
+    for _ in range(2):        # the first run is cold
+        eng = Engine(model, cfg, ServeConfig(RWKV_BATCH, 48), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompt, 32)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if toks.shape != (RWKV_BATCH, 32) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"[10] generate gave {tuple(toks.shape)} "
+                                 "or tokens out of the vocabulary")
+        serve.append({"seconds": dt, "tokens_per_s": RWKV_BATCH * 32 / dt,
+                      "ms_per_step": 1e3 * dt / (16 + 32),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    out["serve"] = serve
+    log(f"[10] Engine.generate (4 requests, 16 prompt + 32 new tokens, "
+        f"greedy, bf16): cold {serve[0]['seconds']:.2f} s, warm "
+        f"{serve[1]['seconds']:.2f} s = {serve[1]['tokens_per_s']:.1f} "
+        f"tokens/s ({serve[1]['ms_per_step']:.2f} ms a decode step); peak "
+        f"{serve[1]['peak_gib']:.2f} GiB")
+    with torch.no_grad():
+        tok = toks[:, -1:]
+        out["decode_step_profile"] = device_breakdown(
+            lambda: transformer.decode_step(model, eng.cache, cfg, tok))
+    log("[10] one decode step's profile: "
+        f"{breakdown_line(out['decode_step_profile'])}")
+    report["rwkv"] = {**out, "wkv6": wkv}
+    del model
+    torch.cuda.empty_cache()
+    return wkv
+
+
+def wkv6_record(wkv):
+    """The ``wkv6`` entry of the ``kernels`` JSON line: one launch at
+    layer 0's inputs of the prefill forward."""
+    return {
+        "name": "wkv6", "route": "cuda", "source": SOURCES["wkv6"],
+        "replaces": REPLACES["wkv6"], "launches": wkv["launches"],
+        "max_abs_err": wkv["max_abs_err"], "ms": wkv["ms"],
+        "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
+        "bound_by": wkv["bound_by"], "library_ms": None,
+        "per": f"one launch at layer 0 of the {RWKV_ARCH} prefill forward "
+               f"(B {RWKV_BATCH}, S {RWKV_SEQ}), which launches it once a "
+               "layer; library_ms null: no single PyTorch call computes WKV",
+    }
+
+
 def kernels_record(per_kernel, launches, errs):
     """The ``kernels`` JSON line: ``per_kernel`` maps each kernel to its
     per-mode timing rows and a note of the tensor they were timed at."""
@@ -978,7 +1307,7 @@ def kernels_record(per_kernel, launches, errs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels only (phases 1-2b)")
+                    help="build and check the kernels only (phases 1-2c)")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per measurement (after a warm-up)")
     args = ap.parse_args(argv)
@@ -991,11 +1320,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import mttkrp as kmt
+    from repro_torch.kernels import wkv6 as kw6
 
     t_start = time.perf_counter()
     name, smi = phase_card()
     phase_kernels(kmt)
     phase_kernels_baseline(kmt)
+    phase_wkv6(kw6)
     if args.quick:
         log(f"quick run passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -1020,9 +1351,11 @@ def main(argv=None) -> int:
     for k in RECT_NEW:
         per_kernel[k] = (rows8, "nell1 (scale 0.01, rect, R 32)")
     phase_autotune(coo8, cache8, report)
+    del coo8, cache8
+    wkv = phase_rwkv(kw6, report, args.reps)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
-                             {**errs, **errs7, **errs8})
+                             {**errs, **errs7, **errs8}) + [wkv6_record(wkv)]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

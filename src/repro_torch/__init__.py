@@ -1,4 +1,5 @@
-"""PyTorch / CUDA port of the FLYCOO spMTTKRP system for NVIDIA Hopper.
+"""PyTorch / CUDA port of the FLYCOO spMTTKRP system (and its LM side)
+for NVIDIA Hopper.
 
 Mirrors the JAX package ``repro`` subpackage for subpackage and imports
 nothing of it (nor ``jax``):
@@ -8,6 +9,11 @@ nothing of it (nor ``jax``):
   engine/    ``init`` / ``mttkrp`` / ``all_modes`` over an ``EngineState``
   kernels/   hand-written CUDA kernels, their wrappers and plain versions
   obs/       spans and the metrics registry
+  models/    RWKV-6: config, block (``wkv6`` in ``time_mix``), ``forward``,
+             ``decode_step``
+  configs/   ``rwkv6-3b`` and ``smoke`` configs
+  serving/   the batched ``Engine`` (prefill + decode)
+  launch/    ``python -m repro_torch.launch.serve``
   interop    numpy state in, port state out (the tests' bridge)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,0 +1,58 @@
+"""Registry of the ported architectures, and ``smoke`` configs.
+
+The reference registers ten architectures; the port has the ones whose
+block kinds it runs. ``smoke()`` returns a reduced same-family config for
+CPU tests, by the reference's rules.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..models.common import ModelConfig
+from .rwkv6_3b import CONFIG as RWKV6_3B
+
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in [RWKV6_3B]}
+
+#: The reference's other architectures: their block kinds (attention,
+#: MoE, RG-LRU, encoder-decoder) are ROADMAP Queue A item 12.
+NOT_PORTED = ("command-r-plus-104b", "olmo-1b", "olmoe-1b-7b",
+              "paligemma-3b", "qwen2.5-3b", "qwen3-moe-235b-a22b",
+              "recurrentgemma-9b", "tinyllama-1.1b", "whisper-large-v3")
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} is not ported yet (ROADMAP Queue A item 12); the port "
+            f"has {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def smoke(name: str) -> ModelConfig:
+    """Reduced same-family config: small widths, few experts, tiny vocab."""
+    cfg = get_config(name)
+    pat = cfg.block_pattern
+    n_layers = max(2, len(pat))
+    repl = dict(
+        n_layers=n_layers if len(pat) == 1 else len(pat) + min(
+            len(pat), cfg.n_layers - len(pat)),
+        d_model=128,
+        n_heads=4,
+        n_kv_heads=max(1, min(4, cfg.n_kv_heads * 4 // cfg.n_heads)),
+        head_dim=32,
+        d_ff=256,
+        vocab=512,
+        window=min(cfg.window, 16) if cfg.window else 0,
+        lru_width=128 if cfg.lru_width else 0,
+        n_experts=8 if cfg.n_experts else 0,
+        top_k=2 if cfg.top_k else 0,
+        n_enc_layers=2 if cfg.n_enc_layers else 0,
+        n_img_tokens=4 if cfg.n_img_tokens else 0,
+        remat="none",
+    )
+    if cfg.kind == "ssm":
+        repl["d_model"] = 128  # 2 rwkv heads of 64
+        repl["n_heads"] = 2
+        repl["n_kv_heads"] = 2
+        repl["head_dim"] = 0
+    return dataclasses.replace(cfg, **repl)

@@ -1,7 +1,8 @@
-"""Carry state across from numpy: factors and a whole engine state.
+"""Carry state across from numpy: factors, a whole engine state, and a
+model's parameters.
 
 The tests hand the JAX reference's leaves (as numpy arrays) to the port,
-so both engines run on exactly the same layout and factors.
+so both sides run on exactly the same layout, factors and weights.
 """
 from __future__ import annotations
 
@@ -27,6 +28,31 @@ def factors_from_numpy(factors: Sequence, lam=None, device="cuda"):
     if lam is None:
         return fs
     return fs, _to(lam, np.float32, device)
+
+
+def model_params_from_numpy(tree, cfg, device="cuda"):
+    """The port's ``Model`` from the reference's ``init_model`` pytree
+    with numpy leaves: each stage's stacked blocks
+    (``tree["stage{i}"]["b{j}"][name][c]``) are unstacked into the layers
+    in order, every other leaf is copied as it is (dtype kept)."""
+    from repro_torch.models.common import device_of
+    from repro_torch.models.transformer import Model
+
+    dev = device_of(device)
+
+    def conv(node, c=None):
+        if isinstance(node, dict):
+            return {k: conv(v, c) for k, v in node.items()}
+        a = np.asarray(node) if c is None else np.asarray(node)[c]
+        return torch.from_numpy(np.array(a)).to(dev)  # a copy
+
+    layers = []
+    for i, (pat, rep) in enumerate(cfg.stages()):
+        for c in range(rep):
+            layers.extend(conv(tree[f"stage{i}"][f"b{j}"], c)
+                          for j in range(len(pat)))
+    rest = {k: conv(v) for k, v in tree.items() if not k.startswith("stage")}
+    return Model(cfg, {**rest, "layers": layers})
 
 
 def state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
@@ -59,4 +85,5 @@ def state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
         dims=tuple(int(d) for d in dims), statics=statics, config=config)
 
 
-__all__ = ["factors_from_numpy", "state_from_numpy"]
+__all__ = ["factors_from_numpy", "model_params_from_numpy",
+           "state_from_numpy"]

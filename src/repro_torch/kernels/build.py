@@ -34,6 +34,9 @@ SIGNATURES = {
     "mttkrp_pregathered": {
         "mttkrp_pregathered_launch": (_I, [_VP] * 4 + [_I] * 5 + [_VP] * 2),
     },
+    "wkv6": {
+        "wkv6_launch": (_I, [_VP] * 6 + [_I] * 4 + [_VP]),
+    },
 }
 
 #: name -> compiler output of the library's build (``-Xptxas -v``:

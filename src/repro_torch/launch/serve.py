@@ -1,0 +1,56 @@
+"""Batched serving from the command line: random weights from
+``--seed``, random prompts, ``Engine.generate``, tokens per second.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+      --batch 4 --prompt-len 16 --max-new 32            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+      --smoke --device cpu                              # small, CPU
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..configs import get_config, smoke
+from ..models import init_model
+from ..serving.engine import Engine, ServeConfig
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = smoke(args.arch) if args.smoke else get_config(args.arch)
+    params = init_model(cfg, args.seed, device=args.device)
+    eng = Engine(params, cfg,
+                 ServeConfig(batch=args.batch, max_len=args.max_len,
+                             temperature=args.temperature),
+                 device=args.device)
+    gen = torch.Generator(device=eng.device).manual_seed(args.seed)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=gen, device=eng.device)
+    t0 = time.monotonic()
+    out = eng.generate(prompt, args.max_new, generator=gen)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    dt = time.monotonic() - t0
+    tps = args.batch * args.max_new / dt
+    print(f"generated {tuple(out.shape)} on {eng.device} in {dt:.2f}s "
+          f"({tps:.1f} tok/s)")
+    print(out[0].tolist())
+    return out
+
+
+if __name__ == "__main__":
+    main()

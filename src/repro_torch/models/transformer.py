@@ -1,0 +1,157 @@
+"""Model assembly, RWKV subset: init, the teacher-forced ``forward`` (the
+prefill step) and the one-token ``decode_step`` over a per-layer cache.
+
+The reference stacks the layers of a stage and drives them with one
+``lax.scan``; here the layers are an ``nn.ModuleList`` walked in a loop,
+in the same order (``ModelConfig.stages``). Other block kinds and the
+CPD-factorized embedding raise ``NotImplementedError`` naming their
+ROADMAP item; the reference's ``shard(...)`` hints are dropped (one
+device).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import rwkv
+from .common import (ModelConfig, Params, apply_norm, dense_init, device_of,
+                     init_norm, param)
+
+_NOT_PORTED = "ROADMAP Queue A item 12 (LM side: the other block kinds)"
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Block kind of every layer, in order."""
+    return [kind for pat, rep in cfg.stages() for _ in range(rep)
+            for kind in pat]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.cpd_embedding:
+        raise NotImplementedError(
+            "cpd_embedding is ROADMAP Queue A item 11 (CPD-factorized "
+            "embedding)")
+    other = sorted(set(layer_kinds(cfg)) - {"rwkv"})
+    if other or cfg.n_enc_layers:
+        raise NotImplementedError(
+            f"block kinds {other or ['enc']} are {_NOT_PORTED}")
+
+
+class Model(nn.Module):
+    """The parameters of a model, under the reference's keys, with the
+    layers unstacked: ``embed``, ``layers[i]`` (the reference's
+    ``stage*/b*`` slice of layer i), ``ln_f`` and ``head``."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.embed = param(tree["embed"])
+        self.layers = nn.ModuleList(Params(b) for b in tree["layers"])
+        self.ln_f = Params(tree["ln_f"])
+        if "head" in tree:
+            self.head = param(tree["head"])
+
+
+# --------------------------------------------------------------------------
+# Blocks
+# --------------------------------------------------------------------------
+def init_block(cfg: ModelConfig, kind: str, generator) -> dict:
+    if kind != "rwkv":
+        raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
+    p = rwkv.init_rwkv_block(cfg, generator)
+    p["ln1"] = init_norm(cfg, generator.device)
+    p["ln2"] = init_norm(cfg, generator.device)
+    return p
+
+
+def apply_block(params, x, cfg: ModelConfig, kind: str):
+    if kind != "rwkv":
+        raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
+    x = x + rwkv.time_mix(params, apply_norm(params.ln1, x, cfg), cfg)
+    return x + rwkv.channel_mix(params, apply_norm(params.ln2, x, cfg), cfg)
+
+
+def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
+    if kind != "rwkv":
+        raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
+    h = apply_norm(params.ln1, x, cfg)
+    o, tm_cache = rwkv.time_mix_decode(params, h, cache, cfg)
+    x = x + o
+    h2 = apply_norm(params.ln2, x, cfg)
+    x = x + rwkv.channel_mix(params, h2, cfg, last=cache["last_c"])
+    return x, {**tm_cache, "last_c": h2}
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
+                     device) -> dict:
+    if kind != "rwkv":
+        raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
+    return rwkv.make_rwkv_cache(cfg, batch, device)
+
+
+# --------------------------------------------------------------------------
+# Whole model
+# --------------------------------------------------------------------------
+def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
+    """Random parameters on ``device``, drawn from a
+    ``torch.Generator`` on that device seeded with ``seed``."""
+    _check_ported(cfg)
+    gen = torch.Generator(device=device_of(device)).manual_seed(seed)
+    d = cfg.d_model
+    tree = {"embed": dense_init((cfg.vocab_padded, d), cfg.pdtype, 0.02,
+                                generator=gen),
+            "layers": [init_block(cfg, kind, gen)
+                       for kind in layer_kinds(cfg)],
+            "ln_f": init_norm(cfg, gen.device)}
+    if not cfg.tie_embeddings:
+        tree["head"] = dense_init((d, cfg.vocab_padded), cfg.pdtype,
+                                  generator=gen)
+    return Model(cfg, tree)
+
+
+def embed_lookup(params, ids, cfg: ModelConfig):
+    """Token embeddings in the compute dtype (rows gathered, then cast:
+    the same values as casting the table first)."""
+    return params.embed[ids].to(cfg.cdtype)
+
+
+def head_matrix(params, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return params.embed.to(cfg.cdtype).T
+    return params.head.to(cfg.cdtype)
+
+
+def _logits(params, x, cfg: ModelConfig):
+    return apply_norm(params.ln_f, x, cfg) @ head_matrix(params, cfg)
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Teacher-forced forward (the prefill step): tokens (B, S) -> logits
+    (B, S, Vp) in the compute dtype. Runs ``wkv6`` once per layer."""
+    x = embed_lookup(params, tokens, cfg)
+    for layer, kind in zip(params.layers, layer_kinds(cfg)):
+        x = apply_block(layer, x, cfg, kind)
+    return _logits(params, x, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> list[dict]:
+    """One cache per layer (the reference stacks them per stage)."""
+    dev = device_of(device)
+    return [init_block_cache(cfg, kind, batch, dev)
+            for kind in layer_kinds(cfg)]
+
+
+def decode_step(params, cache, cfg: ModelConfig, token):
+    """token: (B, 1) int -> (logits (B, 1, Vp), new cache)."""
+    x = embed_lookup(params, token, cfg)
+    new_cache = []
+    for layer, c, kind in zip(params.layers, cache, layer_kinds(cfg)):
+        x, c = apply_block_decode(layer, x, c, cfg, kind)
+        new_cache.append(c)
+    return _logits(params, x, cfg), new_cache
+
+
+__all__ = ["Model", "apply_block", "apply_block_decode", "decode_step",
+           "embed_lookup", "forward", "head_matrix", "init_block",
+           "init_cache", "init_model", "layer_kinds"]

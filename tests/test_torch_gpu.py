@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions, the ``cuda_fused`` and ``cuda`` rotations (both schedules)
-against the COO oracle, and CPD on the card. Every test is marked
+against the COO oracle, CPD on the card, and the RWKV-6 ``forward`` on
+the ``wkv6`` kernel. Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
 the CUDA toolkit only:
@@ -9,7 +10,14 @@ the CUDA toolkit only:
 
 Tolerances: ``out_rel`` and MTTKRP outputs rtol = atol = 2e-4 (float32
 sums of at most a few hundred products, shared-memory atomics against
-``index_add_``); remap outputs and layouts bitwise; CPD fits 1e-4.
+``index_add_``); remap outputs and layouts bitwise; CPD fits 1e-4;
+``wkv6`` rtol = atol = 1e-4 (the same float32 recurrence, the readout
+summed in another order and the state update fused into one FMA);
+the float32 ``forward`` on the card against the CPU rtol = atol = 2e-3:
+the per-head RMS norm divides by |y|, so where y nearly cancels it
+carries that sum's condition number into the logits (at t = 0,
+y = (r . (u * k)) v is one dot product times v); 2.8e-4 was seen at
+position 1 on an H100, a wrong decay or bonus moves logits by ~1e-1.
 """
 import numpy as np
 import pytest
@@ -20,6 +28,7 @@ from repro_torch.core import build_flycoo, cp_als, mttkrp_ref
 from repro_torch.core.flycoo import _ROW_SENTINEL, _dedup_tables_batched
 from repro_torch.engine import ExecutionConfig
 from repro_torch.kernels import mttkrp as kmt
+from repro_torch.kernels import wkv6 as kw6
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -267,3 +276,102 @@ def test_cp_als_cuda_fused_matches_torch_backend(cuda):
     assert all(np.isfinite(fits[0]))
     assert fits[0] == pytest.approx(fits[2], abs=1e-4)
     assert fits[1] == pytest.approx(fits[2], abs=1e-4)
+
+
+def _wkv_args(bh, t, k, v, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    r, kk, vv = (torch.randn(s, generator=g) for s in
+                 ((bh, t, k), (bh, t, k), (bh, t, v)))
+    w = 0.5 + 0.499 * torch.rand((bh, t, k), generator=g)
+    u = torch.randn((bh, k), generator=g)
+    return tuple(x.to(device) for x in (r, kk, w, vv, u))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,k,v", [
+    (2, 16, 8, 8), (4, 32, 16, 32), (1, 64, 64, 64), (160, 256, 64, 64),
+    (3, 37, 32, 16)])
+def test_wkv6_kernel_matches_plain(cuda, bh, t, k, v):
+    """The shapes of the reference kernel tests, the model's rows at
+    T = 256, and a T that is no multiple of the kernel's chunk."""
+    args = _wkv_args(bh, t, k, v, bh + t, cuda)
+    before = kw6.LAUNCHES["wkv6"]
+    got = kw6.wkv6(*args)
+    want = kw6.wkv6_plain(*args)
+    torch.cuda.synchronize()
+    assert kw6.LAUNCHES["wkv6"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wkv6_refuses_what_it_does_not_take(cuda):
+    before = kw6.LAUNCHES["wkv6"]
+    with pytest.raises(ValueError, match="K and V in"):
+        kw6.wkv6(*_wkv_args(2, 8, 12, 16, 0, cuda))
+    with pytest.raises(ValueError, match="K and V in"):
+        kw6.wkv6(*_wkv_args(2, 8, 16, 128, 0, cuda))
+    r, k, w, v, u = _wkv_args(2, 8, 16, 16, 0, cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kw6.wkv6(r.requires_grad_(), k, w, v, u)
+    assert kw6.LAUNCHES["wkv6"] == before
+
+
+@pytest.mark.gpu
+def test_forward_launches_wkv6_once_per_layer(cuda):
+    """float32 (TF32 off) ``forward`` on the card: one ``wkv6`` launch a
+    layer, logits equal to the CPU's (plain recurrence) on the same
+    weights."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(smoke("rwkv6-3b"), compute_dtype="float32")
+    model = transformer.init_model(cfg, 0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in model.layers:          # a non-zero, varying decay
+        layer.wb_lora.copy_(0.15 * torch.randn(layer.wb_lora.shape,
+                                               generator=g))
+    tok = torch.randint(0, cfg.vocab, (2, 64), generator=g)
+    want = transformer.forward(model, cfg, tok)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = model.to(cuda)
+        kw6.reset_launch_counts()
+        got = transformer.forward(model, cfg, tok.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert kw6.LAUNCHES["wkv6"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card_by_default(cuda):
+    """Model, cache and ``Engine`` on the default device (the card):
+    ``Engine.prefill`` (the decode recurrence) agrees with ``forward``
+    (the kernel) at the last position, float32."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = dataclasses.replace(smoke("rwkv6-3b"), compute_dtype="float32")
+    model = transformer.init_model(cfg, 0)
+    assert model.embed.is_cuda
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for layer in model.layers:
+        layer.wb_lora.normal_(0.0, 0.15, generator=g)
+    tok = torch.randint(0, cfg.vocab, (2, 32), generator=g, device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = transformer.forward(model, cfg, tok)[:, -1]
+            got = Engine(model, cfg, ServeConfig(2, 64)).prefill(tok)[:, -1]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
