@@ -25,6 +25,17 @@ times the kernels at each path's shapes.
        inputs held against the plain version, a float32 cross-check of
        ``forward`` against ``Engine.prefill`` (4 layers), and
        ``Engine.generate`` serving 4 requests of 16 + 32 tokens
+  [2d] the ``lru_scan`` kernel against its plain version at the
+       reference kernel tests' shapes (float32 and float16 inputs), a
+       ragged shape and the model's rows (B 4, T 256, D 4096)
+  [11] RecurrentGemma at the full width and depth of
+       ``recurrentgemma-9b`` (38 layers, 26 RG-LRU + 12 local attention,
+       f32 params, random weights from a seed): the prefill ``forward``
+       in bf16 at B 4, S 4096 (one ``lru_scan`` launch a rec layer, the
+       banded window attention), layer 0's kernel inputs held against
+       the plain version, a float32 cross-check of ``forward`` against
+       ``Engine.prefill`` (4 layers over the same parameter tensors), and
+       ``Engine.generate`` serving 4 requests of 16 + 32 tokens
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -70,6 +81,26 @@ function on absolute inputs) and ``u = 2**-24``:
     kernel's readout order, through 4 layers of ~10 matmuls: ~1e-4 at
     most; a wrong decay or bonus moves logits by ~1e-1. Greedy tokens
     must agree.
+  * ``lru_scan`` against its plain version, both float32. With ``A_t``
+    the same recurrence on ``|a|, |x|`` (in float64): per element
+    ``2 * LAMBDA * 2 sqrt(t + 1) * u * A_t``. h_t is a sum of t + 1
+    terms x_s a_{s+1} ... a_t. Each step rounds at most twice (the plain
+    version's product and sum; the kernel's one FMA), each time by at
+    most u of a value no larger than A at that step; an error made at
+    step s reaches step t scaled by |a_{s+1} ... a_t|, and that product
+    times A_s is at most A_t. So after t + 1 steps the state carries a
+    random walk of at most 2 (t + 1) roundings of size u A_t, ~2 sqrt(t
+    + 1) of them in size; one share for each side. The limit is held
+    against itself: the kernel run with a shifted one step late (a_{t-1}
+    in step t) and with a zeroed at the kernel's first chunk boundary
+    (t = 32: a dropped carry) must fail it.
+  * RecurrentGemma float32 cross-check, ``forward(prompt)[:, -1]`` (the
+    kernel, the prefill attention) against ``Engine.prefill(prompt)``
+    (the decode recurrence and the ring-buffer attention) at full width,
+    4 layers (rec, rec, local, rec): max |difference| <= ``XCHECK_ATOL``
+    on logits of size ~1, for the same reasons (sums over d = 4096 and
+    d_ff = 12288, a softmax over at most 64 keys); a dropped carry or a
+    wrong mask moves logits by ~1e-1. Greedy tokens must agree.
 """
 from __future__ import annotations
 
@@ -101,6 +132,7 @@ SOURCES = {
     "mttkrp_fused_gather": CSRC + "mttkrp_gather.cu",
     "mttkrp_fused": CSRC + "mttkrp_pregathered.cu",
     "wkv6": CSRC + "wkv6.cu",
+    "lru_scan": CSRC + "lru_scan.cu",
 }
 REPLACES = {
     "mttkrp_fused_remap_compact": "src/repro/kernels/mttkrp_kernel.py:583",
@@ -110,6 +142,7 @@ REPLACES = {
     "mttkrp_fused_gather": "src/repro/kernels/mttkrp_kernel.py:420",
     "mttkrp_fused": "src/repro/kernels/mttkrp_kernel.py:132",
     "wkv6": "src/repro/kernels/wkv6.py:53",
+    "lru_scan": "src/repro/kernels/lru_scan.py:44",
 }
 RECT_NEW = ("mttkrp_fused_remap", "mttkrp_fused_gather", "mttkrp_fused")
 
@@ -1052,10 +1085,11 @@ def wkv_bound(args):
     return 4 * (bh * t * (3 * k + 2 * vd) + bh * k), 5 * k * vd * t * bh
 
 
-def device_breakdown(fn):
+def device_breakdown(fn, kernel="wkv6"):
     """Device time of one call of ``fn`` by kernel class, from
-    ``torch.profiler``: ms in ``wkv6``, in matrix products (cuBLAS,
-    CUTLASS and nvjet kernels) and in all other kernels, the number of
+    ``torch.profiler``: ms in ``kernel`` (the port's kernel on the path),
+    in matrix products (cuBLAS, CUTLASS and nvjet kernels) and in all
+    other kernels, the number of
     kernels, the host's wall ms (call + synchronize) and the device's
     busy share of it; ``None`` for the device numbers if the profiler
     saw no device time (then they are not measured)."""
@@ -1070,14 +1104,14 @@ def device_breakdown(fn):
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    ms = {"wkv6": 0.0, "matmul": 0.0, "other": 0.0}
+    ms = {kernel: 0.0, "matmul": 0.0, "other": 0.0}
     top, n = [], 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         t = e.device_time_total / 1e3
         name = e.key.lower()
-        kind = ("wkv6" if "wkv6" in name else "matmul"
+        kind = (kernel if kernel in name else "matmul"
                 if any(w in name for w in ("gemm", "xmma", "nvjet",
                                            "cutlass")) else "other")
         ms[kind] += t
@@ -1095,10 +1129,100 @@ def breakdown_line(b):
     if b["device_ms"] is None:
         return (f"wall {b['wall_ms']:.1f} ms; the profiler saw no device "
                 "time (device split not measured)")
-    ms = b["device_ms"]
+    split = ", ".join(f"{k} {v:.1f}" for k, v in b["device_ms"].items())
     return (f"wall {b['wall_ms']:.1f} ms, {b['kernels']} kernels, device "
-            f"busy {b['busy_share']:.1%}: wkv6 {ms['wkv6']:.1f}, matmul "
-            f"{ms['matmul']:.1f}, other {ms['other']:.1f} ms")
+            f"busy {b['busy_share']:.1%}: {split} ms")
+
+
+def free_device_memory():
+    """Collect reference cycles, then return the freed blocks to the card.
+    A cycle through ``torch.profiler``'s frames keeps the profiled call's
+    frames, and with them its model, alive after the phase returns."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def xcheck(tag, model4, cfg4, prompt):
+    """The float32 cross-check (module docstring): ``forward(prompt)[:,
+    -1]`` against ``Engine.prefill(prompt)``, then 8 greedy tokens of
+    ``Engine.generate`` from the first 16 against ``forward``'s. Returns
+    (max |diff|, max |logit|)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine, ServeConfig
+
+    batch, n = prompt.shape
+    vocab = cfg4.vocab
+    fl = transformer.forward(model4, cfg4, prompt)[:, -1].float()
+    pl = Engine(model4, cfg4, ServeConfig(batch, 2 * n),
+                device="cuda").prefill(prompt)[:, -1].float()
+    xerr = float((fl - pl).abs().max())
+    if not xerr <= XCHECK_ATOL:
+        raise AssertionError(f"{tag} f32 forward vs Engine.prefill: max "
+                             f"|diff| {xerr:.3e} > {XCHECK_ATOL}")
+    if not torch.equal(fl[:, :vocab].argmax(-1), pl[:, :vocab].argmax(-1)):
+        raise AssertionError(f"{tag} f32 forward and Engine.prefill pick "
+                             "different greedy tokens")
+    seq = prompt[:, :16]
+    toks = Engine(model4, cfg4, ServeConfig(batch, 64),
+                  device="cuda").generate(seq, 8)
+    for _ in range(8):
+        nxt = transformer.forward(model4, cfg4, seq)[:, -1, :vocab]
+        seq = torch.cat([seq, nxt.argmax(-1)[:, None]], dim=1)
+    if not torch.equal(toks, seq[:, 16:]):
+        raise AssertionError(f"{tag} greedy tokens of Engine.generate and "
+                             "of forward differ")
+    xlogit = float(fl.abs().max())
+    log(f"{tag} f32, 4 layers {transformer.layer_kinds(cfg4)}: "
+        f"forward(prompt)[:, -1] == Engine.prefill (S {n}, max |diff| "
+        f"{xerr:.3e} <= {XCHECK_ATOL}, max |logit| {xlogit:.2f}); 8 greedy "
+        "tokens of Engine.generate == forward's")
+    return xerr, xlogit
+
+
+def serve_check(tag, model, cfg, batch, g, kernel):
+    """Serving at full depth, bf16: ``batch`` requests of 16 prompt + 32
+    new tokens, greedy, twice (the first run is cold), then one decode
+    step under ``torch.profiler``."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine, ServeConfig
+
+    free_device_memory()
+    prompt = torch.randint(0, cfg.vocab, (batch, 16), generator=g,
+                           device="cuda")
+    serve = []
+    for _ in range(2):
+        eng = Engine(model, cfg, ServeConfig(batch, 48), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompt, 32)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if toks.shape != (batch, 32) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"{tag} generate gave {tuple(toks.shape)} "
+                                 "or tokens out of the vocabulary")
+        serve.append({"seconds": dt, "tokens_per_s": batch * 32 / dt,
+                      "ms_per_step": 1e3 * dt / (16 + 32),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    log(f"{tag} Engine.generate ({batch} requests, 16 prompt + 32 new "
+        f"tokens, greedy, bf16): cold {serve[0]['seconds']:.2f} s, warm "
+        f"{serve[1]['seconds']:.2f} s = {serve[1]['tokens_per_s']:.1f} "
+        f"tokens/s ({serve[1]['ms_per_step']:.2f} ms a decode step); peak "
+        f"{serve[1]['peak_gib']:.2f} GiB")
+    with torch.no_grad():
+        tok = toks[:, -1:]
+        prof = device_breakdown(
+            lambda: transformer.decode_step(model, eng.cache, cfg, tok),
+            kernel)
+    log(f"{tag} one decode step's profile: {breakdown_line(prof)}")
+    return {"serve": serve, "decode_step_profile": prof}
 
 
 def rwkv_model(cfg, seed):
@@ -1125,7 +1249,6 @@ def phase_rwkv(kw6, report, reps):
     from repro_torch.configs import get_config
     from repro_torch.models import rwkv, transformer
     from repro_torch.models.common import apply_norm
-    from repro_torch.serving import Engine, ServeConfig
 
     cfg = get_config(RWKV_ARCH)
     torch.cuda.empty_cache()
@@ -1148,6 +1271,7 @@ def phase_rwkv(kw6, report, reps):
         kw6.reset_launch_counts()
         logits = transformer.forward(model, cfg, tokens)
         torch.cuda.synchronize()
+        out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         launches = kw6.LAUNCHES["wkv6"]
         if launches != cfg.n_layers:
             raise AssertionError(f"[10] forward launched wkv6 {launches} "
@@ -1156,7 +1280,6 @@ def phase_rwkv(kw6, report, reps):
                 not torch.isfinite(logits).all():
             raise AssertionError(f"[10] forward logits {tuple(logits.shape)}"
                                  " not finite or of the wrong shape")
-        out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         del logits
         out["forward_ms"] = cuda_ms(
             lambda: transformer.forward(model, cfg, tokens), 2)
@@ -1196,69 +1319,15 @@ def phase_rwkv(kw6, report, reps):
         model4 = rwkv_model(cfg4, 3)
         prompt = torch.randint(0, cfg.vocab, (RWKV_BATCH, 128), generator=g,
                                device="cuda")
-        fl = transformer.forward(model4, cfg4, prompt)[:, -1].float()
-        pl = Engine(model4, cfg4, ServeConfig(RWKV_BATCH, 256),
-                    device="cuda").prefill(prompt)[:, -1].float()
-        xerr = float((fl - pl).abs().max())
-        if not xerr <= XCHECK_ATOL:
-            raise AssertionError(f"[10] f32 forward vs Engine.prefill: max "
-                                 f"|diff| {xerr:.3e} > {XCHECK_ATOL}")
-        if not torch.equal(fl[:, :cfg.vocab].argmax(-1),
-                           pl[:, :cfg.vocab].argmax(-1)):
-            raise AssertionError("[10] f32 forward and Engine.prefill pick "
-                                 "different greedy tokens")
-        seq = prompt[:, :16]
-        toks = Engine(model4, cfg4, ServeConfig(RWKV_BATCH, 64),
-                      device="cuda").generate(seq, 8)
-        for _ in range(8):
-            nxt = transformer.forward(model4, cfg4, seq)[:, -1, :cfg.vocab]
-            seq = torch.cat([seq, nxt.argmax(-1)[:, None]], dim=1)
-        if not torch.equal(toks, seq[:, 16:]):
-            raise AssertionError("[10] greedy tokens of Engine.generate and "
-                                 "of forward differ")
+        xerr, xlogit = xcheck("[10]", model4, cfg4, prompt)
         out["xcheck_max_abs_diff"] = xerr
-        out["xcheck_max_abs_logit"] = float(fl.abs().max())
-        del model4, fl, pl
-        log(f"[10] f32, 4 layers: forward(prompt)[:, -1] == Engine.prefill "
-            f"(S 128, max |diff| {xerr:.3e} <= {XCHECK_ATOL}, max |logit| "
-            f"{out['xcheck_max_abs_logit']:.2f}); 8 greedy tokens of "
-            "Engine.generate == forward's")
+        out["xcheck_max_abs_logit"] = xlogit
+        del model4
 
-    # Serving at full depth, bf16: 4 requests, 16 prompt + 32 new tokens.
-    torch.cuda.empty_cache()
-    prompt = torch.randint(0, cfg.vocab, (RWKV_BATCH, 16), generator=g,
-                           device="cuda")
-    serve = []
-    for _ in range(2):        # the first run is cold
-        eng = Engine(model, cfg, ServeConfig(RWKV_BATCH, 48), device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        toks = eng.generate(prompt, 32)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if toks.shape != (RWKV_BATCH, 32) or not (
-                (toks >= 0) & (toks < cfg.vocab)).all():
-            raise AssertionError(f"[10] generate gave {tuple(toks.shape)} "
-                                 "or tokens out of the vocabulary")
-        serve.append({"seconds": dt, "tokens_per_s": RWKV_BATCH * 32 / dt,
-                      "ms_per_step": 1e3 * dt / (16 + 32),
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
-    out["serve"] = serve
-    log(f"[10] Engine.generate (4 requests, 16 prompt + 32 new tokens, "
-        f"greedy, bf16): cold {serve[0]['seconds']:.2f} s, warm "
-        f"{serve[1]['seconds']:.2f} s = {serve[1]['tokens_per_s']:.1f} "
-        f"tokens/s ({serve[1]['ms_per_step']:.2f} ms a decode step); peak "
-        f"{serve[1]['peak_gib']:.2f} GiB")
-    with torch.no_grad():
-        tok = toks[:, -1:]
-        out["decode_step_profile"] = device_breakdown(
-            lambda: transformer.decode_step(model, eng.cache, cfg, tok))
-    log("[10] one decode step's profile: "
-        f"{breakdown_line(out['decode_step_profile'])}")
+    out.update(serve_check("[10]", model, cfg, RWKV_BATCH, g, "wkv6"))
     report["rwkv"] = {**out, "wkv6": wkv}
     del model
-    torch.cuda.empty_cache()
+    free_device_memory()
     return wkv
 
 
@@ -1274,6 +1343,200 @@ def wkv6_record(wkv):
         "per": f"one launch at layer 0 of the {RWKV_ARCH} prefill forward "
                f"(B {RWKV_BATCH}, S {RWKV_SEQ}), which launches it once a "
                "layer; library_ms null: no single PyTorch call computes WKV",
+    }
+
+
+# --------------------------------------------------------------------------
+# RecurrentGemma: [2d] and [11].
+# --------------------------------------------------------------------------
+LRU_SHAPES = ((1, 32, 8), (2, 64, 16), (3, 128, 32), (2, 64, 128))
+LRU_MORE = ((3, 1000, 4100), (4, 256, 4096))   # ragged; the model's rows
+RG_ARCH = "recurrentgemma-9b"
+RG_BATCH, RG_SEQ = 4, 4096            # prefill_32k cut 8x in B and in S
+RG_XCHECK_SEQ = 64
+
+
+def lru_case(b, t, d, seed, dtype):
+    """The reference kernel test's inputs: a uniform in [0.3, 0.999], x
+    normal, in ``dtype``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.3 + 0.699 * torch.rand((b, t, d), generator=g, device="cuda")
+    x = torch.randn((b, t, d), generator=g, device="cuda")
+    return a.to(dtype), x.to(dtype)
+
+
+def lru_limit(klru, a, x, sides=2):
+    """Per-element limit of a float32 ``lru_scan`` (see the module
+    docstring)."""
+    import torch
+
+    big_a = klru.lru_scan_steps(a.double().abs(), x.double().abs())
+    t = torch.arange(a.shape[1], device=a.device, dtype=torch.float64)
+    return sides * LAMBDA * 2 * (t + 1).sqrt()[None, :, None] * U * big_a
+
+
+def lru_check(klru, a, x, tag):
+    """Kernel against plain within the limit, and the limit against
+    itself; returns (max error, its share of the limit)."""
+    import torch
+
+    want = klru.lru_scan_plain(a, x)
+    lim = lru_limit(klru, a, x)
+    res = close_to(f"{tag} lru_scan", klru.lru_scan(a, x), want, lim)
+    t = a.shape[1]
+    tb = klru.STEPS if t > klru.STEPS else t // 2
+    late = torch.cat([a[:, :1], a[:, :-1]], dim=1)
+    dropped = a.clone()
+    dropped[:, tb] = 0
+    for variant, bad in (("a_(t-1)", late), (f"a = 0 at t = {tb}", dropped)):
+        got = klru.lru_scan(bad, x)
+        if not ((got.double() - want.double()).abs() > lim).any():
+            raise AssertionError(f"{tag} lru_scan: the limit does not "
+                                 f"catch the {variant} variant")
+    return res
+
+
+def phase_lru(klru):
+    """[2d] ``lru_scan`` against its plain version at the reference
+    kernel tests' shapes (float32 and float16 inputs), a ragged shape and
+    the model's rows."""
+    import torch
+
+    cases = [(s, dt) for s in LRU_SHAPES
+             for dt in (torch.float32, torch.float16)]
+    cases += [(s, torch.float32) for s in LRU_MORE]
+    for i, (shape, dt) in enumerate(cases):
+        err, share = lru_check(klru, *lru_case(*shape, seed=i, dtype=dt),
+                               "[2d]")
+        torch.cuda.synchronize()
+        log(f"[2d] lru_scan (B, T, D) = {shape} {str(dt)[6:]} == plain (max "
+            f"err {err:.3e}, {share:.3f} of the limit); a_(t-1) and "
+            "dropped-carry variants fail it")
+
+
+def phase_rg(klru, report, reps):
+    """[11] RecurrentGemma at the full width and depth of
+    ``recurrentgemma-9b``: prefill ``forward`` (the main path of
+    ``lru_scan``), the kernel at layer 0's inputs, the float32
+    cross-check, and ``Engine.generate``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru, transformer
+    from repro_torch.models.common import apply_norm, tree_of
+
+    cfg = get_config(RG_ARCH)
+    kinds = transformer.layer_kinds(cfg)
+    n_rec = kinds.count("rec")
+    free_device_memory()
+    left = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    model = transformer.init_model(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size()
+              for p in model.parameters()) / 2**30
+    log(f"[11] {RG_ARCH}: {cfg.n_layers} layers ({n_rec} rec, "
+        f"{kinds.count('local')} local, window {cfg.window}), d "
+        f"{cfg.d_model}, lru_width {cfg.lru_width}, {cfg.n_heads} heads of "
+        f"{cfg.hd} / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_params:,} params ({gib:.2f} GiB) initialised in "
+        f"{time.perf_counter() - t0:.1f} s ({left:.2f} GiB left allocated "
+        "by the earlier phases)")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (RG_BATCH, RG_SEQ), generator=g,
+                           device="cuda")
+    out = {"params": n_params, "layers": cfg.n_layers, "rec_layers": n_rec,
+           "batch": RG_BATCH, "seq": RG_SEQ}
+
+    # The main path: one prefill forward, bf16.
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        klru.reset_launch_counts()
+        logits = transformer.forward(model, cfg, tokens)
+        torch.cuda.synchronize()
+        out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        launches = klru.LAUNCHES["lru_scan"]
+        if launches != n_rec:
+            raise AssertionError(f"[11] forward launched lru_scan "
+                                 f"{launches} times, expected {n_rec}")
+        if logits.shape != (RG_BATCH, RG_SEQ, cfg.vocab_padded) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"[11] forward logits {tuple(logits.shape)}"
+                                 " not finite or of the wrong shape")
+        del logits
+        out["forward_ms"] = cuda_ms(
+            lambda: transformer.forward(model, cfg, tokens), 2)
+        log(f"[11] forward (B {RG_BATCH}, S {RG_SEQ}, bf16): "
+            f"{out['forward_ms']:.1f} ms, lru_scan launches {launches}, "
+            f"peak {out['prefill_peak_gib']:.2f} GiB")
+        out["forward_profile"] = device_breakdown(
+            lambda: transformer.forward(model, cfg, tokens), "lru_scan")
+        log(f"[11] forward profile: {breakdown_line(out['forward_profile'])}")
+
+        # The kernel at layer 0's inputs, full shape.
+        layer0 = model.layers[0]
+        x0 = apply_norm(layer0.ln1,
+                        transformer.embed_lookup(model, tokens, cfg), cfg)
+        a, b, _ = rglru.scan_inputs(layer0.rec, x0, cfg)
+        del x0
+        err, share = lru_check(klru, a, b, "[11] layer 0")
+        nbytes, flops = 12 * a.numel(), 2 * a.numel()
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, \
+            1e3 * flops / F32_FLOP_PER_S
+        lru = {"ms": cuda_ms(lambda: klru.lru_scan(a, b), reps),
+               "plain_ms": cuda_ms(lambda: klru.lru_scan_plain(a, b), 1),
+               "bytes": nbytes, "flops": flops,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "max_abs_err": err, "launches": launches,
+               "a_range": [float(a.min()), float(a.max())]}
+        del a, b
+        log(f"[11] lru_scan at layer 0 (B {RG_BATCH}, T {RG_SEQ}, D "
+            f"{cfg.lru_width}) == plain (max err {err:.3e}, {share:.3f} of "
+            f"the limit; a in [{lru['a_range'][0]:.5f}, "
+            f"{lru['a_range'][1]:.5f}]): {lru['ms']:.3f} ms a launch (plain "
+            f"{lru['plain_ms']:.1f}, bound {lru['bound_ms']:.4f} by "
+            f"{lru['bound_by']})")
+
+        # float32 cross-check at 4 layers, over the same parameter tensors.
+        cfg4 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
+        model4 = transformer.Model(cfg4, {
+            "embed": model.embed, "ln_f": tree_of(model.ln_f),
+            "layers": [tree_of(m) for m in model.layers[:4]]})
+        if model4.embed.data_ptr() != model.embed.data_ptr():
+            raise AssertionError("[11] the 4-layer model copied its "
+                                 "parameters")
+        prompt = torch.randint(0, cfg.vocab, (RG_BATCH, RG_XCHECK_SEQ),
+                               generator=g, device="cuda")
+        xerr, xlogit = xcheck("[11]", model4, cfg4, prompt)
+        out["xcheck_max_abs_diff"] = xerr
+        out["xcheck_max_abs_logit"] = xlogit
+        del model4
+
+    out.update(serve_check("[11]", model, cfg, RG_BATCH, g, "lru_scan"))
+    report["recurrentgemma"] = {**out, "lru_scan": lru}
+    del model
+    free_device_memory()
+    return lru
+
+
+def lru_scan_record(lru):
+    """The ``lru_scan`` entry of the ``kernels`` JSON line: one launch at
+    layer 0's inputs of the prefill forward."""
+    return {
+        "name": "lru_scan", "route": "cuda", "source": SOURCES["lru_scan"],
+        "replaces": REPLACES["lru_scan"], "launches": lru["launches"],
+        "max_abs_err": lru["max_abs_err"], "ms": lru["ms"],
+        "plain_ms": lru["plain_ms"], "bound_ms": lru["bound_ms"],
+        "bound_by": lru["bound_by"], "library_ms": None,
+        "per": f"one launch at layer 0 of the {RG_ARCH} prefill forward "
+               f"(B {RG_BATCH}, S {RG_SEQ}), which launches it once a rec "
+               "layer; library_ms null: no single PyTorch call computes a "
+               "linear recurrence",
     }
 
 
@@ -1307,7 +1570,7 @@ def kernels_record(per_kernel, launches, errs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels only (phases 1-2c)")
+                    help="build and check the kernels only (phases 1-2d)")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per measurement (after a warm-up)")
     args = ap.parse_args(argv)
@@ -1320,6 +1583,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import mttkrp as kmt
+    from repro_torch.kernels import lru_scan as klru
     from repro_torch.kernels import wkv6 as kw6
 
     t_start = time.perf_counter()
@@ -1327,6 +1591,7 @@ def main(argv=None) -> int:
     phase_kernels(kmt)
     phase_kernels_baseline(kmt)
     phase_wkv6(kw6)
+    phase_lru(klru)
     if args.quick:
         log(f"quick run passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -1353,9 +1618,11 @@ def main(argv=None) -> int:
     phase_autotune(coo8, cache8, report)
     del coo8, cache8
     wkv = phase_rwkv(kw6, report, args.reps)
+    lru = phase_rg(klru, report, args.reps)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
-                             {**errs, **errs7, **errs8}) + [wkv6_record(wkv)]
+                             {**errs, **errs7, **errs8}) + [
+        wkv6_record(wkv), lru_scan_record(lru)]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

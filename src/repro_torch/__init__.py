@@ -9,9 +9,10 @@ nothing of it (nor ``jax``):
   engine/    ``init`` / ``mttkrp`` / ``all_modes`` over an ``EngineState``
   kernels/   hand-written CUDA kernels, their wrappers and plain versions
   obs/       spans and the metrics registry
-  models/    RWKV-6: config, block (``wkv6`` in ``time_mix``), ``forward``,
-             ``decode_step``
-  configs/   ``rwkv6-3b`` and ``smoke`` configs
+  models/    RWKV-6 (``wkv6`` in ``time_mix``) and RecurrentGemma
+             (``lru_scan`` in ``apply_rglru``, local attention, MLP):
+             ``forward``, ``decode_step``
+  configs/   ``rwkv6-3b``, ``recurrentgemma-9b`` and ``smoke`` configs
   serving/   the batched ``Engine`` (prefill + decode)
   launch/    ``python -m repro_torch.launch.serve``
   interop    numpy state in, port state out (the tests' bridge)

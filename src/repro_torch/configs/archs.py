@@ -9,15 +9,17 @@ from __future__ import annotations
 import dataclasses
 
 from ..models.common import ModelConfig
+from .recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
 from .rwkv6_3b import CONFIG as RWKV6_3B
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in [RWKV6_3B]}
+ARCHS: dict[str, ModelConfig] = {
+    c.name: c for c in [RECURRENTGEMMA_9B, RWKV6_3B]}
 
-#: The reference's other architectures: their block kinds (attention,
-#: MoE, RG-LRU, encoder-decoder) are ROADMAP Queue A item 12.
+#: The reference's other architectures: their block kinds (global
+#: attention, MoE, encoder-decoder) are ROADMAP Queue A item 12.
 NOT_PORTED = ("command-r-plus-104b", "olmo-1b", "olmoe-1b-7b",
               "paligemma-3b", "qwen2.5-3b", "qwen3-moe-235b-a22b",
-              "recurrentgemma-9b", "tinyllama-1.1b", "whisper-large-v3")
+              "tinyllama-1.1b", "whisper-large-v3")
 
 
 def get_config(name: str) -> ModelConfig:

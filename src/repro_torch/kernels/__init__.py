@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and their wrappers.
 
 ``csrc/`` holds the CUDA C++ sources, :mod:`.build` compiles them with
-``nvcc`` at first CUDA use, and :mod:`.mttkrp` (spMTTKRP) and :mod:`.wkv6`
-(RWKV-6) hold the wrappers, their plain PyTorch versions and the launch
-counters. Importing this package needs neither ``nvcc`` nor a card.
+``nvcc`` at first CUDA use, and :mod:`.mttkrp` (spMTTKRP), :mod:`.wkv6`
+(RWKV-6) and :mod:`.lru_scan` (RG-LRU) hold the wrappers, their plain
+PyTorch versions and the launch counters. Importing this package needs
+neither ``nvcc`` nor a card.
 """

@@ -37,6 +37,9 @@ SIGNATURES = {
     "wkv6": {
         "wkv6_launch": (_I, [_VP] * 6 + [_I] * 4 + [_VP]),
     },
+    "lru_scan": {
+        "lru_scan_launch": (_I, [_VP] * 3 + [_I] * 3 + [_VP]),
+    },
 }
 
 #: name -> compiler output of the library's build (``-Xptxas -v``:

@@ -5,6 +5,11 @@
       --batch 4 --prompt-len 16 --max-new 32            # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
       --smoke --device cpu                              # small, CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b                          # on the card
+
+``--max-len`` sizes the attention layers' KV caches (a local layer keeps
+at most its window); it must hold the prompt and the new tokens.
 """
 from __future__ import annotations
 

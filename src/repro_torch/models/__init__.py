@@ -1,4 +1,5 @@
-"""Models, RWKV subset: config, RWKV-6 block, assembly."""
+"""Models: config, the RWKV-6 block, the RG-LRU block, local attention
+and the MLP, assembly (the ``rwkv``, ``rec`` and ``local`` block kinds)."""
 from .common import ModelConfig
 from .transformer import (Model, apply_block, decode_step, forward,
                           init_cache, init_model)

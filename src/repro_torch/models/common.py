@@ -119,6 +119,15 @@ class Params(nn.Module):
                 self.register_parameter(name, param(leaf))
 
 
+def tree_of(module: nn.Module) -> dict:
+    """The nested dict of a parameter module's tensors, under its keys:
+    the inverse of :class:`Params`, sharing the tensors (no copy)."""
+    tree = {name: t for name, t in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        tree[name] = tree_of(child)
+    return tree
+
+
 def dense_init(shape, dtype, scale: Optional[float] = None, *,
                generator: torch.Generator) -> torch.Tensor:
     """Truncated normal at +-2 in units of the standard normal, then
@@ -161,4 +170,4 @@ def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
 
 
 __all__ = ["ModelConfig", "Params", "apply_norm", "dense_init", "device_of",
-           "init_norm", "param"]
+           "init_norm", "param", "tree_of"]

@@ -1,0 +1,262 @@
+"""Attention (GQA/MQA, causal/sliding-window/prefix/bidirectional,
+prefill + decode), MLP and RoPE: the branches of the reference's
+``models/layers.py`` that the ported configs take.
+
+The prefill attention loops over query chunks in Python, as the
+reference's does, and for a sliding window touches only the (window +
+chunk) band of keys a chunk can see. Decode keeps a windowed layer's
+keys and values in a ring buffer. The int8 KV cache (``kv_quant``) and
+cross-attention decode raise ``NotImplementedError`` naming their ROADMAP
+item; the reference's ``shard(...)`` hints and ``set_cost_mode`` (an XLA
+cost-measurement switch) are dropped. ``p`` is a layer's parameter module
+(the reference's keys as attributes).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .common import ModelConfig, dense_init
+
+_NEG = -1e30
+_KV_QUANT = "kv_quant (the int8 KV cache) is ROADMAP Queue A item 12.4"
+_CROSS = ("cross-attention decode (whisper) is ROADMAP Queue A item 12.4")
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the erf form, ~1e-3 away)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def rms_head_norm(x, scale, eps: float = 1e-6):
+    """QK-norm (per-head RMS norm over the last axis), in f32, cast
+    back."""
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+def apply_rope(x, pos, theta: float):
+    """x: (..., S, H, hd); pos: broadcastable to (..., S). The half-split
+    layout (not interleaved), angles in f32."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half)
+    ang = pos[..., None].float() * freqs                  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+def init_attention(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dev, pdt = generator.device, cfg.pdtype
+    p = {"wq": dense_init((d, h, hd), pdt, generator=generator),
+         "wk": dense_init((d, kv, hd), pdt, generator=generator),
+         "wv": dense_init((d, kv, hd), pdt, generator=generator),
+         "wo": dense_init((h, hd, d), pdt, 1.0 / math.sqrt(h * hd),
+                          generator=generator)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, hd), dtype=pdt, device=dev)
+        p["bk"] = torch.zeros((kv, hd), dtype=pdt, device=dev)
+        p["bv"] = torch.zeros((kv, hd), dtype=pdt, device=dev)
+    if cfg.qk_norm:
+        p["q_scale"] = torch.ones((hd,), dtype=pdt, device=dev)
+        p["k_scale"] = torch.ones((hd,), dtype=pdt, device=dev)
+    return p
+
+
+def _proj(x, w, dt):
+    """einsum ``bsd,dhk->bshk`` as one matrix product."""
+    b, s, _ = x.shape
+    return (x @ w.to(dt).flatten(1)).view(b, s, *w.shape[1:])
+
+
+def _qkv(p, xq, xkv, cfg: ModelConfig, q_pos, kv_pos, use_rope: bool):
+    dt = cfg.cdtype
+    q, k, v = _proj(xq, p.wq, dt), _proj(xkv, p.wk, dt), _proj(xkv, p.wv, dt)
+    if hasattr(p, "bq"):
+        q = q + p.bq.to(dt)
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
+    if hasattr(p, "q_scale"):
+        q = rms_head_norm(q, p.q_scale)
+        k = rms_head_norm(k, p.k_scale)
+    if use_rope:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, kv_pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _mask(kind: str, q_pos, k_pos, window: int, prefix_len: int):
+    """(Q, K) boolean mask from absolute positions."""
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    if kind == "bidir":
+        return torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                          device=q_pos.device)
+    m = kp <= qp  # causal
+    if kind == "window":
+        m = m & (kp > qp - window)
+    elif kind == "prefix":
+        m = m | (kp < prefix_len)
+    return m
+
+
+def check_q_len(sq: int, q_chunk: int = 512) -> None:
+    """Refuse a query length the reference's chunk loop cannot take: past
+    one chunk, S must be a multiple of it (the reference fails reshaping
+    the stacked chunks otherwise)."""
+    cq = min(q_chunk, sq)
+    if sq % cq:
+        raise ValueError(f"attention: S={sq} is more than one query chunk "
+                         f"of {cq} and not a multiple of it")
+
+
+def attention_full(p, xq, cfg: ModelConfig, *, mask: str = "causal",
+                   q_offset: int = 0, prefix_len: int = 0,
+                   use_rope: bool = True, q_chunk: int = 512):
+    """Prefill self-attention, chunked over queries in a Python loop. For
+    ``mask="window"`` with more keys than window + chunk, each chunk
+    touches only the (window + chunk) band of keys it can see. (The
+    reference's ``xkv``, cross-attention for whisper, is ROADMAP Queue A
+    item 12.4.)"""
+    b, sq, _ = xq.shape
+    check_q_len(sq, q_chunk)
+    skv = sq
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kvh
+    dev = xq.device
+    q_pos_all = q_offset + torch.arange(sq, device=dev)
+    kv_pos_all = torch.arange(skv, device=dev)
+    q, k, v = _qkv(p, xq, xq, cfg, q_pos_all, kv_pos_all, use_rope)
+    if g > 1:  # grouped KV expanded to every head, as the reference does
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    # (B, H, S, hd), contiguous: a band of keys is then a strided batch
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    scale = 1.0 / math.sqrt(hd)
+
+    cq = min(q_chunk, sq)
+    band = cfg.window + cq
+    banded = mask == "window" and skv > band
+    o = torch.empty((b, sq, h, hd), dtype=cfg.cdtype, device=dev)
+    for lo in range(0, sq, cq):
+        qc = q[:, :, lo:lo + cq]
+        if banded:
+            start = min(max(lo + q_offset - cfg.window, 0), skv - band)
+            kc, vc = k[:, :, start:start + band], v[:, :, start:start + band]
+            k_pos = start + torch.arange(band, device=dev)
+        else:
+            kc, vc, k_pos = k, v, kv_pos_all
+        logits = (qc @ kc.transpose(2, 3)).float() * scale   # (B, H, cq, s)
+        m = _mask(mask, q_offset + lo + torch.arange(cq, device=dev), k_pos,
+                  cfg.window, prefix_len)
+        logits = torch.where(m, logits, _NEG)
+        probs = torch.softmax(logits, dim=-1).to(cfg.cdtype)
+        o[:, lo:lo + cq] = (probs @ vc).transpose(1, 2)
+    return o.flatten(2) @ p.wo.to(cfg.cdtype).flatten(0, 1)
+
+
+def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
+                     mask: str = "causal", use_rope: bool = True,
+                     cross: bool = False):
+    """One-token decode. cache: {"k", "v": (B, Smax, KV, hd), "len": int}.
+    Writes the new key and value at ``len`` (modulo Smax for a windowed
+    layer: a ring buffer) into copies; returns (out, new cache)."""
+    if cross:
+        raise NotImplementedError(_CROSS)
+    if "k_scale" in cache:
+        raise NotImplementedError(_KV_QUANT)
+    b = xq.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kvh
+    dt = cfg.cdtype
+    pos = cache["len"]
+    smax = cache["k"].shape[1]
+    posv = torch.full((b, 1), pos, device=xq.device)
+
+    q = _proj(xq, p.wq, dt)
+    if hasattr(p, "bq"):
+        q = q + p.bq.to(dt)
+    if hasattr(p, "q_scale"):
+        q = rms_head_norm(q, p.q_scale)
+    if use_rope:
+        q = apply_rope(q, posv, cfg.rope_theta)
+    knew, vnew = _proj(xq, p.wk, dt), _proj(xq, p.wv, dt)
+    if hasattr(p, "bk"):
+        knew = knew + p.bk.to(dt)
+        vnew = vnew + p.bv.to(dt)
+    if hasattr(p, "k_scale"):
+        knew = rms_head_norm(knew, p.k_scale)
+    if use_rope:
+        knew = apply_rope(knew, posv, cfg.rope_theta)
+    slot = pos % smax if mask == "window" else pos
+    k, v = cache["k"].clone(), cache["v"].clone()
+    k[:, slot] = knew[:, 0].to(dt)
+    v[:, slot] = vnew[:, 0].to(dt)
+    new_cache = {**cache, "k": k, "v": v, "len": pos + 1}
+    n_valid = min(pos + 1, smax) if mask == "window" else pos + 1
+    valid = torch.arange(smax, device=xq.device) < n_valid
+
+    qg = q.reshape(b, kvh, g, hd)                    # heads as (n, g)
+    logits = (qg @ k.permute(0, 2, 3, 1)).float()    # (B, KV, g, Smax)
+    logits = logits / math.sqrt(hd)
+    logits = torch.where(valid, logits, _NEG)
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    o = (probs @ v.transpose(1, 2)).reshape(b, 1, h * hd)
+    return o @ p.wo.to(dt).flatten(0, 1), new_cache
+
+
+def make_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                    windowed: bool = False) -> dict:
+    if cfg.kv_quant:
+        raise NotImplementedError(_KV_QUANT)
+    size = min(max_len, cfg.window) if windowed and cfg.window else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+            "len": 0}
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+def init_mlp(cfg: ModelConfig, generator: torch.Generator,
+             d_ff: int | None = None) -> dict:
+    d, f, pdt = cfg.d_model, d_ff or cfg.d_ff, cfg.pdtype
+
+    def dense(shape):
+        return dense_init(shape, pdt, generator=generator)
+
+    if cfg.act in ("swiglu", "geglu"):
+        return {"w_gate": dense((d, f)), "w_up": dense((d, f)),
+                "w_down": dense((f, d))}
+    return {"w_up": dense((d, f)), "w_down": dense((f, d))}
+
+
+def apply_mlp(p, x, cfg: ModelConfig):
+    dt = cfg.cdtype
+    up = x @ p.w_up.to(dt)
+    if hasattr(p, "w_gate"):
+        gate = x @ p.w_gate.to(dt)
+        hid = (F.silu(gate) if cfg.act == "swiglu" else gelu(gate)) * up
+    else:
+        hid = gelu(up)
+    return hid @ p.w_down.to(dt)
+
+
+__all__ = ["apply_mlp", "apply_rope", "attention_decode", "attention_full",
+           "check_q_len", "gelu", "init_attention", "init_mlp",
+           "make_attn_cache"]

@@ -1,5 +1,10 @@
-"""Model assembly, RWKV subset: init, the teacher-forced ``forward`` (the
-prefill step) and the one-token ``decode_step`` over a per-layer cache.
+"""Model assembly: init, the teacher-forced ``forward`` (the prefill
+step) and the one-token ``decode_step`` over a per-layer cache, for the
+block kinds
+
+  rwkv   RWKV-6 time-mix + channel-mix (rwkv6-3b)
+  rec    RG-LRU recurrent block + MLP (griffin: recurrentgemma-9b)
+  local  sliding-window attention + MLP (griffin attention layers)
 
 The reference stacks the layers of a stage and drives them with one
 ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in a loop,
@@ -13,11 +18,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from . import rwkv
+from . import layers, rglru, rwkv
 from .common import (ModelConfig, Params, apply_norm, dense_init, device_of,
                      init_norm, param)
 
 _NOT_PORTED = "ROADMAP Queue A item 12 (LM side: the other block kinds)"
+#: Block kinds the port runs.
+PORTED_KINDS = ("rwkv", "rec", "local")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -31,10 +38,13 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "cpd_embedding is ROADMAP Queue A item 11 (CPD-factorized "
             "embedding)")
-    other = sorted(set(layer_kinds(cfg)) - {"rwkv"})
+    other = sorted(set(layer_kinds(cfg)) - set(PORTED_KINDS))
     if other or cfg.n_enc_layers:
         raise NotImplementedError(
             f"block kinds {other or ['enc']} are {_NOT_PORTED}")
+    if cfg.parallel_block:
+        raise NotImplementedError(f"parallel_block (command-r) is "
+                                  f"{_NOT_PORTED}")
 
 
 class Model(nn.Module):
@@ -56,38 +66,84 @@ class Model(nn.Module):
 # --------------------------------------------------------------------------
 # Blocks
 # --------------------------------------------------------------------------
-def init_block(cfg: ModelConfig, kind: str, generator) -> dict:
-    if kind != "rwkv":
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
-    p = rwkv.init_rwkv_block(cfg, generator)
-    p["ln1"] = init_norm(cfg, generator.device)
-    p["ln2"] = init_norm(cfg, generator.device)
-    return p
+
+
+def init_block(cfg: ModelConfig, kind: str, generator) -> dict:
+    _check_kind(kind)
+    dev = generator.device
+    if kind == "rwkv":
+        p = rwkv.init_rwkv_block(cfg, generator)
+        p["ln1"] = init_norm(cfg, dev)
+        p["ln2"] = init_norm(cfg, dev)
+        return p
+    if kind == "rec":
+        return {"ln1": init_norm(cfg, dev),
+                "rec": rglru.init_rglru(cfg, generator),
+                "ln2": init_norm(cfg, dev),
+                "mlp": layers.init_mlp(cfg, generator)}
+    return {"attn": layers.init_attention(cfg, generator),
+            "ln1": init_norm(cfg, dev), "ln2": init_norm(cfg, dev),
+            "mlp": layers.init_mlp(cfg, generator)}
 
 
 def apply_block(params, x, cfg: ModelConfig, kind: str):
-    if kind != "rwkv":
-        raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
-    x = x + rwkv.time_mix(params, apply_norm(params.ln1, x, cfg), cfg)
-    return x + rwkv.channel_mix(params, apply_norm(params.ln2, x, cfg), cfg)
+    _check_kind(kind)
+    use_rope = cfg.rope_theta > 0
+    if kind == "rwkv":
+        x = x + rwkv.time_mix(params, apply_norm(params.ln1, x, cfg), cfg)
+        return x + rwkv.channel_mix(params, apply_norm(params.ln2, x, cfg),
+                                    cfg)
+    if kind == "rec":
+        x = x + rglru.apply_rglru(params.rec,
+                                  apply_norm(params.ln1, x, cfg), cfg)
+        return x + layers.apply_mlp(params.mlp,
+                                    apply_norm(params.ln2, x, cfg), cfg)
+    h = apply_norm(params.ln1, x, cfg)
+    x = x + layers.attention_full(params.attn, h, cfg, mask="window",
+                                  use_rope=use_rope)
+    h = apply_norm(params.ln2, x, cfg)
+    return x + layers.apply_mlp(params.mlp, h, cfg)
 
 
 def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
-    if kind != "rwkv":
-        raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
+    _check_kind(kind)
+    use_rope = cfg.rope_theta > 0
+    if kind == "rwkv":
+        h = apply_norm(params.ln1, x, cfg)
+        o, tm_cache = rwkv.time_mix_decode(params, h, cache, cfg)
+        x = x + o
+        h2 = apply_norm(params.ln2, x, cfg)
+        x = x + rwkv.channel_mix(params, h2, cfg, last=cache["last_c"])
+        return x, {**tm_cache, "last_c": h2}
+    if kind == "rec":
+        h = apply_norm(params.ln1, x, cfg)
+        o, rec_cache = rglru.apply_rglru_decode(params.rec, h, cache, cfg)
+        x = x + o
+        x = x + layers.apply_mlp(params.mlp, apply_norm(params.ln2, x, cfg),
+                                 cfg)
+        return x, rec_cache
     h = apply_norm(params.ln1, x, cfg)
-    o, tm_cache = rwkv.time_mix_decode(params, h, cache, cfg)
+    o, new_cache = layers.attention_decode(params.attn, h, cache, cfg,
+                                           mask="window", use_rope=use_rope)
     x = x + o
-    h2 = apply_norm(params.ln2, x, cfg)
-    x = x + rwkv.channel_mix(params, h2, cfg, last=cache["last_c"])
-    return x, {**tm_cache, "last_c": h2}
+    h = apply_norm(params.ln2, x, cfg)
+    return x + layers.apply_mlp(params.mlp, h, cfg), new_cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
-                     device) -> dict:
-    if kind != "rwkv":
-        raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
-    return rwkv.make_rwkv_cache(cfg, batch, device)
+                     max_len: int | None, device) -> dict:
+    _check_kind(kind)
+    if kind == "rwkv":
+        return rwkv.make_rwkv_cache(cfg, batch, device)
+    if kind == "rec":
+        return rglru.make_rglru_cache(cfg, batch, device)
+    if max_len is None:
+        raise ValueError(f"a {kind!r} layer's KV cache needs max_len")
+    return layers.make_attn_cache(cfg, batch, max_len, device,
+                                  windowed=True)
 
 
 # --------------------------------------------------------------------------
@@ -128,17 +184,24 @@ def _logits(params, x, cfg: ModelConfig):
 
 def forward(params, cfg: ModelConfig, tokens):
     """Teacher-forced forward (the prefill step): tokens (B, S) -> logits
-    (B, S, Vp) in the compute dtype. Runs ``wkv6`` once per layer."""
+    (B, S, Vp) in the compute dtype. Runs ``wkv6`` once per ``rwkv`` layer
+    and ``lru_scan`` once per ``rec`` layer. A length that the attention
+    layers' query chunks cannot take is refused before any work."""
+    if "local" in layer_kinds(cfg):
+        layers.check_q_len(tokens.shape[1])
     x = embed_lookup(params, tokens, cfg)
     for layer, kind in zip(params.layers, layer_kinds(cfg)):
         x = apply_block(layer, x, cfg, kind)
     return _logits(params, x, cfg)
 
 
-def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> list[dict]:
-    """One cache per layer (the reference stacks them per stage)."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
+               device="cuda") -> list[dict]:
+    """One cache per layer (the reference stacks them per stage).
+    ``max_len`` sizes the attention layers' KV caches (a windowed layer
+    keeps at most ``window`` positions); recurrent states need none."""
     dev = device_of(device)
-    return [init_block_cache(cfg, kind, batch, dev)
+    return [init_block_cache(cfg, kind, batch, max_len, dev)
             for kind in layer_kinds(cfg)]
 
 

@@ -20,7 +20,7 @@ from ..models.transformer import decode_step, init_cache
 @dataclasses.dataclass
 class ServeConfig:
     batch: int
-    max_len: int                # sizes KV caches; RWKV's state has none
+    max_len: int                # sizes KV caches; recurrent states need none
     temperature: float = 0.0    # 0 => greedy
     eos_id: int = -1            # -1 => never stop early
 
@@ -35,7 +35,8 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
-        self.cache = init_cache(cfg, scfg.batch, self.device)
+        self.cache = init_cache(cfg, scfg.batch, scfg.max_len,
+                                device=self.device)
 
     @torch.no_grad()
     def prefill(self, prompt: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions, the ``cuda_fused`` and ``cuda`` rotations (both schedules)
-against the COO oracle, CPD on the card, and the RWKV-6 ``forward`` on
-the ``wkv6`` kernel. Every test is marked
+against the COO oracle, CPD on the card, the RWKV-6 ``forward`` on the
+``wkv6`` kernel and the RecurrentGemma ``forward`` on the ``lru_scan``
+kernel. Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
 the CUDA toolkit only:
@@ -18,6 +19,13 @@ the per-head RMS norm divides by |y|, so where y nearly cancels it
 carries that sum's condition number into the logits (at t = 0,
 y = (r . (u * k)) v is one dot product times v); 2.8e-4 was seen at
 position 1 on an H100, a wrong decay or bonus moves logits by ~1e-1.
+``lru_scan`` rtol = atol = 1e-5 (the same float32 recurrence, the
+kernel's multiply-add fused into one rounding; the state stays below
+~30 at these inputs, so ~1e-6 is expected); the float32 RecurrentGemma
+``forward`` on the card against the CPU rtol = atol = 1e-3 (matmul sums
+over d = 128 in another order through 38 layers, on logits of size ~1;
+a dropped carry or a wrong mask moves them by ~1e-1), and against
+``Engine.prefill`` on the card rtol = atol = 1e-4.
 """
 import numpy as np
 import pytest
@@ -28,6 +36,7 @@ from repro_torch.core import build_flycoo, cp_als, mttkrp_ref
 from repro_torch.core.flycoo import _ROW_SENTINEL, _dedup_tables_batched
 from repro_torch.engine import ExecutionConfig
 from repro_torch.kernels import mttkrp as kmt
+from repro_torch.kernels import lru_scan as klru
 from repro_torch.kernels import wkv6 as kw6
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -375,3 +384,108 @@ def test_engine_on_the_card_by_default(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def _lru_args(b, t, d, seed, device, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    a = 0.3 + 0.699 * torch.rand((b, t, d), generator=g)
+    x = torch.randn((b, t, d), generator=g)
+    return a.to(dtype).to(device), x.to(dtype).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d", [
+    (1, 32, 8), (2, 64, 128), (2, 33, 130), (3, 1000, 4100), (4, 256, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_lru_scan_kernel_matches_plain(cuda, b, t, d, dtype):
+    """The reference kernel tests' shapes, T and D that are no multiple of
+    the kernel's 32-step buffer or 128-channel CTA, and the model's rows
+    at T = 256; float16 inputs are cast to float32 first."""
+    args = _lru_args(b, t, d, b + t + d, cuda, dtype)
+    before = klru.LAUNCHES["lru_scan"]
+    got = klru.lru_scan(*args)
+    want = klru.lru_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert klru.LAUNCHES["lru_scan"] == before + 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_lru_scan_refuses_what_it_does_not_take(cuda):
+    before = klru.LAUNCHES["lru_scan"]
+    a, x = _lru_args(2, 8, 16, 0, cuda)
+    with pytest.raises(ValueError, match="of one shape"):
+        klru.lru_scan(a, x[:, :4])
+    with pytest.raises(ValueError, match="B <= 65535"):
+        klru.lru_scan(*_lru_args(65536, 1, 1, 0, cuda))
+    with pytest.raises(ValueError, match="x is on cpu"):
+        klru.lru_scan(a, x.cpu())
+    with pytest.raises(RuntimeError, match="no backward"):
+        klru.lru_scan(a.clone().requires_grad_(), x)
+    assert klru.LAUNCHES["lru_scan"] == before
+
+
+@pytest.mark.gpu
+def test_forward_launches_lru_scan_once_per_rec_layer(cuda):
+    """float32 (TF32 off) ``forward`` of recurrentgemma at smoke width and
+    the full config's depth, 38 layers of (rec, rec, local): one
+    ``lru_scan`` launch a rec layer (26), logits equal to the CPU's
+    (plain recurrence) on the same weights; S 64 > window 16."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(smoke("recurrentgemma-9b"), n_layers=38,
+                              compute_dtype="float32")
+    n_rec = transformer.layer_kinds(cfg).count("rec")
+    assert n_rec == 26
+    model = transformer.init_model(cfg, 0, device="cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 64),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = transformer.forward(model, cfg, tok)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = model.to(cuda)
+        klru.reset_launch_counts()
+        with torch.no_grad():
+            got = transformer.forward(model, cfg, tok.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert klru.LAUNCHES["lru_scan"] == n_rec
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_recurrentgemma_engine_on_the_card_by_default(cuda):
+    """Model, cache and ``Engine`` on the default device (the card):
+    ``Engine.prefill`` (the decode recurrence, the ring buffer wrapping
+    past window 16) agrees with ``forward`` (the kernel) at the last
+    position, float32."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = dataclasses.replace(smoke("recurrentgemma-9b"),
+                              compute_dtype="float32")
+    model = transformer.init_model(cfg, 0)
+    assert model.embed.is_cuda
+    tok = torch.randint(0, cfg.vocab, (2, 40), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = transformer.forward(model, cfg, tok)[:, -1]
+            got = Engine(model, cfg, ServeConfig(2, 64)).prefill(tok)[:, -1]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
