@@ -7,9 +7,12 @@ times the kernels at each path's shapes.
 
   [1]  card, nvcc build;  [2] kernels vs plain at toy shapes
   [3]-[6]  the main path (``build_flycoo`` -> ``engine.init`` ->
-       ``engine.all_modes`` -> ``cp_als``, backend ``cuda_fused``) at the
-       paper's nell1 tensor (scale 0.1, rank 32), ``fuse_remap=False``,
-       the 5-mode twitch tensor (scale 0.01), kernel times
+       ``engine.all_modes`` -> ``cp_als``, backend ``cuda_fused``, whose
+       compact kernels are the balanced ones of ``mttkrp_balanced.cu``) at
+       the paper's nell1 tensor (scale 0.1, rank 32), ``fuse_remap=False``,
+       the 5-mode twitch tensor (scale 0.01), kernel times with each
+       mode's work table (chunks, split partitions, longest chunk,
+       partials) and the balanced kernels' two passes timed apart
   [7]  the plan-space path (``make_engine(PlanSpec(backend="cuda"),
        cache=PlanCache())``, the pre-gathered baseline) at nell1 scale
        0.1, compact, with ``cp_als``
@@ -58,11 +61,18 @@ function on absolute inputs) and ``u = 2**-24``:
     twice that, one share for each side.
   * The limit is held against itself: the gather kernel run with 2% of
     the hottest row's terms marked as pads (a kernel that skips work) must
-    fail it.
+    fail it; so must the gather kernel run with a work table that drops
+    one of the hot partition's chunks, and with one that lists one of them
+    twice, on the hottest row, while each agrees with ``chunked_plain`` on
+    its own table (the kernel does what its table says) within the limit
+    of that table's terms.
   * remap outputs and the layout after a full rotation: bitwise.
   * CPD fits, cuda_fused against the torch backend from the same initial
     factors: ``FIT_ATOL`` (the per-mode differences above, through three
-    sweeps of R x R solves).
+    sweeps of R x R solves), on ``FIT_SEEDS`` draws of those factors; and
+    cuda_fused within ``FIT_ATOL`` of a float64 witness
+    (``cp_als_reference`` in float64 from the same factors), which also
+    says which of the two float32 runs a gap between them comes from.
   * ``wkv6`` against its plain version, both float32. With ``A`` the same
     recurrence on ``|r|, |k|, w, |v|, |u|`` (in float64): per element
     ``2 * LAMBDA * (2 sqrt(t + 1) + sqrt(K) + 3) * u * A``. Each step
@@ -119,14 +129,15 @@ U = 2.0 ** -24                 # float32 unit roundoff
 LAMBDA = 2.0
 GATE_DROP = 0.02               # share of the hottest row's terms dropped
 FIT_ATOL = 1e-5
+FIT_SEEDS = (0, 1, 2)          # initial-factor seeds of the fit check
 XCHECK_ATOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 RANK = 32
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "mttkrp_fused_remap_compact": CSRC + "mttkrp_gather.cu",
-    "mttkrp_fused_gather_compact": CSRC + "mttkrp_gather.cu",
+    "mttkrp_fused_remap_compact": CSRC + "mttkrp_balanced.cu",
+    "mttkrp_fused_gather_compact": CSRC + "mttkrp_balanced.cu",
     "mttkrp_fused_compact": CSRC + "mttkrp_pregathered.cu",
     "mttkrp_fused_remap": CSRC + "mttkrp_gather.cu",
     "mttkrp_fused_gather": CSRC + "mttkrp_gather.cu",
@@ -145,6 +156,7 @@ REPLACES = {
     "lru_scan": "src/repro/kernels/lru_scan.py:44",
 }
 RECT_NEW = ("mttkrp_fused_remap", "mttkrp_fused_gather", "mttkrp_fused")
+BALANCED = ("mttkrp_fused_remap_compact", "mttkrp_fused_gather_compact")
 
 
 def log(msg: str) -> None:
@@ -194,6 +206,11 @@ def kernel_args(factors, d, state):
     return inputs, kw
 
 
+def layout_work(kmt, L):
+    """The mode's work table, as ``engine.init`` keeps it in the state."""
+    return kmt.WorkTable(L["work"], L["wsum"])
+
+
 def run_remap(kmt, L, inputs, kw, smax, nxt, plain=False):
     if plain:
         return kmt.mttkrp_fused_remap_compact_plain(
@@ -202,17 +219,22 @@ def run_remap(kmt, L, inputs, kw, smax, nxt, plain=False):
     return kmt.mttkrp_fused_remap_compact(
         L["val"], L["idx"], L["alpha"], L["lrow"], L["upos"], L["bpart"],
         L["uidx"], L["nuniq"], inputs, smax=smax, next_mode=nxt,
-        pstart=L["pstart"], **kw)
+        pstart=L["pstart"], work=layout_work(kmt, L), **kw)
 
 
-def run_gather(kmt, L, inputs, kw, plain=False):
+def run_gather(kmt, L, inputs, kw, plain=False, work=None):
     if plain:
         return kmt.mttkrp_fused_gather_compact_plain(
             L["val"], L["lrow"], L["upos"], L["bpart"], L["uidx"],
             L["nuniq"], inputs, **kw)
     return kmt.mttkrp_fused_gather_compact(
         L["val"], L["lrow"], L["upos"], L["bpart"], L["uidx"], L["nuniq"],
-        inputs, pstart=L["pstart"], **kw)
+        inputs, pstart=L["pstart"], work=work or layout_work(kmt, L), **kw)
+
+
+def run_chunked(kmt, L, inputs, kw, work):
+    return kmt.chunked_plain(L["val"], L["lrow"], L["upos"], L["bpart"],
+                             L["uidx"], L["nuniq"], inputs, work=work, **kw)
 
 
 def row_stats(kmt, L, inputs, kw):
@@ -278,6 +300,90 @@ def gate_check(kmt, state, factors):
         raise AssertionError(f"the limit misses a kernel that drops {k} of "
                              f"the hottest row's {hits.numel()} terms: {out}")
     return out
+
+
+def table_gate(kmt, state, factors):
+    """The balanced kernel must follow its work table, and the
+    kernel-vs-plain limit must catch a table that loses or repeats work:
+    the gather kernel run with the state's chunks minus one of the hot
+    partition's, and with one of them listed twice. Each run must agree
+    with ``chunked_plain`` on its own table, within the limit of that
+    table's terms, and fail the limit against the plain version on the
+    hottest row. Returns what the check reads on that row."""
+    import numpy as np
+    import torch
+    from repro_torch.engine.api import mode_layout
+
+    d = state.mode
+    plan = state.statics[d]
+    L = mode_layout(state, (state.val, state.idx, state.alpha), d)
+    inputs, kw = kernel_args(factors, d, state)
+    abs_sum, terms = row_stats(kmt, L, inputs, kw)
+    hot = int(terms[:, 0].argmax())
+    part = hot // plan.rows_pp
+    cap = kmt.default_cap(plan.nblocks)
+    pstart = L["pstart"].cpu().numpy()
+    chunks = kmt.split_partitions(pstart, cap)
+    rows = np.flatnonzero(chunks[:, 0] == part)
+    if len(rows) < 2:
+        raise AssertionError(f"the hot partition {part} is not split")
+    want = run_gather(kmt, L, inputs, kw, plain=True)[hot]
+    lim = limit(abs_sum[hot], terms[hot], state.nmodes, sides=2)
+    out = {"mode": d, "partition": part, "chunks": len(rows), "cap": cap,
+           "row_terms": int(terms[hot, 0])}
+    ones = torch.ones_like
+    for name, mutant in (
+            ("drop", np.delete(chunks, rows[1], 0)),
+            ("repeat", np.insert(chunks, rows[1], chunks[rows[1]], 0))):
+        work = kmt.work_from_chunks(mutant, pstart).to(L["val"].device)
+        got = run_gather(kmt, L, inputs, kw, work=work)
+        own = limit(run_chunked(kmt, dict(L, val=L["val"].abs()),
+                                tuple(f.abs() for f in inputs), kw, work),
+                    run_chunked(kmt, dict(L, val=ones(L["val"])),
+                                tuple(ones(f) for f in inputs), kw, work),
+                    state.nmodes, sides=2)
+        close_to(f"mode {d} kernel on the '{name}' table vs chunked_plain",
+                 got, run_chunked(kmt, L, inputs, kw, work), own)
+        err = (got[hot].double() - want.double()).abs()
+        out[name] = {"elements_caught": int((err > lim).sum()),
+                     "elements": err.numel(),
+                     "max_err_over_limit": float((err / lim).max())}
+        if out[name]["elements_caught"] == 0:
+            raise AssertionError(f"the limit misses a kernel whose table "
+                                 f"does '{name}' on a hot chunk: {out}")
+    return out
+
+
+def fit_witness(t, cfg, cfg_t):
+    """``cp_als`` (3 sweeps) on ``cfg`` (cuda_fused) and on the torch
+    backend, both float32, against the float64 ALS of
+    ``cp_als_reference`` from the same initial factors, for each seed of
+    ``FIT_SEEDS``: per seed the largest fit difference of the two float32
+    runs and of each to the witness; cuda_fused's differences to the
+    torch backend and to the witness are gated by ``FIT_ATOL``."""
+    import torch
+    from repro_torch.core import cp_als, cp_als_reference, init_factors
+
+    def gap(x, y):
+        return max(abs(p - q) for p, q in zip(x, y))
+
+    rows = []
+    for seed in FIT_SEEDS:
+        f = init_factors(torch.Generator(device="cuda").manual_seed(seed),
+                         t.dims, RANK)
+        a = cp_als(t, RANK, iters=3, config=cfg, factors=f).fits
+        b = cp_als(t, RANK, iters=3, config=cfg_t, factors=f).fits
+        w = cp_als_reference(t.indices, t.values, t.dims, RANK, iters=3,
+                             factors=f, device="cuda",
+                             dtype=torch.float64).fits
+        rows.append({"seed": seed, "fits": a, "torch_fits": b,
+                     "f64_fits": w, "fit_diff": gap(a, b),
+                     "cuda_fused_to_f64": gap(a, w),
+                     "torch_to_f64": gap(b, w)})
+        if not all(x == x and abs(x) < 1e30 for x in a + b + w) \
+                or max(gap(a, b), gap(a, w)) > FIT_ATOL:
+            raise AssertionError(f"fit check, seed {seed}: {rows[-1]}")
+    return rows
 
 
 def mttkrp_oracle(indices, values, factors, dims):
@@ -455,6 +561,7 @@ def main_path(kmt, report):
     res = cp_als(t, RANK, iters=3, config=cfg, factors=factors)
     torch.cuda.synchronize()
     remap_launches = kmt.LAUNCHES["mttkrp_fused_remap_compact"]
+    reduce_launches = kmt.LAUNCHES["mttkrp_balanced_reduce"]
     peak = torch.cuda.max_memory_allocated()
     if remap_launches == 0:
         raise AssertionError("main path never launched "
@@ -464,24 +571,56 @@ def main_path(kmt, report):
     for name in ("val", "idx", "alpha"):
         exact(f"nell1 layout {name} after rotation", getattr(state1, name),
               getattr(state0, name))
-    ref = cp_als(t, RANK, iters=3, factors=factors,
-                 config=ExecutionConfig(backend="torch", rank_hint=RANK))
+    cfg_t = ExecutionConfig(backend="torch", rank_hint=RANK)
+    ref = cp_als(t, RANK, iters=3, factors=factors, config=cfg_t)
+    # The yardstick's own distance to the float64 oracle, for comparison,
+    # over all rows and on each mode's hottest row (the longest sum).
+    outs_t, _ = engine.all_modes(engine.init(t, cfg_t), factors)
+    torch_shares = [close_to(f"nell1 torch backend mode {d} vs mttkrp_ref",
+                             outs_t[d], *oracle[d])[1] for d in range(n)]
+    hot_shares = []
+    for d in range(n):
+        hot = int(torch.bincount(idx_d[:, d]).argmax())
+        want, lim = oracle[d][0][hot], oracle[d][1][hot]
+        hot_shares.append([float(((o[d][hot].double() - want).abs()
+                                  / lim).max()) for o in (outs, outs_t)])
+    del outs_t
     fits = res.fits
     if not all(map(lambda f: f == f and abs(f) < 1e30, fits)):
         raise AssertionError(f"non-finite fits {fits}")
     fit_diff = max(abs(a - b) for a, b in zip(fits, ref.fits))
     if fit_diff > FIT_ATOL:
         raise AssertionError(f"fits {fits} vs torch backend {ref.fits}")
+    witness = fit_witness(t, cfg, cfg_t)
     gate = gate_check(kmt, state0, factors)
+    tgate = table_gate(kmt, state0, factors)
     log(f"[3] all_modes == mttkrp_ref on 3 modes (max err {max(errs):.3e}, "
-        f"{max(shares):.2e} of the limit); layout bitwise back; remap "
-        f"launches {remap_launches}; cp_als fits {fits} (torch backend "
-        f"{ref.fits}, max diff {fit_diff:.2e}); peak {peak / 2**30:.2f} GiB")
+        f"{max(shares):.2e} of the limit; the torch backend "
+        f"{max(torch_shares):.2e}); layout bitwise back; remap "
+        f"launches {remap_launches} (second pass {reduce_launches}); cp_als "
+        f"fits {fits} (torch backend {ref.fits}, max diff {fit_diff:.2e}); "
+        f"peak {peak / 2**30:.2f} GiB")
+    log("[3] hottest row of each mode, max error as a share of its limit "
+        "(cuda_fused, torch backend): " + ", ".join(
+            f"mode {d} {a:.3f} {b:.3f}" for d, (a, b) in enumerate(hot_shares)))
+    log("[3] fits against the float64 witness, max over 3 sweeps "
+        "(seed: cuda_fused-torch, cuda_fused-f64, torch-f64): " + ", ".join(
+            f"{w['seed']}: {w['fit_diff']:.2e} {w['cuda_fused_to_f64']:.2e} "
+            f"{w['torch_to_f64']:.2e}" for w in witness))
     log(f"[3] limit check: {gate}")
+    log(f"[3] work-table check: {tgate}")
     report["nell1"] = {"dims": ts.dims, "nnz": t.nnz, "fits": fits,
                        "torch_fits": ref.fits, "fit_diff": fit_diff,
                        "max_err": max(errs), "max_err_share": max(shares),
-                       "gate_check": gate, "peak_bytes": peak}
+                       "max_err_shares": shares,
+                       "torch_max_err_shares": torch_shares,
+                       "hot_row_shares": hot_shares,
+                       "gate_check": gate, "table_gate": tgate,
+                       "fit_witness": witness,
+                       "peak_bytes": peak,
+                       "rows_pp": [p.rows_pp for p in t.plans],
+                       "kappa": [p.kappa for p in t.plans],
+                       "second_pass_launches": reduce_launches}
 
     # ---- the same rotation with fuse_remap=False ------------------------
     cfg_g = ExecutionConfig(backend="cuda_fused", rank_hint=RANK,
@@ -500,7 +639,8 @@ def main_path(kmt, report):
         exact(f"nell1 fuse_remap=False layout {name}",
               getattr(state_g1, name), getattr(state_g, name))
     log(f"[4] fuse_remap=False all_modes == mttkrp_ref; gather launches "
-        f"{gather_launches}")
+        f"{gather_launches} (second pass "
+        f"{kmt.LAUNCHES['mttkrp_balanced_reduce']})")
     return t, state0, factors, {"mttkrp_fused_remap_compact": remap_launches,
                                 "mttkrp_fused_gather_compact":
                                     gather_launches}
@@ -536,19 +676,41 @@ def phase_twitch(kmt):
     log("[5] 5-mode all_modes == mttkrp_ref; layout bitwise back")
 
 
+def work_stats(kmt, L, plan, rank):
+    """What a mode's work table asks of the balanced kernels: chunks
+    (= CTAs of the main launch), split partitions, the longest chunk and
+    the busiest partition in blocks, and the partials the second pass
+    reads (count and bytes, each written once and read once)."""
+    work = layout_work(kmt, L)
+    ch = work.chunks.cpu()
+    ps = L["pstart"].cpu()
+    cap = kmt.default_cap(plan.nblocks)
+    out = {"chunks": int(ch.shape[0]), "cap": cap,
+           "split_partitions": int((work.wsum[:, 1] > 0).sum()),
+           "longest_chunk_blocks": int((ch[:, 2] - ch[:, 1]).max()),
+           "busiest_partition_blocks": int((ps[1:] - ps[:-1]).max()),
+           "partials": work.n_partials,
+           "partial_bytes": 4 * work.n_partials * plan.rows_pp * rank}
+    if out["longest_chunk_blocks"] > cap:
+        raise AssertionError(f"a chunk of {out['longest_chunk_blocks']} "
+                             f"blocks exceeds the cap {cap}")
+    return out
+
+
 def phase_times(kmt, t, state0, factors, report, reps):
     """Per mode at the main path's shapes: both kernels against their
     plain versions, then kernel, plain version and torch backend times
-    (CUDA events), byte bound, partition imbalance. Returns the rows and
-    each kernel's max |kernel - plain| over the modes."""
+    (CUDA events), the balanced kernels' main launch and second pass
+    timed apart, byte bound, partition imbalance and the work table.
+    Returns the rows and each kernel's max |kernel - plain| on the
+    modes."""
     from repro_torch import engine
     from repro_torch.engine.api import mode_layout
     from repro_torch.engine.backends import ec_torch
 
     n = t.nmodes
     rows = []
-    errs = dict.fromkeys(("mttkrp_fused_remap_compact",
-                          "mttkrp_fused_gather_compact"), 0.0)
+    errs = dict.fromkeys(BALANCED, 0.0)
     state = state0
     for _ in range(n):
         d = state.mode
@@ -568,6 +730,7 @@ def phase_times(kmt, t, state0, factors, report, reps):
         lb = t.plans[d].load_balance()
         row["part_nnz_max"], row["part_nnz_mean"] = lb["max"], lb["mean"]
         row["max_degree"] = lb["max_degree"]
+        row["work"] = ws = work_stats(kmt, L, plan, RANK)
 
         def torch_step():
             out = ec_torch(L, factors, d, plan=plan, config=state.config)
@@ -585,8 +748,15 @@ def phase_times(kmt, t, state0, factors, report, reps):
                  lambda: ec_torch(L, factors, d, plan=plan,
                                   config=state.config), False)):
             nbytes, rows_used = byte_bound(L, plan, d, smax, n, RANK, remap)
-            row[kname] = {
-                "ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, reps),
+            _, main, second = kmt.balanced_passes(
+                L["val"], L["lrow"], L["upos"], L["bpart"], L["uidx"],
+                L["nuniq"], inputs, work=layout_work(kmt, L),
+                remap=(L["idx"], L["alpha"], smax, nxt) if remap else None,
+                **kw)
+            row[kname] = r = {
+                "ms": cuda_ms(fn, reps), "main_ms": cuda_ms(main, reps),
+                "second_ms": cuda_ms(second, reps) if second else 0.0,
+                "plain_ms": cuda_ms(plain, reps),
                 "torch_backend_ms": cuda_ms(yard, reps),
                 "bytes": nbytes, "factor_rows_used": rows_used,
                 "flops": flops,
@@ -594,11 +764,20 @@ def phase_times(kmt, t, state0, factors, report, reps):
                                       flops / F32_FLOP_PER_S),
                 "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                              >= flops / F32_FLOP_PER_S else "operations")}
-            log(f"[6] mode {d} {kname}: {row[kname]['ms']:.3f} ms (plain "
-                f"{row[kname]['plain_ms']:.3f}, torch backend "
-                f"{row[kname]['torch_backend_ms']:.3f}, bound "
-                f"{row[kname]['bound_ms']:.4f}) | part_nnz max "
-                f"{lb['max']:.0f} mean {lb['mean']:.1f} kappa {plan.kappa}")
+            main = second = None
+            r["passes_ms"] = r["main_ms"] + r["second_ms"]
+            log(f"[6] mode {d} {kname}: {r['ms']:.3f} ms (main "
+                f"{r['main_ms']:.3f} + second pass {r['second_ms']:.3f} = "
+                f"{r['passes_ms']:.3f}; plain {r['plain_ms']:.3f}, torch "
+                f"backend {r['torch_backend_ms']:.3f}, bound "
+                f"{r['bound_ms']:.4f})")
+        log(f"[6] mode {d} work: {ws['chunks']} chunks (cap {ws['cap']}), "
+            f"longest {ws['longest_chunk_blocks']} blocks (busiest "
+            f"partition {ws['busiest_partition_blocks']}), "
+            f"{ws['split_partitions']} split partitions, {ws['partials']} "
+            f"partials ({ws['partial_bytes'] / 1e6:.2f} MB) | part_nnz max "
+            f"{lb['max']:.0f} mean {lb['mean']:.1f} kappa {plan.kappa} "
+            f"rows_pp {plan.rows_pp} blocks {plan.nblocks}")
         rows.append(row)
         _, state = engine.mttkrp(state, factors)
     report["times"] = rows
@@ -1561,8 +1740,9 @@ def kernels_record(per_kernel, launches, errs):
             "per": f"one rotation over the modes of {where}; library_ms "
                    "null: no single PyTorch call computes MTTKRP",
         }
-        if "gather_ms" in per[0]:
-            rec["gather_ms"] = sum(p["gather_ms"] for p in per)
+        for key in ("gather_ms", "main_ms", "second_ms"):
+            if key in per[0]:
+                rec[key] = sum(p[key] for p in per)
         out.append(rec)
     return out
 

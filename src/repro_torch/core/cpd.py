@@ -81,14 +81,15 @@ class CPDResult:
     fits: list[float]
 
 
-def _initial(factors, generator, dims, rank, device):
+def _initial(factors, generator, dims, rank, device, dtype=torch.float32):
     if factors is not None:
         return [(f if torch.is_tensor(f) else torch.from_numpy(np.array(f)))
-                .to(device=device, dtype=torch.float32).contiguous()
+                .to(device=device, dtype=dtype).contiguous()
                 for f in factors]
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return init_factors(generator, dims, rank, device=device)
+    return [f.to(dtype) for f in init_factors(generator, dims, rank,
+                                              device=device)]
 
 
 def cp_als(tensor: FlycooTensor, rank: int, iters: int = 10,
@@ -135,12 +136,15 @@ def _fit(norm_x_sq: float, m_last, factors, lam) -> float:
 
 
 def cp_als_reference(indices, values, dims, rank, iters=10, generator=None,
-                     *, factors=None, device="cuda") -> CPDResult:
-    """Oracle ALS on the plain COO ``mttkrp_ref`` (no FLYCOO)."""
+                     *, factors=None, device="cuda",
+                     dtype=torch.float32) -> CPDResult:
+    """Oracle ALS on the plain COO ``mttkrp_ref`` (no FLYCOO), with the
+    factors, the MTTKRP and the solves in ``dtype`` (float64 makes it a
+    witness for float32 runs from the same initial factors)."""
     _full_fp32()
     n = len(dims)
-    factors = _initial(factors, generator, dims, rank, device)
-    lam = torch.ones((rank,), dtype=torch.float32, device=device)
+    factors = _initial(factors, generator, dims, rank, device, dtype)
+    lam = torch.ones((rank,), dtype=dtype, device=device)
     norm_x_sq = float(np.sum(np.asarray(values, np.float64) ** 2))
     indices = torch.as_tensor(np.asarray(indices), device=device)
     values = torch.as_tensor(np.asarray(values), device=device)

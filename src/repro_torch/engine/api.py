@@ -22,7 +22,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.mttkrp import block_starts, remap_plain
+from repro_torch.kernels.mttkrp import (block_starts, default_cap,
+                                        remap_plain, work_chunks)
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import span
 
@@ -101,12 +102,18 @@ def init(tensor, config: ExecutionConfig | None = None,
 
 def mode_sched_arrays(bpart, kappa: int, dedup=None):
     """Host ``ModeSched`` fields as numpy arrays: ``bpart``, its
-    ``(kappa+1,)`` block-start table, and the dedup tables (or ``None``)."""
+    ``(kappa+1,)`` block-start table, and with the dedup tables also the
+    balanced kernels' work table (chunks of at most ``default_cap``
+    blocks); ``None`` where absent."""
     bpart = np.array(bpart, dtype=np.int32)   # a writable copy
     pstart = block_starts(torch.from_numpy(bpart), kappa).numpy()
-    uidx, upos, nuniq = dedup if dedup is not None else (None,) * 3
+    if dedup is None:
+        return ModeSched(bpart=bpart, pstart=pstart)
+    uidx, upos, nuniq = dedup
+    work = work_chunks(pstart, default_cap(len(bpart)))
     return ModeSched(bpart=bpart, pstart=pstart, uidx=uidx, upos=upos,
-                     nuniq=nuniq)
+                     nuniq=nuniq, work=work.chunks.numpy(),
+                     wsum=work.wsum.numpy())
 
 
 def _mode_sched(tensor, d: int, config: ExecutionConfig) -> ModeSched:

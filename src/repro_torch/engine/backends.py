@@ -8,7 +8,8 @@ The port of ``repro.engine.backends``. Every backend implements
 where ``layout`` holds the mode-``mode`` kernel layout slices (``val``,
 ``idx``, ``lrow``, ``alpha``) plus the mode's ``ModeSched`` tables
 (``bpart``, ``pstart`` and, for ``needs_dedup`` backends under the
-compact schedule, ``uidx``/``upos``/``nuniq``). The result lives in
+compact schedule, ``uidx``/``upos``/``nuniq`` and the work table
+``work``/``wsum``). The result lives in
 relabeled row space.
 
 A backend may expose ``fused_remap``,
@@ -30,12 +31,15 @@ both block schedules (``plan.schedule``):
               operand in device memory, then the hand-written Hopper
               kernel ``kernels/csrc/mttkrp_pregathered.cu`` reduces it,
               one CTA per partition
-  cuda_fused  [pallas_fused] the hand-written Hopper kernels of
-              ``kernels/csrc/mttkrp_gather.cu``: one CTA per partition
-              gathers its factor rows into shared memory itself (compact:
-              dedup-staged unique rows; rect: each alive slot's row) and
-              keeps a shared-memory accumulator; ``fused_remap`` adds the
-              Alg. 3 scatter
+  cuda_fused  [pallas_fused] hand-written Hopper kernels that gather their
+              factor rows into shared memory themselves and keep a
+              shared-memory accumulator; ``fused_remap`` adds the Alg. 3
+              scatter. Compact: ``kernels/csrc/mttkrp_balanced.cu``, one
+              CTA per chunk of at most ``cap`` blocks of a partition
+              (the ``work`` table), dedup-staged unique rows, a second
+              pass summing a split partition's partial tiles. Rect:
+              ``kernels/csrc/mttkrp_gather.cu``, one CTA per partition,
+              each alive slot's row
   ==========  ============================================================
 """
 from __future__ import annotations
@@ -171,6 +175,14 @@ def ec_cuda(layout, factors, mode: int, *, plan: ModeStatic,
         pstart=layout.get("pstart"))
 
 
+def _work(layout):
+    """The mode's :class:`~repro_torch.kernels.mttkrp.WorkTable`, if the
+    layout carries one (``engine.init`` builds it for ``cuda_fused``)."""
+    if layout.get("work") is None:
+        return None
+    return kmt.WorkTable(layout["work"], layout["wsum"])
+
+
 def fused_lidx(idx, mode: int) -> torch.Tensor:
     """``(N-1, S)`` int32 row of each input factor per slot (rect); pads
     hold in-bounds 0 and are skipped by the kernel (lrow < 0)."""
@@ -182,14 +194,16 @@ def fused_lidx(idx, mode: int) -> torch.Tensor:
 def ec_cuda_fused(layout, factors, mode: int, *, plan: ModeStatic,
                   config: ExecutionConfig) -> torch.Tensor:
     """The in-kernel gather EC: ``mttkrp_fused_gather_compact`` (dedup-
-    staged) or ``mttkrp_fused_gather`` (rect)."""
+    staged, balanced over the ``work`` table) or ``mttkrp_fused_gather``
+    (rect)."""
     inputs = _inputs(factors, mode)
     if plan.schedule == "compact":
         return kmt.mttkrp_fused_gather_compact(
             layout["val"], layout["lrow"], layout["upos"], layout["bpart"],
             layout["uidx"], layout["nuniq"], inputs, kappa=plan.kappa,
             rows_pp=plan.rows_pp, nblocks=plan.nblocks,
-            block_p=plan.block_p, pstart=layout.get("pstart"))
+            block_p=plan.block_p, pstart=layout.get("pstart"),
+            work=_work(layout))
     return kmt.mttkrp_fused_gather(
         layout["val"], layout["lrow"], fused_lidx(layout["idx"], mode),
         inputs, kappa=plan.kappa, rows_pp=plan.rows_pp,
@@ -208,7 +222,8 @@ def _cuda_fused_remap(layout, factors, mode: int, *, plan: ModeStatic,
             layout["upos"], layout["bpart"], layout["uidx"], layout["nuniq"],
             inputs, kappa=plan.kappa, rows_pp=plan.rows_pp,
             nblocks=plan.nblocks, block_p=plan.block_p, smax=smax,
-            next_mode=next_mode, pstart=layout.get("pstart"))
+            next_mode=next_mode, pstart=layout.get("pstart"),
+            work=_work(layout))
     else:
         out_rel, nval, nidx, nalpha = kmt.mttkrp_fused_remap(
             layout["val"], layout["idx"], layout["alpha"], layout["lrow"],

@@ -21,13 +21,16 @@ schedules:
   ref          ref             an alias of ``torch``
   ===========  ==============  ==========================================
 
-The reference's ``"vmem"`` kappa policy becomes ``"smem"``: one thread
-block keeps its partition's ``rows_pp x R`` f32 accumulator *and* the
-``(N-1) x P x R`` factor-row stage in shared memory, so ``rows_pp`` is
-what the 227 KB a Hopper block may use leaves after the stage. The policy
-also keeps at least ``min_partitions`` (default ``2 x 132``, twice the
-H100's SM count, capped at the mode's size) partitions so a short mode
-still spreads over the SMs. With ``min_partitions=1`` and the same
+The reference's ``"vmem"`` kappa policy becomes ``"smem"``: a thread
+block of the ``cuda_fused`` compact kernels keeps a ``rows_pp x R`` f32
+accumulator *and* its pipeline's buffers in shared memory (one
+``(N-1) x P x R`` factor-row stage and two blocks of metadata,
+``kernels.mttkrp.balanced_smem_bytes``), so ``rows_pp`` is what the 227 KB
+a Hopper block may use leaves after those. Every other kernel needs less
+for the same ``rows_pp``. The policy also keeps at least
+``min_partitions`` (default ``2 x 132``, twice the H100's SM count,
+capped at the mode's size) partitions so a short mode still spreads over
+the SMs. With ``min_partitions=1`` and the same
 ``rows_pp`` the plans equal the reference's.
 
 The reference derives its VMEM budget from the device budget
@@ -42,12 +45,11 @@ import math
 
 import torch
 
-from repro_torch.kernels.mttkrp import SMEM_PER_BLOCK
+from repro_torch.kernels.mttkrp import (H100_SMS, SMEM_PER_BLOCK,
+                                        balanced_smem_bytes)
 
 KAPPA_POLICIES = ("smem", "fixed")
 SCHEDULES = ("compact", "rect")
-
-H100_SMS = 132   # streaming multiprocessors of an H100 SXM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,11 +122,14 @@ class ExecutionConfig:
     def resolve_rows_pp(self, nmodes: int) -> int:
         """Rows per partition: explicit ``rows_pp`` wins; otherwise the
         rows whose ``rank_hint``-wide f32 accumulator fits in the shared
-        memory left after the ``(nmodes-1) x block_p x rank_hint`` stage."""
+        memory that the balanced kernel with the remap leaves after its
+        buffers at ``block_p`` (``balanced_smem_bytes``, the launch check's
+        own formula)."""
         if self.rows_pp is not None:
             return self.rows_pp
         row = 4 * self.rank_hint
-        stage = (nmodes - 1) * self.block_p * row
+        stage = balanced_smem_bytes(0, self.rank_hint, nmodes - 1,
+                                    self.block_p, nmodes)
         rows = (self.smem_budget_bytes - stage) // row
         if rows < 1:
             raise ValueError(

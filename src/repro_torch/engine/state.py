@@ -55,13 +55,23 @@ class ModeSched(NamedTuple):
 
       bpart   (nblocks,)       block -> partition descriptor (both schedules)
       pstart  (kappa+1,)       first block of each partition (+ nblocks):
-                               one CTA walks blocks [pstart[j], pstart[j+1])
+                               the rect and pre-gathered kernels give one
+                               CTA the blocks [pstart[j], pstart[j+1])
       uidx    (N-1, S_d)       per-block unique factor rows, front-compacted
       upos    (S_d, N-1)       per-slot stage position among the uniques
       nuniq   (N-1, nblocks)   per-block unique-row counts
+      work    (nchunks, 4)     the balanced kernels' chunks: partition,
+                               first block, end block, partial index (-1:
+                               a whole partition, written to out_rel)
+      wsum    (n_partials, 2)  per partial: (partition, partial count) at
+                               a split partition's first partial, else
+                               (-1, 0); ``work`` and ``wsum`` together are
+                               a ``kernels.mttkrp.WorkTable``, built from
+                               ``pstart`` on the host once per mode
 
-    The dedup tables exist only for backends that consume them
-    (``needs_dedup``) under the compact schedule; ``None`` otherwise.
+    The dedup tables and the work table exist only for backends that
+    consume them (``needs_dedup``) under the compact schedule; ``None``
+    otherwise.
     """
 
     bpart: torch.Tensor
@@ -69,6 +79,8 @@ class ModeSched(NamedTuple):
     uidx: Optional[torch.Tensor] = None
     upos: Optional[torch.Tensor] = None
     nuniq: Optional[torch.Tensor] = None
+    work: Optional[torch.Tensor] = None
+    wsum: Optional[torch.Tensor] = None
 
 
 def mode_static_from_plan(plan) -> ModeStatic:

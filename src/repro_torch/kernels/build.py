@@ -28,8 +28,14 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 # name -> C signatures (restype, argtypes) to declare on load.
 SIGNATURES = {
     "mttkrp_gather": {
-        "mttkrp_gather_launch": (_I, [_VP] * 7 + [_I] * 7 + [_VP] * 3
+        "mttkrp_gather_launch": (_I, [_VP] * 5 + [_I] * 6 + [_VP] * 3
                                  + [_I] * 2 + [_VP] * 4),
+    },
+    "mttkrp_balanced": {
+        "mttkrp_balanced_launch": (_I, [_VP] * 7 + [_I] * 10 + [_VP] * 4
+                                   + [_I] * 2 + [_VP] * 4),
+        "mttkrp_balanced_reduce_launch": (_I, [_VP] * 2 + [_I] * 4
+                                          + [_VP] * 2),
     },
     "mttkrp_pregathered": {
         "mttkrp_pregathered_launch": (_I, [_VP] * 4 + [_I] * 5 + [_VP] * 2),

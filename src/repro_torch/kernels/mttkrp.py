@@ -10,20 +10,29 @@ the same name (``repro.kernels.ops``) and returns the same values:
   ``mttkrp_fused_compact``        ``mttkrp_pregathered.cu`` (compact)
   ``mttkrp_fused_gather``         ``mttkrp_gather.cu`` (rect)
   ``mttkrp_fused_remap``          ``mttkrp_gather.cu`` (rect, remap)
-  ``mttkrp_fused_gather_compact`` ``mttkrp_gather.cu`` (compact, dedup)
-  ``mttkrp_fused_remap_compact``  ``mttkrp_gather.cu`` (compact, dedup,
-                                  remap)
+  ``mttkrp_fused_gather_compact`` ``mttkrp_balanced.cu`` (compact,
+                                  dedup, balanced)
+  ``mttkrp_fused_remap_compact``  ``mttkrp_balanced.cu`` (compact,
+                                  dedup, balanced, remap)
   ==============================  ====================================
 
 On a CUDA tensor a wrapper launches the kernel or raises; the plain
 version (``<name>_plain``) serves CPU tensors only, and is what
 ``chip_smoke.py`` holds the kernel against on the card. Every wrapper
-also takes ``pstart``, the ``(kappa+1,)`` block-start table the kernels
-walk (derived from ``bpart``, or from ``blocks_pp`` under rect, when not
-given).
+also takes ``pstart``, the ``(kappa+1,)`` block-start table (derived from
+``bpart``, or from ``blocks_pp`` under rect, when not given): the rect
+and pre-gathered kernels give one CTA to each partition's run of blocks.
+
+The two compact in-kernel gather wrappers run the balanced kernels
+instead, on a :class:`WorkTable` (``work=``): chunks of at most ``cap``
+consecutive blocks of one partition, one CTA each, largest first; a split
+partition's chunks write partial tiles that a second pass sums in chunk
+order (``csrc/mttkrp_balanced.cu``). :func:`work_chunks` builds the table
+from ``pstart``; :func:`chunked_plain` is its plain version.
 
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else; the balanced kernels'
+second pass counts under ``mttkrp_balanced_reduce``.
 
 The plain versions multiply the factor rows in input-mode order and then
 by ``val``, as the kernels do, so per-slot products agree bitwise; the
@@ -34,21 +43,25 @@ and agree bitwise.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # Shared memory one thread block may use on an H100 (227 KB, only as
 # dynamic shared memory after cudaFuncSetAttribute).
 SMEM_PER_BLOCK = 232_448
+H100_SMS = 132   # streaming multiprocessors of an H100 SXM
 
 LAUNCHES = {"mttkrp_fused": 0,
             "mttkrp_fused_compact": 0,
             "mttkrp_fused_gather": 0,
             "mttkrp_fused_remap": 0,
             "mttkrp_fused_remap_compact": 0,
-            "mttkrp_fused_gather_compact": 0}
+            "mttkrp_fused_gather_compact": 0,
+            "mttkrp_balanced_reduce": 0}
 
-_MAX_INPUTS = 8   # kMaxInputs in csrc/mttkrp_gather.cu
+_MAX_INPUTS = 8   # kMaxInputs in csrc/mttkrp_gather.cu, mttkrp_balanced.cu
 
 
 def reset_launch_counts() -> None:
@@ -67,6 +80,174 @@ def rect_block_starts(kappa: int, blocks_pp: int, device) -> torch.Tensor:
     """The rect schedule's block-start table: ``pstart[j] = j*blocks_pp``."""
     return torch.arange(kappa + 1, dtype=torch.int32,
                         device=device) * blocks_pp
+
+
+def _a4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def balanced_smem_bytes(rows_pp: int, rank: int, nm1: int, block_p: int,
+                        nmodes: int) -> int:
+    """Shared memory one CTA of ``csrc/mttkrp_balanced.cu`` takes: two
+    buffers of a block's metadata (lrow, val, upos, uidx, nuniq, and
+    idx/alpha when ``nmodes`` > 0, i.e. with the remap), one stage of
+    ``nm1 x block_p x rank`` factor-row floats, and the ``rows_pp x rank``
+    accumulator; 4-byte words, each piece rounded up to 16 bytes. The
+    kernel's own ``smem_bytes`` refuses a launch whose count differs."""
+    meta = (2 * _a4(block_p) + _a4(block_p * nm1) + nm1 * _a4(block_p)
+            + _a4(nm1) + (2 * _a4(block_p * nmodes) if nmodes else 0))
+    return 4 * (2 * meta + _a4(nm1 * block_p * rank) + rows_pp * rank)
+
+
+# --------------------------------------------------------------------------
+# The balanced kernels' work table.
+# --------------------------------------------------------------------------
+class WorkTable(NamedTuple):
+    """What the balanced kernels' CTAs do, as two int32 tables:
+
+      chunks  (nchunks, 4)     partition, first block, end block (exclusive),
+                               partial index (-1: the chunk is its whole
+                               partition and writes ``out_rel`` itself)
+      wsum    (n_partials, 2)  for the first partial of each split
+                               partition (partition, its partial count);
+                               (-1, 0) for the others. A split partition's
+                               partials are consecutive, in chunk order.
+
+    CTA ``i`` of the main kernel takes ``chunks[i]``; the second pass sums
+    each split partition's partials in that order. Build one with
+    :func:`work_chunks` or :func:`work_from_chunks`, which check it
+    (:func:`check_work`): the wrappers read the table only on the card,
+    and a table that leaves a partition out leaves its rows of
+    ``out_rel`` unwritten.
+    """
+
+    chunks: torch.Tensor
+    wsum: torch.Tensor
+
+    @property
+    def n_partials(self) -> int:
+        return int(self.wsum.shape[0])
+
+    def to(self, device) -> "WorkTable":
+        return WorkTable(self.chunks.to(device), self.wsum.to(device))
+
+
+def default_cap(nblocks: int, sms: int = H100_SMS) -> int:
+    """Blocks a chunk may hold: about half of one SM's fair share,
+    ``ceil(nblocks / (2 sms))``, so that no CTA's walk outlasts the rest of
+    the grid by much."""
+    return max(1, -(-int(nblocks) // (2 * sms)))
+
+
+def split_partitions(pstart, cap: int) -> np.ndarray:
+    """``(nchunks, 3)`` int64 rows (partition, first block, end block): each
+    partition's run of blocks cut into ``ceil(blocks / cap)`` consecutive
+    chunks of near-equal size (the larger first), an empty partition kept
+    as one empty chunk, in partition order."""
+    if cap < 1:
+        raise ValueError(f"cap must be positive, got {cap}")
+    ps = np.asarray(pstart, dtype=np.int64)
+    nb = np.diff(ps)
+    if (nb < 0).any():
+        raise ValueError("pstart must be nondecreasing")
+    k = np.maximum(1, -(-nb // cap))
+    part = np.repeat(np.arange(nb.size), k)
+    j = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
+    q, r = (np.repeat(x, k) for x in np.divmod(nb, k))
+    b0 = ps[part] + j * q + np.minimum(j, r)
+    return np.stack([part, b0, b0 + q + (j < r)], axis=1)
+
+
+def _partials(part):
+    """For chunk rows sorted by partition: each row's partial index (-1 for
+    a partition listed once, else dense and consecutive in row order), and
+    the ``wsum`` rows those indices imply."""
+    first = np.r_[True, part[1:] != part[:-1]]
+    grp = np.cumsum(first) - 1
+    count = np.bincount(grp)[grp]
+    split = count > 1
+    partial = np.where(split, np.cumsum(split) - 1, -1)
+    wsum = np.tile(np.array([-1, 0], dtype=np.int64), (int(split.sum()), 1))
+    heads = split & first
+    wsum[partial[heads]] = np.stack([part[heads], count[heads]], axis=1)
+    return partial, wsum
+
+
+def check_work(work: WorkTable, pstart) -> None:
+    """Raise ``ValueError`` unless ``work`` (host tensors) is a table the
+    balanced kernels can run for the block-start table ``pstart``: every
+    chunk names a partition in ``[0, kappa)`` and blocks ``b_begin <=
+    b_end`` inside that partition's ``[pstart[j], pstart[j+1]]``; every
+    partition has a chunk (else its rows of ``out_rel`` stay unwritten);
+    a partition with one chunk takes partial -1 and the chunks of one
+    with more take consecutive partial indices in block order, numbered
+    densely from 0; and ``wsum`` is what those indices imply. A block
+    that no chunk lists, or that two do, passes: the table is the
+    kernels' input, and a check against the plain version catches it."""
+    ps = np.asarray(pstart, dtype=np.int64)
+    c = np.asarray(work.chunks, dtype=np.int64)
+    w = np.asarray(work.wsum, dtype=np.int64)
+    kappa = ps.size - 1
+    if c.ndim != 2 or c.shape[1] != 4 or not len(c):
+        raise ValueError(f"work.chunks has shape {c.shape}, expected "
+                         "(nchunks >= 1, 4)")
+    if w.ndim != 2 or w.shape[1] != 2:
+        raise ValueError(f"work.wsum has shape {w.shape}, expected "
+                         "(n_partials, 2)")
+    part, b0, b1, pq = c.T
+    bad = np.flatnonzero((part < 0) | (part >= kappa))
+    if bad.size:
+        raise ValueError(f"chunk {bad[0]} names partition {part[bad[0]]}, "
+                         f"outside [0, {kappa})")
+    bad = np.flatnonzero((b0 < ps[part]) | (b1 < b0) | (b1 > ps[part + 1]))
+    if bad.size:
+        i = bad[0]
+        raise ValueError(f"chunk {i} holds blocks [{b0[i]}, {b1[i]}), "
+                         f"outside partition {part[i]}'s "
+                         f"[{ps[part[i]]}, {ps[part[i] + 1]})")
+    missing = np.flatnonzero(np.bincount(part, minlength=kappa) == 0)
+    if missing.size:
+        raise ValueError(f"partition {missing[0]} has no chunk: its rows of "
+                         "out_rel would not be written")
+    order = np.lexsort((pq, b0, part))
+    partial, wsum = _partials(part[order])
+    if not np.array_equal(pq[order], partial):
+        raise ValueError("partial indices must be -1 for a partition of "
+                         "one chunk, and number a split partition's chunks "
+                         "consecutively in block order, densely from 0")
+    if not np.array_equal(w, wsum):
+        raise ValueError("work.wsum disagrees with the chunks' partial "
+                         "indices")
+
+
+def work_from_chunks(chunks, pstart) -> WorkTable:
+    """The :class:`WorkTable` of a list of ``(partition, first block, end
+    block)`` chunks, checked against the block-start table ``pstart``
+    (:func:`check_work`). A partition listed more than once is split: its
+    chunks (in block order) get consecutive partial indices. The rows are
+    then sorted largest chunk first (stable). Takes any list whose chunks
+    lie inside their partitions, so a test can drop or repeat a chunk of
+    a split partition and see the result change."""
+    c = np.asarray(chunks, dtype=np.int64).reshape(-1, 3)
+    if not len(c):
+        raise ValueError("a work table needs at least one chunk")
+    c = c[np.lexsort((c[:, 1], c[:, 0]))]          # partition, block order
+    partial, wsum = _partials(c[:, 0])
+    table = np.concatenate([c, partial[:, None]], axis=1)
+    table = table[np.argsort(c[:, 1] - c[:, 2], kind="stable")]
+    work = WorkTable(torch.from_numpy(table.astype(np.int32)),
+                     torch.from_numpy(wsum.astype(np.int32)))
+    check_work(work, pstart)
+    return work
+
+
+def work_chunks(pstart, cap: int) -> WorkTable:
+    """The balanced kernels' work table for the block-start table
+    ``pstart`` (numpy or CPU torch), each chunk at most ``cap`` blocks of
+    one partition (see :class:`WorkTable`, :func:`default_cap`)."""
+    if torch.is_tensor(pstart):
+        pstart = pstart.numpy()
+    return work_from_chunks(split_partitions(pstart, cap), pstart)
 
 
 # --------------------------------------------------------------------------
@@ -185,6 +366,62 @@ def mttkrp_fused_remap_compact_plain(val, idx, alpha, lrow, upos, bpart,
                               next_mode=next_mode))
 
 
+def chunked_plain(val, lrow, upos, bpart, uidx, nuniq, factors, *, kappa,
+                  rows_pp, nblocks, block_p, work, remap=None):
+    """Plain version of the balanced kernels' schedule: each chunk of
+    ``work`` sums the plain products of its blocks' slots into its own
+    ``rows_pp x R`` tile; a whole-partition chunk's tile is its rows of
+    ``out_rel``, and a split partition's rows are the sum of its chunks'
+    tiles in chunk order. With ``remap = (idx, alpha, smax, next_mode)``
+    the chunks' slots are also remapped (:func:`remap_plain`) and the
+    result is ``(out_rel, nval, nidx, nalpha)``. A block no chunk lists
+    adds nothing; a block listed twice adds twice. For tests and
+    ``chip_smoke.py`` (it reads the table on the host), not the main
+    path."""
+    del bpart, nuniq, nblocks
+    dev = val.device
+    ch = work.chunks.to("cpu").long()
+    wsum = work.wsum.to("cpu").tolist()
+    part, b0, b1, pq = ch.unbind(1)
+    lens = (b1 - b0) * block_p
+    cid = torch.repeat_interleave(torch.arange(len(ch)), lens)
+    start = torch.repeat_interleave(b0 * block_p - (torch.cumsum(lens, 0)
+                                                    - lens), lens)
+    slot = (torch.arange(int(lens.sum())) + start).to(dev)
+    cid = cid.to(dev)
+    prod = _hadamard(_dedup_rows(val, upos, uidx, tuple(factors), block_p))
+    lr = lrow.index_select(0, slot)
+    alive = lr >= 0
+    gid = torch.where(alive, cid * rows_pp + lr.long(), 0)
+    contrib = torch.where(alive[:, None], prod.index_select(0, slot)
+                          * val.index_select(0, slot)[:, None], 0)
+    rank = prod.shape[1]
+    tiles = torch.zeros((len(ch) * rows_pp, rank), dtype=torch.float32,
+                        device=dev).index_add_(0, gid, contrib)
+    tiles = tiles.view(len(ch), rows_pp, rank)
+    out = torch.zeros((kappa, rows_pp, rank), dtype=torch.float32,
+                      device=dev)
+    whole = (pq < 0).to(dev)
+    out[part.to(dev)[whole]] = tiles[whole]
+    partials = torch.zeros((work.n_partials, rows_pp, rank),
+                           dtype=torch.float32, device=dev)
+    partials[pq.to(dev)[~whole]] = tiles[~whole]
+    for q, (p, count) in enumerate(wsum):
+        if count > 0:
+            acc = partials[q].clone()
+            for k in range(1, count):
+                acc += partials[q + k]
+            out[p] = acc
+    out = out.view(kappa * rows_pp, rank)
+    if remap is None:
+        return out
+    idx, alpha, smax, next_mode = remap
+    return (out, *remap_plain(val.index_select(0, slot),
+                              idx.index_select(0, slot),
+                              alpha.index_select(0, slot), smax=smax,
+                              next_mode=next_mode))
+
+
 # --------------------------------------------------------------------------
 # CUDA launches.
 # --------------------------------------------------------------------------
@@ -200,48 +437,75 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_launch(device, *, rows_pp, rank, stage_rows):
-    """Refuse a tile that does not fit in shared memory (accumulator plus
-    ``stage_rows`` staged factor rows), then a tensor not on a card."""
-    smem = 4 * rank * (rows_pp + stage_rows)
+def _check_smem(*, rows_pp, rank, smem, what):
+    """Refuse a tile that does not fit in shared memory."""
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"plan tile does not fit in shared memory: rows_pp={rows_pp}, "
-            f"R={rank}, {stage_rows} stage rows need {smem} B > "
-            f"{SMEM_PER_BLOCK} B; plan with a smaller rows_pp")
+            f"R={rank}, {what} need {smem} B > {SMEM_PER_BLOCK} B; plan "
+            "with a smaller rows_pp")
+
+
+def _check_cuda(device):
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {device}")
+
+
+def _check_launch(device, *, rows_pp, rank, stage_rows):
+    """Refuse a tile that does not fit in shared memory (accumulator plus
+    ``stage_rows`` staged factor rows), then a tensor not on a card."""
+    _check_smem(rows_pp=rows_pp, rank=rank,
+                smem=4 * rank * (rows_pp + stage_rows),
+                what=f"{stage_rows} stage rows")
+    _check_cuda(device)
 
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_gather(val, lrow, rows, factors, *, kappa, rows_pp, nblocks,
-                   block_p, pstart, upos=None, nuniq=None, remap=None):
-    """Validate, allocate and launch ``csrc/mttkrp_gather.cu``. ``rows``
-    is ``uidx`` with ``upos``/``nuniq`` given (the dedup stage), else
-    ``lidx``; ``remap`` is ``(idx, alpha, smax, next_mode)`` for the remap
-    variant. Returns the output tensors."""
-    device = val.device
+def _remap_outputs(s, remap, nm1, device):
+    """Check the remap arguments; return them with the next layout filled
+    with the pad pattern (the kernel writes the alive slots, a
+    permutation, over it)."""
+    idx, alpha, smax, next_mode = remap
+    n = idx.shape[1]
+    if not (s <= smax and 0 <= next_mode < n and n == nm1 + 1):
+        raise ValueError(f"remap: S={s}, smax={smax}, next_mode="
+                         f"{next_mode}, nmodes={n}, inputs={nm1}")
+    i32 = torch.int32
+    _check("idx", idx, i32, (s, n), device)
+    _check("alpha", alpha, i32, (s, n), device)
+    nval = torch.zeros(smax, dtype=torch.float32, device=device)
+    nidx = torch.zeros((smax, n), dtype=i32, device=device)
+    nalpha = torch.full((smax, n), -1, dtype=i32, device=device)
+    return idx, alpha, n, next_mode, nval, nidx, nalpha
+
+
+def _inputs(factors):
     factors = tuple(factors)
     nm1 = len(factors)
     if not 1 <= nm1 <= _MAX_INPUTS:
         raise ValueError(f"{nm1} input factors; the kernel takes 1.."
                          f"{_MAX_INPUTS} (nmodes <= {_MAX_INPUTS + 1})")
-    rank = factors[0].shape[1]
+    return factors, nm1, factors[0].shape[1]
+
+
+def _launch_gather(val, lrow, lidx, factors, *, kappa, rows_pp, nblocks,
+                   block_p, pstart, remap=None):
+    """Validate, allocate and launch ``csrc/mttkrp_gather.cu`` (rect);
+    ``remap`` is ``(idx, alpha, smax, next_mode)`` for the remap variant.
+    Returns the output tensors."""
+    device = val.device
+    factors, nm1, rank = _inputs(factors)
     s = nblocks * block_p
     _check_launch(device, rows_pp=rows_pp, rank=rank,
                   stage_rows=nm1 * block_p)
     i32 = torch.int32
-    dedup = upos is not None
     _check("val", val, torch.float32, (s,), device)
     _check("lrow", lrow, i32, (s,), device)
     _check("pstart", pstart, i32, (kappa + 1,), device)
-    _check("uidx" if dedup else "lidx", rows, i32, (nm1, s), device)
-    if dedup:
-        _check("upos", upos, i32, (s, nm1), device)
-        _check("nuniq", nuniq, i32, (nm1, nblocks), device)
+    _check("lidx", lidx, i32, (nm1, s), device)
     for w, f in enumerate(factors):
         _check(f"factors[{w}]", f, torch.float32, (f.shape[0], rank), device)
     out = torch.empty((kappa * rows_pp, rank), dtype=torch.float32,
@@ -250,18 +514,8 @@ def _launch_gather(val, lrow, rows, factors, *, kappa, rows_pp, nblocks,
         rest = (None, None, 0, 0, None, None, None)
         outs = (out,)
     else:
-        idx, alpha, smax, next_mode = remap
-        n = idx.shape[1]
-        if not (s <= smax and 0 <= next_mode < n and n == nm1 + 1):
-            raise ValueError(f"remap: S={s}, smax={smax}, next_mode="
-                             f"{next_mode}, nmodes={n}, inputs={nm1}")
-        _check("idx", idx, i32, (s, n), device)
-        _check("alpha", alpha, i32, (s, n), device)
-        # The next layout starts as the pad pattern; the kernel writes the
-        # alive slots (a permutation) over it.
-        nval = torch.zeros(smax, dtype=torch.float32, device=device)
-        nidx = torch.zeros((smax, n), dtype=i32, device=device)
-        nalpha = torch.full((smax, n), -1, dtype=i32, device=device)
+        idx, alpha, n, next_mode, nval, nidx, nalpha = _remap_outputs(
+            s, remap, nm1, device)
         rest = (idx.data_ptr(), alpha.data_ptr(), n, next_mode,
                 nval.data_ptr(), nidx.data_ptr(), nalpha.data_ptr())
         outs = (out, nval, nidx, nalpha)
@@ -271,14 +525,124 @@ def _launch_gather(val, lrow, rows, factors, *, kappa, rows_pp, nblocks,
     ptrs = (ctypes.c_void_p * nm1)(*[f.data_ptr() for f in factors])
     with torch.cuda.device(device):
         err = lib.mttkrp_gather_launch(
-            val.data_ptr(), lrow.data_ptr(),
-            upos.data_ptr() if dedup else None, pstart.data_ptr(),
-            rows.data_ptr(), nuniq.data_ptr() if dedup else None,
-            ctypes.cast(ptrs, ctypes.c_void_p), nm1, int(dedup), kappa,
+            val.data_ptr(), lrow.data_ptr(), pstart.data_ptr(),
+            lidx.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), nm1, kappa,
             rows_pp, block_p, rank, nblocks, out.data_ptr(), *rest,
             _stream(device))
     if err != 0:
         raise RuntimeError(f"mttkrp_gather launch failed: cudaError {err}")
+    return outs
+
+
+def _check_work(work, kappa, device):
+    """What the wrapper can check of a table on the card without reading it
+    back (a sync): its kind, dtypes, shapes, device, and one chunk at
+    least for every partition. Its ranges are checked where it is built
+    (:func:`check_work`)."""
+    if not isinstance(work, WorkTable):
+        raise TypeError(f"work is a {type(work).__name__}, expected a "
+                        "WorkTable (work_chunks)")
+    nchunks = work.chunks.shape[0] if work.chunks.dim() == 2 else -1
+    _check("work.chunks", work.chunks, torch.int32, (max(nchunks, 0), 4),
+           device)
+    _check("work.wsum", work.wsum, torch.int32, (work.n_partials, 2),
+           device)
+    if nchunks < kappa:
+        raise ValueError(f"work lists {nchunks} chunks for {kappa} "
+                         "partitions; every partition needs one")
+
+
+def balanced_passes(val, lrow, upos, bpart, uidx, nuniq, factors, *, kappa,
+                    rows_pp, nblocks, block_p, pstart=None, work=None,
+                    remap=None):
+    """Validate and allocate for ``csrc/mttkrp_balanced.cu``; returns
+    ``(outs, main, second)``: the output tensors, and the two passes as
+    callables that launch on the current stream (raising on a non-zero
+    ``cudaError``), ``second`` ``None`` when no partition is split. The
+    main kernel fills ``out_rel`` (and the next layout) except a split
+    partition's rows, which the second pass writes. Without ``work`` the
+    table is derived from ``pstart`` (or ``bpart``) with one
+    device-to-host copy. The wrappers run both passes; ``chip_smoke.py``
+    times them apart."""
+    device = val.device
+    factors, nm1, rank = _inputs(factors)
+    s = nblocks * block_p
+    nmodes = remap[0].shape[1] if remap is not None else 0
+    smem = balanced_smem_bytes(rows_pp, rank, nm1, block_p, nmodes)
+    _check_smem(rows_pp=rows_pp, rank=rank, smem=smem,
+                what=f"the balanced kernel's buffers (P={block_p}, "
+                     f"{nm1} inputs)")
+    i32 = torch.int32
+    _check("val", val, torch.float32, (s,), device)
+    _check("lrow", lrow, i32, (s,), device)
+    _check("upos", upos, i32, (s, nm1), device)
+    _check("uidx", uidx, i32, (nm1, s), device)
+    _check("nuniq", nuniq, i32, (nm1, nblocks), device)
+    for w, f in enumerate(factors):
+        _check(f"factors[{w}]", f, torch.float32, (f.shape[0], rank), device)
+    if pstart is not None:
+        _check("pstart", pstart, i32, (kappa + 1,), device)
+    if work is not None:
+        _check_work(work, kappa, device)
+    remap = remap and _remap_outputs(s, remap, nm1, device)
+    _check_cuda(device)
+    if work is None:
+        if pstart is None:
+            pstart = block_starts(bpart, kappa)
+        work = work_chunks(pstart.cpu(), default_cap(nblocks)).to(device)
+    out = torch.empty((kappa * rows_pp, rank), dtype=torch.float32,
+                      device=device)
+    npart = work.n_partials
+    partials = (torch.empty((npart, rows_pp, rank), dtype=torch.float32,
+                            device=device) if npart else None)
+    if remap is None:
+        rest = (None, None, 0, 0, None, None, None)
+        outs = (out,)
+    else:
+        idx, alpha, n, next_mode, nval, nidx, nalpha = remap
+        rest = (idx.data_ptr(), alpha.data_ptr(), n, next_mode,
+                nval.data_ptr(), nidx.data_ptr(), nalpha.data_ptr())
+        outs = (out, nval, nidx, nalpha)
+    vec = rank % 4 == 0 and all(f.data_ptr() % 16 == 0 for f in factors)
+    from .build import load
+
+    lib = load("mttkrp_balanced")
+    ptrs = (ctypes.c_void_p * nm1)(*[f.data_ptr() for f in factors])
+
+    def main():
+        with torch.cuda.device(device):
+            err = lib.mttkrp_balanced_launch(
+                val.data_ptr(), lrow.data_ptr(), upos.data_ptr(),
+                uidx.data_ptr(), nuniq.data_ptr(), work.chunks.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p), nm1,
+                work.chunks.shape[0], kappa, rows_pp, block_p, rank,
+                nblocks, npart, int(vec), smem, out.data_ptr(),
+                partials.data_ptr() if npart else None, *rest,
+                _stream(device))
+        if err != 0:
+            raise RuntimeError(
+                f"mttkrp_balanced launch failed: cudaError {err}")
+
+    def second():
+        with torch.cuda.device(device):
+            err = lib.mttkrp_balanced_reduce_launch(
+                partials.data_ptr(), work.wsum.data_ptr(), npart, kappa,
+                rows_pp, rank, out.data_ptr(), _stream(device))
+        if err != 0:
+            raise RuntimeError("mttkrp_balanced second pass launch "
+                               f"failed: cudaError {err}")
+
+    return outs, main, (second if npart else None)
+
+
+def _launch_balanced(*args, **kw):
+    """Both passes of :func:`balanced_passes`; the second counts under
+    ``mttkrp_balanced_reduce``. Returns the output tensors."""
+    outs, main, second = balanced_passes(*args, **kw)
+    main()
+    if second is not None:
+        second()
+        LAUNCHES["mttkrp_balanced_reduce"] += 1
     return outs
 
 
@@ -390,39 +754,42 @@ def mttkrp_fused_remap(val, idx, alpha, lrow, lidx, factors, *, kappa,
 
 def mttkrp_fused_gather_compact(val, lrow, upos, bpart, uidx, nuniq, factors,
                                 *, kappa, rows_pp, nblocks, block_p,
-                                pstart=None):
+                                pstart=None, work=None):
     """Compact EC with in-block row dedup; returns ``out_rel
-    (kappa*rows_pp, R)``."""
+    (kappa*rows_pp, R)``. On the card it runs the balanced kernels on
+    ``work`` (a :class:`WorkTable` on the same device); called without
+    one, it derives the table from ``pstart`` (or ``bpart``) with
+    :func:`work_chunks` at :func:`default_cap`, which copies ``pstart``
+    to the host once (a sync). ``engine.init`` builds the table once per
+    mode, so the engine's path never syncs here."""
     if val.device.type == "cpu":
         return mttkrp_fused_gather_compact_plain(
             val, lrow, upos, bpart, uidx, nuniq, factors, kappa=kappa,
             rows_pp=rows_pp, nblocks=nblocks, block_p=block_p)
-    if pstart is None:
-        pstart = block_starts(bpart, kappa)
-    (out,) = _launch_gather(val, lrow, uidx, factors, kappa=kappa,
-                            rows_pp=rows_pp, nblocks=nblocks,
-                            block_p=block_p, pstart=pstart, upos=upos,
-                            nuniq=nuniq)
+    (out,) = _launch_balanced(val, lrow, upos, bpart, uidx, nuniq, factors,
+                              kappa=kappa, rows_pp=rows_pp, nblocks=nblocks,
+                              block_p=block_p, pstart=pstart, work=work)
     LAUNCHES["mttkrp_fused_gather_compact"] += 1
     return out
 
 
 def mttkrp_fused_remap_compact(val, idx, alpha, lrow, upos, bpart, uidx,
                                nuniq, factors, *, kappa, rows_pp, nblocks,
-                               block_p, smax, next_mode, pstart=None):
+                               block_p, smax, next_mode, pstart=None,
+                               work=None):
     """Compact EC + Alg. 3 remap in one pass; returns ``(out_rel, nval
-    (smax,), nidx (smax, N), nalpha (smax, N))``."""
+    (smax,), nidx (smax, N), nalpha (smax, N))``. ``work`` as in
+    :func:`mttkrp_fused_gather_compact` (derived, with one sync, when not
+    given)."""
     if val.device.type == "cpu":
         return mttkrp_fused_remap_compact_plain(
             val, idx, alpha, lrow, upos, bpart, uidx, nuniq, factors,
             kappa=kappa, rows_pp=rows_pp, nblocks=nblocks, block_p=block_p,
             smax=smax, next_mode=next_mode)
-    if pstart is None:
-        pstart = block_starts(bpart, kappa)
-    outs = _launch_gather(val, lrow, uidx, factors, kappa=kappa,
-                          rows_pp=rows_pp, nblocks=nblocks, block_p=block_p,
-                          pstart=pstart, upos=upos, nuniq=nuniq,
-                          remap=(idx, alpha, smax, next_mode))
+    outs = _launch_balanced(val, lrow, upos, bpart, uidx, nuniq, factors,
+                            kappa=kappa, rows_pp=rows_pp, nblocks=nblocks,
+                            block_p=block_p, pstart=pstart, work=work,
+                            remap=(idx, alpha, smax, next_mode))
     LAUNCHES["mttkrp_fused_remap_compact"] += 1
     return outs
 
@@ -433,4 +800,8 @@ __all__ = ["mttkrp_fused", "mttkrp_fused_compact", "mttkrp_fused_gather",
            "mttkrp_fused_compact_plain", "mttkrp_fused_gather_plain",
            "mttkrp_fused_remap_plain", "mttkrp_fused_gather_compact_plain",
            "mttkrp_fused_remap_compact_plain", "remap_plain", "block_starts",
-           "rect_block_starts", "LAUNCHES", "reset_launch_counts"]
+           "rect_block_starts", "LAUNCHES", "reset_launch_counts",
+           "WorkTable", "work_chunks", "work_from_chunks", "check_work",
+           "split_partitions", "default_cap", "chunked_plain",
+           "balanced_smem_bytes", "balanced_passes", "SMEM_PER_BLOCK",
+           "H100_SMS"]

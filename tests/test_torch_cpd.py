@@ -78,3 +78,23 @@ def test_cp_als_generator_init_is_seeded():
     b = cp_als(t, 4, iters=2, config=cfg,
                generator=torch.Generator().manual_seed(7))
     assert a.fits == b.fits and all(np.isfinite(a.fits))
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda_fused"])
+def test_float64_witness_agrees_with_float32_runs(backend):
+    """``cp_als_reference(dtype=torch.float64)`` runs the ALS in float64
+    from the same initial factors (the witness ``chip_smoke.py`` holds the
+    float32 engine runs against); a float32 engine run lies within the
+    float32 fit tolerance of it."""
+    idx, val, dims = _tensor(3, seed=6)
+    key = jax.random.PRNGKey(1)
+    init = [np.asarray(f) for f in rinit(key, dims, 5)]
+    wit = cp_als_reference(idx, val, dims, 5, iters=3, factors=init,
+                           device="cpu", dtype=torch.float64)
+    assert all(f.dtype == torch.float64 for f in wit.factors)
+    assert wit.lam.dtype == torch.float64
+    eng = cp_als(build_flycoo(idx, val, dims, rows_pp=8, block_p=16), 5,
+                 iters=3, config=ExecutionConfig(backend=backend,
+                                                 device="cpu"),
+                 factors=init)
+    assert eng.fits == pytest.approx(wit.fits, abs=FIT_ATOL)

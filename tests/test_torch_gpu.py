@@ -1,8 +1,10 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions, the ``cuda_fused`` and ``cuda`` rotations (both schedules)
-against the COO oracle, CPD on the card, the RWKV-6 ``forward`` on the
-``wkv6`` kernel and the RecurrentGemma ``forward`` on the ``lru_scan``
-kernel. Every test is marked
+versions (the compact in-kernel gather pair on the balanced kernels of
+``csrc/mttkrp_balanced.cu``, with work tables that split every
+partition, none or only the hot one), the ``cuda_fused`` and ``cuda``
+rotations (both schedules) against the COO oracle, CPD on the card, the
+RWKV-6 ``forward`` on the ``wkv6`` kernel and the RecurrentGemma
+``forward`` on the ``lru_scan`` kernel. Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
 the CUDA toolkit only:
@@ -32,9 +34,10 @@ import pytest
 import torch
 
 from repro_torch import engine
-from repro_torch.core import build_flycoo, cp_als, mttkrp_ref
+from repro_torch.core import build_flycoo, cp_als, mttkrp_ref, zipf_tensor
 from repro_torch.core.flycoo import _ROW_SENTINEL, _dedup_tables_batched
 from repro_torch.engine import ExecutionConfig
+from repro_torch.engine.api import mode_layout
 from repro_torch.kernels import mttkrp as kmt
 from repro_torch.kernels import lru_scan as klru
 from repro_torch.kernels import wkv6 as kw6
@@ -85,8 +88,14 @@ def _kernel_case(seed, part_blocks, p, nm1, r, rows_pp=8, empty=None):
 @pytest.mark.parametrize("part_blocks,p,nm1,r,empty", [
     ((3, 1), 8, 2, 8, None), ((1, 4, 2, 1), 16, 3, 32, None),
     ((2, 1, 5), 32, 5, 16, None), ((1, 2, 1), 128, 2, 32, 0),
-    ((2, 3), 128, 4, 64, 1)])
+    ((2, 3), 128, 4, 64, 1), ((2, 3), 16, 2, 10, None),
+    ((2, 3, 1), 48, 2, 256, None), ((2, 3, 1), 64, 2, 256, 2)])
 def test_cuda_kernels_match_plain(cuda, part_blocks, p, nm1, r, empty):
+    """The compact in-kernel gather pair (``csrc/mttkrp_balanced.cu``,
+    its work table derived from ``bpart`` by the wrappers) against the
+    plain versions; at R = 10 the factor rows are copied 4 bytes at a
+    time, and the last two cases' factor-row stages (R = 256) take 96 and
+    128 KB of the shared memory."""
     args, kw = _kernel_case(len(part_blocks) * 11 + nm1, part_blocks, p,
                             nm1, r, empty=empty)
     args = tuple(a.to(cuda) if torch.is_tensor(a)
@@ -112,6 +121,8 @@ def test_cuda_kernels_match_plain(cuda, part_blocks, p, nm1, r, empty):
 
 @pytest.mark.gpu
 def test_cuda_wrapper_raises_never_falls_back(cuda):
+    """The balanced kernels' wrapper refuses bad arguments and a tile
+    that does not fit, on the card, before any launch."""
     args, kw = _kernel_case(3, (2, 1), 16, 2, 32)
     args = tuple(a.to(cuda) if torch.is_tensor(a)
                  else tuple(f.to(cuda) for f in a) for a in args)
@@ -128,6 +139,173 @@ def test_cuda_wrapper_raises_never_falls_back(cuda):
         kmt.mttkrp_fused_gather_compact(
             val, lrow, upos, bpart, uidx, nuniq, facs,
             **dict(gkw, rows_pp=4000))
+
+
+def _hot_tensor():
+    """A 3-mode Zipf tensor whose hottest partition holds about twice the
+    blocks of the next (mode 0: 25 blocks against 12)."""
+    return zipf_tensor((400, 300, 200), 30000, a=2.0, seed=4, rows_pp=16,
+                       block_p=32)
+
+
+def _balanced_case(kind, cuda):
+    """Inputs of the two balanced wrappers and the host block-start
+    table: ``hot`` is mode 0 of :func:`_hot_tensor` as ``engine.init``
+    lays it out; ``empty`` a toy plan whose 4-block partition 1 holds only
+    pad slots."""
+    if kind == "empty":
+        args, kw = _kernel_case(29, (1, 4, 2, 1), 16, 3, 32, empty=1)
+        args = tuple(a.to(cuda) if torch.is_tensor(a)
+                     else tuple(f.to(cuda) for f in a) for a in args)
+        ps = kmt.block_starts(args[5].cpu(), kw["kappa"]).numpy()
+        return args, kw, ps
+    t = _hot_tensor()
+    state = engine.init(t, ExecutionConfig(backend="cuda_fused"))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    facs = [torch.randn((d, 32), generator=g, device="cuda")
+            for d in t.dims]
+    L = mode_layout(state, (state.val, state.idx, state.alpha), 0)
+    plan = state.statics[0]
+    args = (L["val"], L["idx"], L["alpha"], L["lrow"], L["upos"],
+            L["bpart"], L["uidx"], L["nuniq"], tuple(facs[1:]))
+    kw = dict(kappa=plan.kappa, rows_pp=plan.rows_pp, nblocks=plan.nblocks,
+              block_p=plan.block_p, smax=state.smax, next_mode=1)
+    return args, kw, L["pstart"].cpu().numpy()
+
+
+def _caps(ps):
+    """Chunk caps that split every multi-block partition, none, and only
+    the hottest."""
+    nb = np.sort(np.diff(ps))
+    return {"every": 1, "none": int(nb[-1]), "hot": int(nb[-2])}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["hot", "empty"])
+@pytest.mark.parametrize("split", ["every", "none", "hot"])
+def test_balanced_kernels_match_plain(cuda, kind, split):
+    """``mttkrp_fused_remap_compact`` and ``mttkrp_fused_gather_compact``
+    on a given work table against the plain versions and against
+    ``chunked_plain`` on the same table; one launch each, and the second
+    pass once each where a partition is split."""
+    args, kw, ps = _balanced_case(kind, cuda)
+    cap = _caps(ps)[split]
+    work = kmt.work_chunks(ps, cap).to(cuda)
+    nsplit = int((work.wsum[:, 1] > 0).sum())
+    nb = np.diff(ps)
+    assert nsplit == {"every": int((nb > 1).sum()), "none": 0,
+                      "hot": 1}[split]
+    val, idx, alpha, lrow, upos, bpart, uidx, nuniq, facs = args
+    gkw = {k: kw[k] for k in ("kappa", "rows_pp", "nblocks", "block_p")}
+    before = dict(kmt.LAUNCHES)
+    got = kmt.mttkrp_fused_remap_compact(*args, **kw, work=work)
+    gat = kmt.mttkrp_fused_gather_compact(val, lrow, upos, bpart, uidx,
+                                          nuniq, facs, **gkw, work=work)
+    want = kmt.mttkrp_fused_remap_compact_plain(*args, **kw)
+    chunked = kmt.chunked_plain(val, lrow, upos, bpart, uidx, nuniq, facs,
+                                **gkw, work=work,
+                                remap=(idx, alpha, kw["smax"],
+                                       kw["next_mode"]))
+    torch.cuda.synchronize()
+    for k in ("mttkrp_fused_remap_compact", "mttkrp_fused_gather_compact"):
+        assert kmt.LAUNCHES[k] == before[k] + 1
+    assert (kmt.LAUNCHES["mttkrp_balanced_reduce"]
+            == before["mttkrp_balanced_reduce"] + 2 * (nsplit > 0))
+    for out in (got[0], gat, chunked[0]):
+        torch.testing.assert_close(out, want[0], **TOL)
+    for g, w, c in zip(got[1:], want[1:], chunked[1:]):
+        assert torch.equal(g, w) and torch.equal(c, w)
+    if kind == "empty":
+        rows = slice(kw["rows_pp"], 2 * kw["rows_pp"])
+        assert not got[0][rows].any() and not gat[rows].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mutant", ["drop", "repeat"])
+def test_balanced_kernel_follows_its_table(cuda, mutant):
+    """A table that drops one of the hot partition's chunks, or lists one
+    twice: the kernel does what the table says (``chunked_plain`` on the
+    same table), and the hot partition's rows then miss the plain
+    version's, so a check against it catches the table."""
+    args, kw, ps = _balanced_case("hot", cuda)
+    nb = np.diff(ps)
+    hot = int(nb.argmax())
+    chunks = kmt.split_partitions(ps, _caps(ps)["hot"])
+    row = np.flatnonzero(chunks[:, 0] == hot)[1]
+    chunks = (np.delete(chunks, row, 0) if mutant == "drop"
+              else np.insert(chunks, row, chunks[row], 0))
+    work = kmt.work_from_chunks(chunks, ps).to(cuda)
+    val, idx, alpha, lrow, upos, bpart, uidx, nuniq, facs = args
+    gkw = {k: kw[k] for k in ("kappa", "rows_pp", "nblocks", "block_p")}
+    got = kmt.mttkrp_fused_gather_compact(val, lrow, upos, bpart, uidx,
+                                          nuniq, facs, **gkw, work=work)
+    want = kmt.mttkrp_fused_gather_compact_plain(val, lrow, upos, bpart,
+                                                 uidx, nuniq, facs, **gkw)
+    torch.testing.assert_close(
+        got, kmt.chunked_plain(val, lrow, upos, bpart, uidx, nuniq, facs,
+                               **gkw, work=work), **TOL)
+    rows = slice(hot * kw["rows_pp"], (hot + 1) * kw["rows_pp"])
+    assert not torch.allclose(got[rows], want[rows], **TOL)
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=cuda)
+    keep[rows] = False
+    torch.testing.assert_close(got[keep], want[keep], **TOL)
+
+
+@pytest.mark.gpu
+def test_balanced_refuses_a_malformed_table(cuda):
+    """A work table of the wrong kind, dtype, shape, device or layout, or
+    with fewer chunks than partitions, raises before any launch; nothing
+    falls back to the plain version."""
+    args, kw, ps = _balanced_case("hot", cuda)
+    work = kmt.work_chunks(ps, 4).to(cuda)
+    c, w = work.chunks, work.wsum
+    bad = [(TypeError, tuple(work)),
+           (TypeError, kmt.WorkTable(c.long(), w)),
+           (ValueError, kmt.WorkTable(c[:, :3].contiguous(), w)),
+           (ValueError, kmt.WorkTable(c, torch.zeros((2, 3), dtype=torch.int32,
+                                                     device=cuda))),
+           (ValueError, kmt.WorkTable(c.cpu(), w)),
+           (ValueError, kmt.WorkTable(c.t().contiguous().t(), w)),
+           (ValueError, kmt.WorkTable(c[: kw["kappa"] - 1].contiguous(),
+                                      w))]
+    before = dict(kmt.LAUNCHES)
+    for err, table in bad:
+        with pytest.raises(err):
+            kmt.mttkrp_fused_remap_compact(*args, **kw, work=table)
+    assert kmt.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_engine_rotation_uses_the_state_work_table(cuda, monkeypatch):
+    """The main path: ``engine.init`` keeps each mode's work table on the
+    card, and the rotation launches ``mttkrp_fused_remap_compact`` (and
+    the second pass) with it, never deriving one (no host sync); the
+    outputs match ``mttkrp_ref`` and the layout comes back bitwise."""
+    t = _hot_tensor()
+    state = engine.init(t, ExecutionConfig(backend="cuda_fused"))
+    assert all(s.work.is_cuda and s.wsum.is_cuda for s in state.sched)
+
+    def derive(*a, **k):
+        raise AssertionError("the engine path derived a work table")
+
+    monkeypatch.setattr(kmt, "work_chunks", derive)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    facs = [torch.randn((d, 32), generator=g, device="cuda") for d in t.dims]
+    before = dict(kmt.LAUNCHES)
+    outs, nxt = engine.all_modes(state, facs)
+    torch.cuda.synchronize()
+    name = "mttkrp_fused_remap_compact"
+    assert kmt.LAUNCHES[name] == before[name] + 3
+    assert (kmt.LAUNCHES["mttkrp_balanced_reduce"]
+            == before["mttkrp_balanced_reduce"]
+            + sum(s.wsum.shape[0] > 0 for s in state.sched))
+    ti = torch.from_numpy(t.indices).to(cuda)
+    tv = torch.from_numpy(t.values).to(cuda)
+    for d in range(3):
+        torch.testing.assert_close(
+            outs[d], mttkrp_ref(ti, tv, facs, d, t.dims[d]), **TOL)
+    for a in ("val", "idx", "alpha"):
+        assert torch.equal(getattr(nxt, a), getattr(state, a))
 
 
 def _rect_case(seed, kappa, blocks_pp, p, nm1, r, rows_pp=8, empty=None):
