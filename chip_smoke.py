@@ -14,12 +14,17 @@ times the kernels at each path's shapes.
        mode's work table (chunks, split partitions, longest chunk,
        partials) and the balanced kernels' two passes timed apart
   [7]  the plan-space path (``make_engine(PlanSpec(backend="cuda"),
-       cache=PlanCache())``, the pre-gathered baseline) at nell1 scale
-       0.1, compact, with ``cp_als``
+       cache=PlanCache())``, the pre-gathered baseline, on the balanced
+       work table) at nell1 scale 0.1, compact, with ``cp_als`` held to
+       the torch backend and to [3]'s float64 witness, the work-table
+       gate, and the kernel's two passes timed apart with each mode's
+       table
   [8]  the rect schedule at nell1 scale 0.01: ``cuda_fused`` with and
-       without the fused remap, and ``cuda``
+       without the fused remap, and ``cuda``, on tables that list only
+       each partition's alive blocks; the work-table gate on
+       ``mttkrp_fused_gather``, the two passes timed apart
   [9]  ``autotune`` over backend x schedule x P x dedup at nell1 scale
-       0.01, measured by CUDA events
+       0.01, measured by the median of 5 CUDA-event rotations a spec
   [2c] the ``wkv6`` kernel against its plain version at the reference
        kernel tests' shapes and at the model's rows (BH 160, T 256)
   [10] RWKV-6 at the full width of ``rwkv6-3b`` (32 layers, f32 params,
@@ -61,16 +66,17 @@ function on absolute inputs) and ``u = 2**-24``:
     twice that, one share for each side.
   * The limit is held against itself: the gather kernel run with 2% of
     the hottest row's terms marked as pads (a kernel that skips work) must
-    fail it; so must the gather kernel run with a work table that drops
-    one of the hot partition's chunks, and with one that lists one of them
-    twice, on the hottest row, while each agrees with ``chunked_plain`` on
-    its own table (the kernel does what its table says) within the limit
-    of that table's terms.
+    fail it; so must a kernel run with a work table that drops one of the
+    hot partition's chunks, and with one that lists one of them twice, on
+    the hottest row, while each agrees with the plain version of its
+    schedule on its own table (the kernel does what its table says)
+    within the limit of that table's terms: the compact gather kernel in
+    [3], the pre-gathered one in [7], the rect gather one in [8].
   * remap outputs and the layout after a full rotation: bitwise.
-  * CPD fits, cuda_fused against the torch backend from the same initial
-    factors: ``FIT_ATOL`` (the per-mode differences above, through three
-    sweeps of R x R solves), on ``FIT_SEEDS`` draws of those factors; and
-    cuda_fused within ``FIT_ATOL`` of a float64 witness
+  * CPD fits, cuda_fused ([3]) and cuda ([7]) against the torch backend
+    from the same initial factors: ``FIT_ATOL`` (the per-mode differences
+    above, through three sweeps of R x R solves), on ``FIT_SEEDS`` draws
+    of those factors; and each within ``FIT_ATOL`` of a float64 witness
     (``cp_als_reference`` in float64 from the same factors), which also
     says which of the two float32 runs a gap between them comes from.
   * ``wkv6`` against its plain version, both float32. With ``A`` the same
@@ -134,6 +140,7 @@ XCHECK_ATOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 RANK = 32
+MEASURE_REPS = 5               # [9]: rotations a spec, median taken
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "mttkrp_fused_remap_compact": CSRC + "mttkrp_balanced.cu",
@@ -302,12 +309,13 @@ def gate_check(kmt, state, factors):
     return out
 
 
-def table_gate(kmt, state, factors):
-    """The balanced kernel must follow its work table, and the
-    kernel-vs-plain limit must catch a table that loses or repeats work:
-    the gather kernel run with the state's chunks minus one of the hot
-    partition's, and with one of them listed twice. Each run must agree
-    with ``chunked_plain`` on its own table, within the limit of that
+def table_gate(kmt, state, factors, name="mttkrp_fused_gather_compact"):
+    """Kernel ``name`` must follow its work table, and the kernel-vs-plain
+    limit must catch a table that loses or repeats work: the kernel run
+    with the state's chunks minus one of the hot partition's, and with
+    one of them listed twice. Each run must agree with its plain schedule
+    (``chunked_plain``, ``chunked_plain_pregathered`` or
+    ``chunked_plain_gather``) on its own table, within the limit of that
     table's terms, and fail the limit against the plain version on the
     hottest row. Returns what the check reads on that row."""
     import numpy as np
@@ -317,50 +325,73 @@ def table_gate(kmt, state, factors):
     d = state.mode
     plan = state.statics[d]
     L = mode_layout(state, (state.val, state.idx, state.alpha), d)
-    inputs, kw = kernel_args(factors, d, state)
-    abs_sum, terms = row_stats(kmt, L, inputs, kw)
+    ones = torch.ones_like
+    if name in BALANCED:
+        inputs, kw = kernel_args(factors, d, state)
+
+        def kernel(work):
+            return run_gather(kmt, L, inputs, kw, work=work)
+
+        def chunked(lay, fs, work):
+            return run_chunked(kmt, lay, tuple(f for w, f in enumerate(fs)
+                                               if w != d), kw, work)
+
+        want = run_gather(kmt, L, inputs, kw, plain=True)
+        abs_sum, terms = row_stats(kmt, L, inputs, kw)
+    else:
+        def kernel(work):
+            return run_new(kmt, name, L, factors, d, plan, work=work)
+
+        def chunked(lay, fs, work):
+            return run_new(kmt, name, lay, fs, d, plan, work=work,
+                           chunked=True)
+
+        want = run_new(kmt, name, L, factors, d, plan, plain=True)
+        abs_sum, terms = torch_row_stats(L, factors, d, plan, state.config)
     hot = int(terms[:, 0].argmax())
     part = hot // plan.rows_pp
-    cap = kmt.default_cap(plan.nblocks)
+    table = layout_work(kmt, L).chunks.cpu().numpy()[:, :3].astype("int64")
+    chunks = table[np.lexsort((table[:, 1], table[:, 0]))]
     pstart = L["pstart"].cpu().numpy()
-    chunks = kmt.split_partitions(pstart, cap)
     rows = np.flatnonzero(chunks[:, 0] == part)
     if len(rows) < 2:
         raise AssertionError(f"the hot partition {part} is not split")
-    want = run_gather(kmt, L, inputs, kw, plain=True)[hot]
+    want = want[hot]
     lim = limit(abs_sum[hot], terms[hot], state.nmodes, sides=2)
-    out = {"mode": d, "partition": part, "chunks": len(rows), "cap": cap,
+    out = {"kernel": name, "mode": d, "partition": part,
+           "chunks": len(rows), "cap": table_cap(kmt, L, plan),
            "row_terms": int(terms[hot, 0])}
-    ones = torch.ones_like
-    for name, mutant in (
+    for mname, mutant in (
             ("drop", np.delete(chunks, rows[1], 0)),
             ("repeat", np.insert(chunks, rows[1], chunks[rows[1]], 0))):
         work = kmt.work_from_chunks(mutant, pstart).to(L["val"].device)
-        got = run_gather(kmt, L, inputs, kw, work=work)
-        own = limit(run_chunked(kmt, dict(L, val=L["val"].abs()),
-                                tuple(f.abs() for f in inputs), kw, work),
-                    run_chunked(kmt, dict(L, val=ones(L["val"])),
-                                tuple(ones(f) for f in inputs), kw, work),
+        got = kernel(work)
+        own = limit(chunked(dict(L, val=L["val"].abs()),
+                            [f.abs() for f in factors], work),
+                    chunked(dict(L, val=ones(L["val"])),
+                            [ones(f) for f in factors], work),
                     state.nmodes, sides=2)
-        close_to(f"mode {d} kernel on the '{name}' table vs chunked_plain",
-                 got, run_chunked(kmt, L, inputs, kw, work), own)
+        close_to(f"mode {d} {name} on the '{mname}' table vs its plain "
+                 "schedule", got, chunked(L, factors, work), own)
         err = (got[hot].double() - want.double()).abs()
-        out[name] = {"elements_caught": int((err > lim).sum()),
-                     "elements": err.numel(),
-                     "max_err_over_limit": float((err / lim).max())}
-        if out[name]["elements_caught"] == 0:
-            raise AssertionError(f"the limit misses a kernel whose table "
-                                 f"does '{name}' on a hot chunk: {out}")
+        out[mname] = {"elements_caught": int((err > lim).sum()),
+                      "elements": err.numel(),
+                      "max_err_over_limit": float((err / lim).max())}
+        if out[mname]["elements_caught"] == 0:
+            raise AssertionError(f"the limit misses {name} whose table "
+                                 f"does '{mname}' on a hot chunk: {out}")
     return out
 
 
-def fit_witness(t, cfg, cfg_t):
-    """``cp_als`` (3 sweeps) on ``cfg`` (cuda_fused) and on the torch
+def fit_witness(t, cfg, cfg_t, prior=None):
+    """``cp_als`` (3 sweeps) on ``cfg`` (a kernel backend) and on the torch
     backend, both float32, against the float64 ALS of
     ``cp_als_reference`` from the same initial factors, for each seed of
     ``FIT_SEEDS``: per seed the largest fit difference of the two float32
-    runs and of each to the witness; cuda_fused's differences to the
-    torch backend and to the witness are gated by ``FIT_ATOL``."""
+    runs and of each to the witness; ``cfg``'s differences to the torch
+    backend and to the witness are gated by ``FIT_ATOL``. ``prior`` (the
+    rows of an earlier call on the same tensor) lends its torch-backend
+    and float64 fits instead of running them again."""
     import torch
     from repro_torch.core import cp_als, cp_als_reference, init_factors
 
@@ -368,22 +399,29 @@ def fit_witness(t, cfg, cfg_t):
         return max(abs(p - q) for p, q in zip(x, y))
 
     rows = []
-    for seed in FIT_SEEDS:
+    for i, seed in enumerate(FIT_SEEDS):
         f = init_factors(torch.Generator(device="cuda").manual_seed(seed),
                          t.dims, RANK)
         a = cp_als(t, RANK, iters=3, config=cfg, factors=f).fits
-        b = cp_als(t, RANK, iters=3, config=cfg_t, factors=f).fits
-        w = cp_als_reference(t.indices, t.values, t.dims, RANK, iters=3,
-                             factors=f, device="cuda",
-                             dtype=torch.float64).fits
-        rows.append({"seed": seed, "fits": a, "torch_fits": b,
-                     "f64_fits": w, "fit_diff": gap(a, b),
-                     "cuda_fused_to_f64": gap(a, w),
-                     "torch_to_f64": gap(b, w)})
+        if prior is None:
+            b = cp_als(t, RANK, iters=3, config=cfg_t, factors=f).fits
+            w = cp_als_reference(t.indices, t.values, t.dims, RANK, iters=3,
+                                 factors=f, device="cuda",
+                                 dtype=torch.float64).fits
+        else:
+            b, w = prior[i]["torch_fits"], prior[i]["f64_fits"]
+        rows.append({"seed": seed, "backend": cfg.backend, "fits": a,
+                     "torch_fits": b, "f64_fits": w, "fit_diff": gap(a, b),
+                     "to_f64": gap(a, w), "torch_to_f64": gap(b, w)})
         if not all(x == x and abs(x) < 1e30 for x in a + b + w) \
                 or max(gap(a, b), gap(a, w)) > FIT_ATOL:
             raise AssertionError(f"fit check, seed {seed}: {rows[-1]}")
     return rows
+
+
+def witness_line(witness):
+    return ", ".join(f"{w['seed']}: {w['fit_diff']:.2e} {w['to_f64']:.2e} "
+                     f"{w['torch_to_f64']:.2e}" for w in witness)
 
 
 def mttkrp_oracle(indices, values, factors, dims):
@@ -418,6 +456,27 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def cuda_median_ms(fn, reps):
+    """Median CUDA-event milliseconds of ``reps`` single calls of ``fn``
+    after one warm-up."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def byte_bound(L, plan, d, smax, n, rank, remap):
@@ -604,9 +663,8 @@ def main_path(kmt, report):
         "(cuda_fused, torch backend): " + ", ".join(
             f"mode {d} {a:.3f} {b:.3f}" for d, (a, b) in enumerate(hot_shares)))
     log("[3] fits against the float64 witness, max over 3 sweeps "
-        "(seed: cuda_fused-torch, cuda_fused-f64, torch-f64): " + ", ".join(
-            f"{w['seed']}: {w['fit_diff']:.2e} {w['cuda_fused_to_f64']:.2e} "
-            f"{w['torch_to_f64']:.2e}" for w in witness))
+        "(seed: cuda_fused-torch, cuda_fused-f64, torch-f64): "
+        + witness_line(witness))
     log(f"[3] limit check: {gate}")
     log(f"[3] work-table check: {tgate}")
     report["nell1"] = {"dims": ts.dims, "nnz": t.nnz, "fits": fits,
@@ -676,17 +734,40 @@ def phase_twitch(kmt):
     log("[5] 5-mode all_modes == mttkrp_ref; layout bitwise back")
 
 
+def alive_extents(L, plan):
+    """Under rect, each partition's alive blocks, ``ceil(alive slots /
+    P)``, counted from the layout's ``lrow``."""
+    import torch
+
+    alive = (L["lrow"] >= 0).view(plan.kappa, -1).sum(1)
+    return torch.div(alive + plan.block_p - 1, plan.block_p,
+                     rounding_mode="floor").cpu()
+
+
+def table_cap(kmt, L, plan):
+    """The cap the engine's table was built at: ``default_cap`` of the
+    blocks (compact) or of the alive blocks (rect)."""
+    if plan.schedule == "rect":
+        return kmt.default_cap(int(alive_extents(L, plan).sum()))
+    return kmt.default_cap(plan.nblocks)
+
+
 def work_stats(kmt, L, plan, rank):
-    """What a mode's work table asks of the balanced kernels: chunks
-    (= CTAs of the main launch), split partitions, the longest chunk and
-    the busiest partition in blocks, and the partials the second pass
-    reads (count and bytes, each written once and read once)."""
+    """What a mode's work table asks of its kernels: chunks (= CTAs of the
+    main launch), split partitions, the blocks it lists, the longest
+    chunk and the busiest partition in blocks, and the partials the
+    second pass reads (count and bytes, each written once and read once).
+    Raises if a chunk exceeds the cap, or if under rect the table lists
+    other blocks than each partition's alive extent, once each."""
+    import torch
+
     work = layout_work(kmt, L)
-    ch = work.chunks.cpu()
+    ch = work.chunks.cpu().long()
     ps = L["pstart"].cpu()
-    cap = kmt.default_cap(plan.nblocks)
+    cap = table_cap(kmt, L, plan)
     out = {"chunks": int(ch.shape[0]), "cap": cap,
            "split_partitions": int((work.wsum[:, 1] > 0).sum()),
+           "listed_blocks": int((ch[:, 2] - ch[:, 1]).sum()),
            "longest_chunk_blocks": int((ch[:, 2] - ch[:, 1]).max()),
            "busiest_partition_blocks": int((ps[1:] - ps[:-1]).max()),
            "partials": work.n_partials,
@@ -694,7 +775,28 @@ def work_stats(kmt, L, plan, rank):
     if out["longest_chunk_blocks"] > cap:
         raise AssertionError(f"a chunk of {out['longest_chunk_blocks']} "
                              f"blocks exceeds the cap {cap}")
+    if plan.schedule == "rect":
+        ext = alive_extents(L, plan)
+        want = torch.zeros(plan.nblocks, dtype=torch.long)
+        for j, e in enumerate(ext.tolist()):
+            want[j * plan.blocks_pp:j * plan.blocks_pp + e] = 1
+        got = torch.zeros(plan.nblocks + 1, dtype=torch.long)
+        got.index_add_(0, ch[:, 1], torch.ones(len(ch), dtype=torch.long))
+        got.index_add_(0, ch[:, 2], -torch.ones(len(ch), dtype=torch.long))
+        if not torch.equal(got.cumsum(0)[:-1], want):
+            raise AssertionError("the rect table lists other blocks than "
+                                 "the partitions' alive extents")
+        out["busiest_partition_blocks"] = int(ext.max())
     return out
+
+
+def work_line(ws):
+    return (f"{ws['chunks']} chunks (cap {ws['cap']}), "
+            f"{ws['listed_blocks']} blocks listed, longest "
+            f"{ws['longest_chunk_blocks']} (busiest partition "
+            f"{ws['busiest_partition_blocks']}), {ws['split_partitions']} "
+            f"split partitions, {ws['partials']} partials "
+            f"({ws['partial_bytes'] / 1e6:.2f} MB)")
 
 
 def phase_times(kmt, t, state0, factors, report, reps):
@@ -771,11 +873,7 @@ def phase_times(kmt, t, state0, factors, report, reps):
                 f"{r['passes_ms']:.3f}; plain {r['plain_ms']:.3f}, torch "
                 f"backend {r['torch_backend_ms']:.3f}, bound "
                 f"{r['bound_ms']:.4f})")
-        log(f"[6] mode {d} work: {ws['chunks']} chunks (cap {ws['cap']}), "
-            f"longest {ws['longest_chunk_blocks']} blocks (busiest "
-            f"partition {ws['busiest_partition_blocks']}), "
-            f"{ws['split_partitions']} split partitions, {ws['partials']} "
-            f"partials ({ws['partial_bytes'] / 1e6:.2f} MB) | part_nnz max "
+        log(f"[6] mode {d} work: {work_line(ws)} | part_nnz max "
             f"{lb['max']:.0f} mean {lb['mean']:.1f} kappa {plan.kappa} "
             f"rows_pp {plan.rows_pp} blocks {plan.nblocks}")
         rows.append(row)
@@ -787,30 +885,68 @@ def phase_times(kmt, t, state0, factors, report, reps):
 # --------------------------------------------------------------------------
 # The four kernels of the plan-space path: [2b], [7], [8], [9].
 # --------------------------------------------------------------------------
-def run_new(kmt, name, L, factors, d, plan, smax=None, plain=False):
-    """Kernel ``name`` (or its plain version) on mode ``d``'s layout
-    ``L``, with the operands its backend builds: the pre-gathered
-    ``(S, N-1, R)`` operand for ``cuda``, the ``(N-1, S)`` row table for
-    rect ``cuda_fused``."""
+def new_operand(name, L, factors, d):
+    """The operand kernel ``name``'s backend builds in PyTorch: the
+    pre-gathered ``(S, N-1, R)`` rows for ``cuda``, the ``(N-1, S)`` row
+    table for rect ``cuda_fused``."""
     from repro_torch.engine.backends import fused_lidx, pregather
 
+    if name in ("mttkrp_fused", "mttkrp_fused_compact"):
+        return pregather(L["idx"], factors, d)
+    return fused_lidx(L["idx"], d)
+
+
+def run_new(kmt, name, L, factors, d, plan, smax=None, plain=False,
+            work=None, chunked=False, operand=None):
+    """Kernel ``name`` on mode ``d``'s layout ``L`` with the state's work
+    table (or ``work``), on the operand its backend builds
+    (:func:`new_operand`, built here unless given). ``plain=True``: its
+    plain version; ``chunked=True``: the plain version of its schedule on
+    ``work``."""
+    if operand is None:
+        operand = new_operand(name, L, factors, d)
     inputs = tuple(f for w, f in enumerate(factors) if w != d)
     fn = getattr(kmt, name + "_plain" if plain else name)
     rect = dict(kappa=plan.kappa, rows_pp=plan.rows_pp,
                 blocks_pp=plan.blocks_pp, block_p=plan.block_p)
-    extra = {} if plain else {"pstart": L["pstart"]}
-    if name == "mttkrp_fused_compact":
-        return fn(pregather(L["idx"], factors, d), L["val"], L["lrow"],
-                  L["bpart"], kappa=plan.kappa, rows_pp=plan.rows_pp,
+    sched = dict(kappa=plan.kappa, rows_pp=plan.rows_pp,
+                 block_p=plan.block_p, work=work)
+    extra = {} if plain else {"pstart": L["pstart"],
+                              "work": work or layout_work(kmt, L)}
+    remap = ((L["idx"], L["alpha"], smax, (d + 1) % len(factors))
+             if name == "mttkrp_fused_remap" else None)
+    if name in ("mttkrp_fused", "mttkrp_fused_compact"):
+        if chunked:
+            return kmt.chunked_plain_pregathered(operand, L["val"],
+                                                 L["lrow"], **sched)
+        if name == "mttkrp_fused":
+            return fn(operand, L["val"], L["lrow"], **rect, **extra)
+        return fn(operand, L["val"], L["lrow"], L["bpart"],
+                  kappa=plan.kappa, rows_pp=plan.rows_pp,
                   nblocks=plan.nblocks, block_p=plan.block_p, **extra)
-    if name == "mttkrp_fused":
-        return fn(pregather(L["idx"], factors, d), L["val"], L["lrow"],
-                  **rect, **extra)
-    lidx = fused_lidx(L["idx"], d)
-    if name == "mttkrp_fused_gather":
+    lidx = operand
+    if chunked:
+        return kmt.chunked_plain_gather(L["val"], L["lrow"], lidx, inputs,
+                                        **sched, remap=remap)
+    if remap is None:
         return fn(L["val"], L["lrow"], lidx, inputs, **rect, **extra)
     return fn(L["val"], L["idx"], L["alpha"], L["lrow"], lidx, inputs,
-              smax=smax, next_mode=(d + 1) % len(factors), **rect, **extra)
+              smax=smax, next_mode=remap[3], **rect, **extra)
+
+
+def new_passes(kmt, name, L, factors, d, plan, smax, operand):
+    """The two passes of kernel ``name`` on mode ``d``'s layout and
+    ``operand`` with the state's table (``kmt.*_passes``), for timing
+    them apart."""
+    kw = dict(kappa=plan.kappa, rows_pp=plan.rows_pp, nblocks=plan.nblocks,
+              block_p=plan.block_p, work=layout_work(kmt, L))
+    if name in ("mttkrp_fused", "mttkrp_fused_compact"):
+        return kmt.pregathered_passes(operand, L["val"], L["lrow"], **kw)
+    inputs = tuple(f for w, f in enumerate(factors) if w != d)
+    remap = ((L["idx"], L["alpha"], smax, (d + 1) % len(factors))
+             if name == "mttkrp_fused_remap" else None)
+    return kmt.gather_passes(L["val"], L["lrow"], operand, inputs, **kw,
+                             remap=remap)
 
 
 def torch_ec(L, factors, d, plan, config, smax=None):
@@ -861,20 +997,24 @@ def check_new_kernels(kmt, state, L, factors, d, tag, names):
     return errs
 
 
-def new_byte_bound(name, L, plan, d, smax, n, rank):
-    """Bytes the function must move on this run's data: ``lrow`` for
-    every slot (it says which slots are alive), and for the alive slots
-    only ``val`` and either their pre-gathered operand rows
-    (``mttkrp_fused[_compact]``) or their ``lidx`` entries plus each
-    factor row in use once (the gather kernels); the block-start table;
-    ``out_rel`` written once; the remap adds the alive slots' ``idx`` and
-    ``alpha`` read and the whole next layout written."""
+def new_byte_bound(kmt, name, L, plan, d, smax, n, rank):
+    """Bytes the function must move on this run's data: the work table,
+    ``lrow`` for the blocks it lists (it says which slots are alive; under
+    rect the plan puts the pads past each partition's alive extent, which
+    the table leaves out), and for the alive slots only ``val`` and either
+    their pre-gathered operand rows (``mttkrp_fused[_compact]``) or their
+    ``lidx`` entries plus each factor row in use once (the gather
+    kernels); ``out_rel`` written once; the remap adds the alive slots'
+    ``idx`` and ``alpha`` read and the whole next layout written."""
     import torch
 
-    s = plan.padded_nnz
+    work = layout_work(kmt, L)
+    ch = work.chunks.cpu().long()
+    listed = int((ch[:, 2] - ch[:, 1]).sum()) * plan.block_p
     alive = L["lrow"] >= 0
     a = int(alive.sum())
-    b = 4 * (s + a + plan.kappa + 1 + plan.relabeled_rows * rank)
+    b = 4 * (4 * len(ch) + 2 * work.n_partials + listed + a
+             + plan.relabeled_rows * rank)
     rows_used = 0
     if name in ("mttkrp_fused", "mttkrp_fused_compact"):
         b += 4 * a * (n - 1) * rank
@@ -890,11 +1030,13 @@ def new_byte_bound(name, L, plan, d, smax, n, rank):
 def time_new_kernels(kmt, state, factors, names, reps, tag):
     """Per mode of one rotation: each kernel of ``names`` against its
     plain version (raising), then kernel, plain and ``torch`` backend
-    times (CUDA events; the ``cuda`` backend's PyTorch gather timed
-    apart), byte bound. Returns (rows, max |kernel - plain| per kernel)."""
+    times (CUDA events; the operand its backend builds in PyTorch, the
+    ``cuda`` backend's gather or rect ``cuda_fused``'s lidx table, timed
+    apart, and the kernel's main pass and second pass apart), byte bound
+    and the mode's work table (:func:`work_stats`). Returns (rows, max
+    |kernel - plain| per kernel)."""
     from repro_torch import engine
     from repro_torch.engine.api import mode_layout
-    from repro_torch.engine.backends import pregather
 
     n = state.nmodes
     rows, errs = [], dict.fromkeys(names, 0.0)
@@ -907,34 +1049,29 @@ def time_new_kernels(kmt, state, factors, names, reps, tag):
             errs[k] = max(errs[k], e)
         row = {"mode": d, "kappa": plan.kappa, "rows_pp": plan.rows_pp,
                "nblocks": plan.nblocks, "slots": plan.padded_nnz}
+        row["work"] = ws = work_stats(kmt, L, plan, RANK)
         for name in names:
             smax = state.smax if name == "mttkrp_fused_remap" else None
-            nbytes, rows_used, a = new_byte_bound(name, L, plan, d,
+            nbytes, rows_used, a = new_byte_bound(kmt, name, L, plan, d,
                                                   state.smax, n, RANK)
             flops = a * RANK * n
-            r = {}
-            if name in ("mttkrp_fused", "mttkrp_fused_compact"):
-                # the kernel's time excludes its operand's PyTorch gather
-                args = (pregather(L["idx"], factors, d), L["val"],
-                        L["lrow"])
-                kw = dict(kappa=plan.kappa, rows_pp=plan.rows_pp,
-                          block_p=plan.block_p, pstart=L["pstart"])
-                if name == "mttkrp_fused":
-                    kernel = functools.partial(kmt.mttkrp_fused, *args,
-                                               blocks_pp=plan.blocks_pp,
-                                               **kw)
-                else:
-                    kernel = functools.partial(
-                        kmt.mttkrp_fused_compact, *args, L["bpart"],
-                        nblocks=plan.nblocks, **kw)
-                args = None
-                r["gather_ms"] = cuda_ms(
-                    functools.partial(pregather, L["idx"], factors, d), reps)
-            else:
-                kernel = functools.partial(run_new, kmt, name, L, factors, d,
-                                           plan, state.smax)
+            # The kernel's time excludes the operand its backend builds in
+            # PyTorch (the pre-gathered rows, or the lidx table), timed
+            # apart.
+            operand = new_operand(name, L, factors, d)
+            key = ("gather_ms" if name in ("mttkrp_fused",
+                                           "mttkrp_fused_compact")
+                   else "lidx_ms")
+            r = {key: cuda_ms(functools.partial(new_operand, name, L,
+                                                factors, d), reps)}
+            kernel = functools.partial(run_new, kmt, name, L, factors, d,
+                                       plan, state.smax, operand=operand)
+            _, main, second = new_passes(kmt, name, L, factors, d, plan,
+                                         state.smax, operand)
             r.update({
                 "ms": cuda_ms(kernel, reps),
+                "main_ms": cuda_ms(main, reps),
+                "second_ms": cuda_ms(second, reps) if second else 0.0,
                 "plain_ms": cuda_ms(lambda: run_new(
                     kmt, name, L, factors, d, plan, state.smax,
                     plain=True), reps),
@@ -946,15 +1083,16 @@ def time_new_kernels(kmt, state, factors, names, reps, tag):
                                       flops / F32_FLOP_PER_S),
                 "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                              >= flops / F32_FLOP_PER_S else "operations")})
-            kernel = None   # frees the pre-gathered operand
+            r["passes_ms"] = r["main_ms"] + r["second_ms"]
+            kernel = main = second = operand = None  # frees the operand
             row[name] = r
-            log(f"[{tag}] mode {d} {name}: {r['ms']:.3f} ms (plain "
-                f"{r['plain_ms']:.3f}, torch backend "
-                f"{r['torch_backend_ms']:.3f}"
-                + (f", gather {r['gather_ms']:.3f}" if "gather_ms" in r
-                   else "")
-                + f", bound {r['bound_ms']:.4f}) | blocks {plan.nblocks} "
+            log(f"[{tag}] mode {d} {name}: {r['ms']:.3f} ms (main "
+                f"{r['main_ms']:.3f} + second pass {r['second_ms']:.3f}; "
+                f"plain {r['plain_ms']:.3f}, torch backend "
+                f"{r['torch_backend_ms']:.3f}, {key[:-3]} {r[key]:.3f}, "
+                f"bound {r['bound_ms']:.4f}) | blocks {plan.nblocks} "
                 f"kappa {plan.kappa} alive {a} of {plan.padded_nnz} slots")
+        log(f"[{tag}] mode {d} work: {work_line(ws)}")
         rows.append(row)
         _, state = engine.mttkrp(state, factors)
     return rows, errs
@@ -1003,14 +1141,15 @@ def check_rotation(tag, outs, oracle, state0, state1, n):
     return max(errs), max(shares)
 
 
-def phase_cuda_compact(kmt, coo, factors, oracle, torch_fits, report,
-                       reps):
+def phase_cuda_compact(kmt, coo, factors, oracle, torch_fits, witness3,
+                       report, reps):
     """[7] The plan-space path on the pre-gathered baseline at nell1 scale
     0.1 (the main path's full size): ``make_engine(coo, PlanSpec(backend=
     "cuda"), cache=PlanCache())``, one rotation against the oracle,
     ``cp_als`` under the spec's config against the ``torch`` backend's
-    fits of phase 3 (same data, plans and initial factors), then the
-    kernel's times."""
+    fits of phase 3 (same data, plans and initial factors) and against
+    phase 3's float64 witness (``witness3``), the work-table gate on the
+    kernel, then its times and work tables."""
     import torch
     from repro_torch import engine
     from repro_torch.core import PlanCache, cp_als
@@ -1029,6 +1168,7 @@ def phase_cuda_compact(kmt, coo, factors, oracle, torch_fits, report,
     res = cp_als(t, RANK, iters=3, config=spec.to_config(), factors=factors)
     torch.cuda.synchronize()
     launches = kmt.LAUNCHES["mttkrp_fused_compact"]
+    reduce_launches = kmt.LAUNCHES["mttkrp_balanced_reduce"]
     if launches == 0:
         raise AssertionError("the cuda backend never launched "
                              "mttkrp_fused_compact")
@@ -1042,13 +1182,21 @@ def phase_cuda_compact(kmt, coo, factors, oracle, torch_fits, report,
     log(f"[7] make_engine(PlanSpec(backend='cuda')): plan + init "
         f"{host_s:.1f} s, cache {cache.stats()}; all_modes == mttkrp_ref "
         f"(max err {err:.3e}, {share:.2e} of the limit); layout bitwise "
-        f"back; mttkrp_fused_compact launches {launches}; cp_als fits "
-        f"{res.fits} (max diff to torch backend {fit_diff:.2e})")
+        f"back; mttkrp_fused_compact launches {launches} (second pass "
+        f"{reduce_launches}); cp_als fits {res.fits} (max diff to torch "
+        f"backend {fit_diff:.2e})")
+    witness = fit_witness(t, spec.to_config(), None, prior=witness3)
+    log("[7] fits against the float64 witness, max over 3 sweeps "
+        "(seed: cuda-torch, cuda-f64, torch-f64): " + witness_line(witness))
+    tgate = table_gate(kmt, state0, factors, "mttkrp_fused_compact")
+    log(f"[7] work-table check: {tgate}")
     rows, errs = time_new_kernels(kmt, state0, factors,
                                   ("mttkrp_fused_compact",), reps, "7")
     report["cuda_compact"] = {"fits": res.fits, "fit_diff": fit_diff,
                               "max_err": err, "max_err_share": share,
                               "host_s": host_s, "cache": cache.stats(),
+                              "fit_witness": witness, "table_gate": tgate,
+                              "second_pass_launches": reduce_launches,
                               "times": rows}
     return rows, errs, {"mttkrp_fused_compact": launches}
 
@@ -1057,8 +1205,9 @@ def phase_rect(kmt, report, reps):
     """[8] The rect schedule at nell1 scale 0.01 through ``make_engine``:
     ``cuda_fused`` with the fused remap (``mttkrp_fused_remap``), without
     it (``mttkrp_fused_gather``), and ``cuda`` (``mttkrp_fused``), each
-    against the oracle with the layout bitwise back, then the kernels'
-    times.
+    against the oracle with the layout bitwise back, then the work-table
+    gate on ``mttkrp_fused_gather`` and the kernels' times and work tables
+    (each lists only the partitions' alive extents).
 
     Not at scale 0.1: rect pads every partition to the hottest one, so
     mode 2 there has 1.65G slots, and one resident layout (val + idx +
@@ -1109,30 +1258,35 @@ def phase_rect(kmt, report, reps):
         outs, state1 = engine.all_modes(state0, factors)
         torch.cuda.synchronize()
         launches[name] = kmt.LAUNCHES[name]
+        reduce_launches = kmt.LAUNCHES["mttkrp_balanced_reduce"]
         if launches[name] == 0:
             raise AssertionError(f"rect {backend} never launched {name}")
         err, share = check_rotation(f"[8] rect {name}", outs, oracle,
                                     state0, state1, n)
         log(f"[8] rect {backend} fuse_remap={fuse}: all_modes == "
             f"mttkrp_ref (max err {err:.3e}, {share:.2e} of the limit); "
-            f"layout bitwise back; {name} launches {launches[name]}; peak "
+            f"layout bitwise back; {name} launches {launches[name]} (second "
+            f"pass {reduce_launches}); peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         timing_state = timing_state or state0
         del outs, state1
+    tgate = table_gate(kmt, timing_state, factors, "mttkrp_fused_gather")
+    log(f"[8] work-table check: {tgate}")
     rows, errs = time_new_kernels(kmt, timing_state, factors, RECT_NEW, reps,
                                   "8")
     report["rect"] = {"dims": ts.dims, "nnz": len(values), "slots": sizes,
                       "layout_bytes": layout_b, "operand_bytes": operand_b,
-                      "cache": cache.stats(), "times": rows}
+                      "cache": cache.stats(), "table_gate": tgate,
+                      "times": rows}
     return coo, cache, rows, errs, launches
 
 
 def phase_autotune(coo, cache, report):
     """[9] ``autotune`` over backend x schedule x P x dedup at nell1 scale
-    0.01; ``measure`` is the CUDA-event ms of one ``all_modes`` (after a
-    warm-up rotation) of ``make_engine(coo, spec, cache=cache)``. The
-    hill-climb starts at the modeled pick, whose modeled cost must not
-    exceed the default's."""
+    0.01; ``measure`` is the median CUDA-event ms of ``MEASURE_REPS``
+    ``all_modes`` rotations (after a warm-up rotation) of
+    ``make_engine(coo, spec, cache=cache)``. The hill-climb starts at the
+    modeled pick, whose modeled cost must not exceed the default's."""
     import torch
     from repro_torch import engine
     from repro_torch.core import init_factors
@@ -1144,7 +1298,8 @@ def phase_autotune(coo, cache, report):
 
     def measure(spec):
         state = make_engine(coo, spec, cache=cache)
-        return cuda_ms(lambda: engine.all_modes(state, factors), 1)
+        return cuda_median_ms(lambda: engine.all_modes(state, factors),
+                              MEASURE_REPS)
 
     space = PlanSpace(backend=("cuda_fused", "cuda"),
                       schedule=("compact", "rect"), block_p=(64, 128, 256),
@@ -1740,7 +1895,7 @@ def kernels_record(per_kernel, launches, errs):
             "per": f"one rotation over the modes of {where}; library_ms "
                    "null: no single PyTorch call computes MTTKRP",
         }
-        for key in ("gather_ms", "main_ms", "second_ms"):
+        for key in ("gather_ms", "lidx_ms", "main_ms", "second_ms"):
             if key in per[0]:
                 rec[key] = sum(p[key] for p in per)
         out.append(rec)
@@ -1787,8 +1942,8 @@ def main(argv=None) -> int:
                            t.dims)
     del state0, t
     rows7, errs7, launches7 = phase_cuda_compact(
-        kmt, coo, factors, oracle, report["nell1"]["torch_fits"], report,
-        args.reps)
+        kmt, coo, factors, oracle, report["nell1"]["torch_fits"],
+        report["nell1"]["fit_witness"], report, args.reps)
     del oracle
     per_kernel["mttkrp_fused_compact"] = (rows7, nell1)
     coo8, cache8, rows8, errs8, launches8 = phase_rect(kmt, report,

@@ -3,8 +3,9 @@ CUDA card: the kernel against two variants of its own source that each
 skip one part of the work.
 
   base        ``src/repro_torch/kernels/csrc/mttkrp_balanced.cu`` as it is
-  no-compute  the slot loop skipped (metadata and factor-row copies,
-              barriers and the tile write-out only)
+  no-compute  the slot loop skipped (``warp_runs`` over rank 0: metadata
+              and factor-row copies, barriers and the tile write-out
+              only)
   no-rows     the factor-row copies skipped (the slot loop reads stale
               stage rows)
 
@@ -37,7 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 RANK = 32
-SLOT_LOOP = "for (int col = lane; col < r; col += 32) {"
+SLOT_LOOP = "warp_runs(acc, lrow, val, i0, i1, r, lane, [&](int s, int col) {"
 
 
 def variant_sources(src: str) -> dict[str, str]:
@@ -48,7 +49,7 @@ def variant_sources(src: str) -> dict[str, str]:
                            "variants replace")
     return {"base": src,
             "no-compute": src.replace(SLOT_LOOP, SLOT_LOOP.replace(
-                "col < r", "col < 0")),
+                "i1, r,", "i1, 0,")),
             "no-rows": src[:m.end()] + "  return;\n" + src[m.end():]}
 
 
@@ -64,7 +65,8 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
         cu.write_text(text)
         so = out_dir / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+             str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():

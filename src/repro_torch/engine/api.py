@@ -22,8 +22,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.mttkrp import (block_starts, default_cap,
-                                        remap_plain, work_chunks)
+from repro_torch.kernels.mttkrp import (WorkTable, block_starts,
+                                        default_cap, rect_work, remap_plain,
+                                        work_chunks)
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import span
 
@@ -90,9 +91,7 @@ def init(tensor, config: ExecutionConfig | None = None,
                 alpha=torch.from_numpy(alpha).to(dev),
                 relabel=tuple(torch.from_numpy(p.row_relabel).to(dev)
                               for p in tensor.plans),
-                sched=tuple(ModeSched(*(None if a is None
-                                        else torch.from_numpy(a).to(dev)
-                                        for a in s)) for s in sched),
+                sched=tuple(place_sched(s, dev) for s in sched),
                 mode=int(start_mode),
                 dims=tensor.dims,
                 statics=statics,
@@ -100,34 +99,64 @@ def init(tensor, config: ExecutionConfig | None = None,
             )
 
 
-def mode_sched_arrays(bpart, kappa: int, dedup=None):
-    """Host ``ModeSched`` fields as numpy arrays: ``bpart``, its
-    ``(kappa+1,)`` block-start table, and with the dedup tables also the
-    balanced kernels' work table (chunks of at most ``default_cap``
-    blocks); ``None`` where absent."""
+def mode_sched_arrays(bpart, kappa: int, dedup=None, work=None):
+    """Host ``ModeSched`` fields: ``bpart`` and its ``(kappa+1,)``
+    block-start table as numpy arrays, the dedup tables, and the kernels'
+    work table ``work`` (a host :class:`WorkTable`, kept as its sealed
+    tensors, see :func:`place_sched`); given the dedup tables and no
+    ``work``, the balanced kernels' table (chunks of at most
+    ``default_cap`` blocks); ``None`` where absent."""
     bpart = np.array(bpart, dtype=np.int32)   # a writable copy
     pstart = block_starts(torch.from_numpy(bpart), kappa).numpy()
-    if dedup is None:
-        return ModeSched(bpart=bpart, pstart=pstart)
-    uidx, upos, nuniq = dedup
-    work = work_chunks(pstart, default_cap(len(bpart)))
+    if dedup is not None and work is None:
+        work = work_chunks(pstart, default_cap(len(bpart)))
+    uidx, upos, nuniq = dedup if dedup is not None else (None,) * 3
     return ModeSched(bpart=bpart, pstart=pstart, uidx=uidx, upos=upos,
-                     nuniq=nuniq, work=work.chunks.numpy(),
-                     wsum=work.wsum.numpy())
+                     nuniq=nuniq,
+                     work=None if work is None else work.chunks,
+                     wsum=None if work is None else work.wsum)
+
+
+def place_sched(host: ModeSched, dev) -> ModeSched:
+    """``host`` (:func:`mode_sched_arrays`) on ``dev``: the arrays as
+    int32 tensors, the work table through :meth:`WorkTable.to`, which
+    keeps the seal that lets it reach a kernel."""
+    fields = {k: None if a is None
+              else torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
+              for k, a in host._asdict().items() if k not in ("work", "wsum")}
+    if host.work is None:
+        return ModeSched(**fields)
+    work = WorkTable(host.work, host.wsum).to(dev)
+    return ModeSched(**fields, work=work.chunks, wsum=work.wsum)
+
+
+def mode_work(plan) -> WorkTable:
+    """The kernels' work table of one mode's plan: under compact each
+    partition's blocks in chunks of at most ``default_cap(nblocks)``
+    (:func:`work_chunks`); under rect only each partition's alive extent
+    (:func:`rect_work`, checked against the plan's alive slots)."""
+    if plan.schedule == "rect":
+        return rect_work(plan.part_nnz, plan.blocks_pp, plan.block_p,
+                         plan.slot_of_elem)
+    pstart = block_starts(torch.from_numpy(plan.block_part), plan.kappa)
+    return work_chunks(pstart, default_cap(plan.nblocks))
 
 
 def _mode_sched(tensor, d: int, config: ExecutionConfig) -> ModeSched:
-    """Per-mode schedule tables (numpy): the block -> partition descriptor
+    """Per-mode schedule tables (host): the block -> partition descriptor
     and its block-start table always; the dedup tables only when the
-    backend consumes them (``needs_dedup``) under the compact schedule;
-    ``config.dedup=False`` installs the trivial tables."""
+    backend consumes them (``needs_dedup``) under the compact schedule
+    (``config.dedup=False`` installs the trivial tables); the work table
+    (:func:`mode_work`) when the backend's kernels take one
+    (``takes_work``), built here once so that no rotation syncs for it."""
     plan = tensor.plans[d]
+    backend = get_backend(config)
     dedup = None
-    if plan.schedule == "compact" and \
-            getattr(get_backend(config), "needs_dedup", False):
+    if plan.schedule == "compact" and getattr(backend, "needs_dedup", False):
         dedup = (tensor.dedup_tables(d) if config.dedup
                  else tensor.trivial_dedup_tables(d))
-    return mode_sched_arrays(plan.block_part, plan.kappa, dedup)
+    work = mode_work(plan) if getattr(backend, "takes_work", False) else None
+    return mode_sched_arrays(plan.block_part, plan.kappa, dedup, work)
 
 
 def as_flycoo(tensor, config: ExecutionConfig, cache=None):
@@ -238,4 +267,5 @@ def all_modes(state: EngineState, factors: Sequence[torch.Tensor], *,
 
 
 __all__ = ["init", "mttkrp", "all_modes", "reset_counters", "mode_layout",
-           "mode_sched_arrays", "as_flycoo", "DISPATCH_COUNTS", "FoldFn"]
+           "mode_sched_arrays", "place_sched", "mode_work", "as_flycoo",
+           "DISPATCH_COUNTS", "FoldFn"]

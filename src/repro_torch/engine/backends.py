@@ -7,10 +7,10 @@ The port of ``repro.engine.backends``. Every backend implements
 
 where ``layout`` holds the mode-``mode`` kernel layout slices (``val``,
 ``idx``, ``lrow``, ``alpha``) plus the mode's ``ModeSched`` tables
-(``bpart``, ``pstart`` and, for ``needs_dedup`` backends under the
-compact schedule, ``uidx``/``upos``/``nuniq`` and the work table
-``work``/``wsum``). The result lives in
-relabeled row space.
+(``bpart``, ``pstart``; for ``needs_dedup`` backends under the compact
+schedule ``uidx``/``upos``/``nuniq``; for ``takes_work`` backends the
+kernels' work table ``work``/``wsum``). The result lives in relabeled
+row space.
 
 A backend may expose ``fused_remap``,
 
@@ -29,18 +29,20 @@ both block schedules (``plan.schedule``):
   cuda        [pallas] the fusion baseline (paper Fig. 7): a PyTorch
               ``index_select`` + ``stack`` materializes the ``(S, N-1, R)``
               operand in device memory, then the hand-written Hopper
-              kernel ``kernels/csrc/mttkrp_pregathered.cu`` reduces it,
-              one CTA per partition
+              kernel ``kernels/csrc/mttkrp_pregathered.cu`` reduces it
   cuda_fused  [pallas_fused] hand-written Hopper kernels that gather their
-              factor rows into shared memory themselves and keep a
-              shared-memory accumulator; ``fused_remap`` adds the Alg. 3
-              scatter. Compact: ``kernels/csrc/mttkrp_balanced.cu``, one
-              CTA per chunk of at most ``cap`` blocks of a partition
-              (the ``work`` table), dedup-staged unique rows, a second
-              pass summing a split partition's partial tiles. Rect:
-              ``kernels/csrc/mttkrp_gather.cu``, one CTA per partition,
-              each alive slot's row
+              factor rows into shared memory themselves; ``fused_remap``
+              adds the Alg. 3 scatter. Compact:
+              ``kernels/csrc/mttkrp_balanced.cu``, dedup-staged unique
+              rows. Rect: ``kernels/csrc/mttkrp_gather.cu``, each alive
+              slot's rows
   ==========  ============================================================
+
+Every kernel of ``cuda`` and ``cuda_fused`` gives one CTA to each chunk
+of at most ``cap`` blocks of a partition (the ``work`` table, built once
+per mode by ``engine.init``; under rect it lists only each partition's
+alive blocks) and keeps a shared-memory accumulator; a second pass sums
+a split partition's partial tiles.
 """
 from __future__ import annotations
 
@@ -168,16 +170,23 @@ def ec_cuda(layout, factors, mode: int, *, plan: ModeStatic,
         return kmt.mttkrp_fused_compact(
             gathered, layout["val"], layout["lrow"], layout["bpart"],
             kappa=plan.kappa, rows_pp=plan.rows_pp, nblocks=plan.nblocks,
-            block_p=plan.block_p, pstart=layout.get("pstart"))
+            block_p=plan.block_p, pstart=layout.get("pstart"),
+            work=_work(layout))
     return kmt.mttkrp_fused(
         gathered, layout["val"], layout["lrow"], kappa=plan.kappa,
         rows_pp=plan.rows_pp, blocks_pp=plan.blocks_pp, block_p=plan.block_p,
-        pstart=layout.get("pstart"))
+        pstart=layout.get("pstart"), work=_work(layout))
+
+
+# engine.init builds each mode's work table for backends whose kernels
+# take one.
+ec_cuda.takes_work = True
 
 
 def _work(layout):
     """The mode's :class:`~repro_torch.kernels.mttkrp.WorkTable`, if the
-    layout carries one (``engine.init`` builds it for ``cuda_fused``)."""
+    layout carries one (``engine.init`` builds it for ``takes_work``
+    backends)."""
     if layout.get("work") is None:
         return None
     return kmt.WorkTable(layout["work"], layout["wsum"])
@@ -194,8 +203,7 @@ def fused_lidx(idx, mode: int) -> torch.Tensor:
 def ec_cuda_fused(layout, factors, mode: int, *, plan: ModeStatic,
                   config: ExecutionConfig) -> torch.Tensor:
     """The in-kernel gather EC: ``mttkrp_fused_gather_compact`` (dedup-
-    staged, balanced over the ``work`` table) or ``mttkrp_fused_gather``
-    (rect)."""
+    staged) or ``mttkrp_fused_gather`` (rect), on the ``work`` table."""
     inputs = _inputs(factors, mode)
     if plan.schedule == "compact":
         return kmt.mttkrp_fused_gather_compact(
@@ -208,7 +216,7 @@ def ec_cuda_fused(layout, factors, mode: int, *, plan: ModeStatic,
         layout["val"], layout["lrow"], fused_lidx(layout["idx"], mode),
         inputs, kappa=plan.kappa, rows_pp=plan.rows_pp,
         blocks_pp=plan.blocks_pp, block_p=plan.block_p,
-        pstart=layout.get("pstart"))
+        pstart=layout.get("pstart"), work=_work(layout))
 
 
 def _cuda_fused_remap(layout, factors, mode: int, *, plan: ModeStatic,
@@ -230,13 +238,14 @@ def _cuda_fused_remap(layout, factors, mode: int, *, plan: ModeStatic,
             fused_lidx(layout["idx"], mode), inputs, kappa=plan.kappa,
             rows_pp=plan.rows_pp, blocks_pp=plan.blocks_pp,
             block_p=plan.block_p, smax=smax, next_mode=next_mode,
-            pstart=layout.get("pstart"))
+            pstart=layout.get("pstart"), work=_work(layout))
     return out_rel, (nval, nidx, nalpha)
 
 
 ec_cuda_fused.fused_remap = _cuda_fused_remap
 # engine.init builds the dedup tables only for backends that consume them.
 ec_cuda_fused.needs_dedup = True
+ec_cuda_fused.takes_work = True
 
 
 __all__ = ["BACKENDS", "register_backend", "get_backend", "compute_lrow",

@@ -55,23 +55,29 @@ class ModeSched(NamedTuple):
 
       bpart   (nblocks,)       block -> partition descriptor (both schedules)
       pstart  (kappa+1,)       first block of each partition (+ nblocks):
-                               the rect and pre-gathered kernels give one
-                               CTA the blocks [pstart[j], pstart[j+1])
+                               a kernel called without a work table
+                               derives the full-range one from it
       uidx    (N-1, S_d)       per-block unique factor rows, front-compacted
       upos    (S_d, N-1)       per-slot stage position among the uniques
       nuniq   (N-1, nblocks)   per-block unique-row counts
-      work    (nchunks, 4)     the balanced kernels' chunks: partition,
-                               first block, end block, partial index (-1:
-                               a whole partition, written to out_rel)
+      work    (nchunks, 4)     the kernels' chunks: partition, first
+                               block, end block, partial index (-1: a
+                               whole partition, written to out_rel)
       wsum    (n_partials, 2)  per partial: (partition, partial count) at
                                a split partition's first partial, else
                                (-1, 0); ``work`` and ``wsum`` together are
-                               a ``kernels.mttkrp.WorkTable``, built from
-                               ``pstart`` on the host once per mode
+                               a ``kernels.mttkrp.WorkTable``, built and
+                               sealed on the host once per mode
+                               (``engine.api.mode_work``): compact, each
+                               partition's blocks in chunks of at most
+                               ``default_cap(nblocks)``; rect, only each
+                               partition's alive extent, at
+                               ``default_cap`` of the alive blocks
 
-    The dedup tables and the work table exist only for backends that
-    consume them (``needs_dedup``) under the compact schedule; ``None``
-    otherwise.
+    The dedup tables exist only for backends that consume them
+    (``needs_dedup``) under the compact schedule, the work table only for
+    backends whose kernels take one (``takes_work``: ``cuda`` and
+    ``cuda_fused``, both schedules); ``None`` otherwise.
     """
 
     bpart: torch.Tensor

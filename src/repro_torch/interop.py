@@ -11,9 +11,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.engine.api import mode_sched_arrays
+from repro_torch.engine.api import mode_sched_arrays, place_sched
 from repro_torch.engine.config import ExecutionConfig
-from repro_torch.engine.state import EngineState, ModeSched, ModeStatic
+from repro_torch.engine.state import EngineState, ModeStatic
 
 
 def _to(a, dtype, device) -> torch.Tensor:
@@ -64,7 +64,10 @@ def state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
     per-mode relabel tables, ``sched`` per mode the reference
     ``ModeSched`` fields ``(bpart, uidx, upos, nuniq)`` (the dedup tables
     ``None`` where absent), ``statics`` per mode the ``ModeStatic`` fields
-    in order. The block-start table is derived from ``bpart`` here.
+    in order. The block-start table is derived from ``bpart`` here, and
+    with the dedup tables the balanced kernels' work table; other kernels
+    derive theirs from ``pstart`` at each call (the reference's state
+    has no plan to build a rect table from).
     """
     config = config or ExecutionConfig()
     dev = config.torch_device
@@ -74,9 +77,8 @@ def state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
         bpart, *dedup = s
         dedup = None if dedup[0] is None else tuple(np.asarray(a)
                                                     for a in dedup)
-        host = mode_sched_arrays(np.asarray(bpart), st.kappa, dedup)
-        tables.append(ModeSched(*(None if a is None else _to(a, np.int32, dev)
-                                  for a in host)))
+        tables.append(place_sched(
+            mode_sched_arrays(np.asarray(bpart), st.kappa, dedup), dev))
     return EngineState(
         val=_to(val, np.float32, dev), idx=_to(idx, np.int32, dev),
         alpha=_to(alpha, np.int32, dev),

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library that ``ctypes`` loads — no
-PyTorch headers, so a build takes seconds. Libraries are built at first
-CUDA use from the sources in this package, into ``_build/`` beside this
-file (ignored by git), and named by a hash of source and flags, so an
-edited source is rebuilt and an unchanged one is not.
+PyTorch headers, so a build takes seconds. The spMTTKRP sources share
+``csrc/chunk_walk.cuh``. Libraries are built at first CUDA use from the
+sources in this package, into ``_build/`` beside this file (ignored by
+git), and named by a hash of source, headers and flags, so an edited
+source is rebuilt and an unchanged one is not.
 
 Nothing here runs at import: the CPU tests import every module on a
 machine with neither ``nvcc`` nor a card.
@@ -28,7 +29,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 # name -> C signatures (restype, argtypes) to declare on load.
 SIGNATURES = {
     "mttkrp_gather": {
-        "mttkrp_gather_launch": (_I, [_VP] * 5 + [_I] * 6 + [_VP] * 3
+        "mttkrp_gather_launch": (_I, [_VP] * 5 + [_I] * 10 + [_VP] * 4
                                  + [_I] * 2 + [_VP] * 4),
     },
     "mttkrp_balanced": {
@@ -38,7 +39,8 @@ SIGNATURES = {
                                           + [_VP] * 2),
     },
     "mttkrp_pregathered": {
-        "mttkrp_pregathered_launch": (_I, [_VP] * 4 + [_I] * 5 + [_VP] * 2),
+        "mttkrp_pregathered_launch": (_I, [_VP] * 4 + [_I] * 10
+                                      + [_VP] * 3),
     },
     "wkv6": {
         "wkv6_launch": (_I, [_VP] * 6 + [_I] * 4 + [_VP]),
@@ -69,10 +71,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    """The library's path, keyed by its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    key = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        key.update(src.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:

@@ -69,63 +69,11 @@
 //   refuses one that differs. ExecutionConfig.resolve_rows_pp sizes
 //   rows_pp from it.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "chunk_walk.cuh"
 
 namespace {
 
-constexpr int kMaxInputs = 8;   // input factors per launch: nmodes <= 9
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kReduceThreads = 256;
-
-struct FactorPtrs {
-  const float* p[kMaxInputs];
-};
-
-__host__ __device__ constexpr int a4(int x) { return (x + 3) & ~3; }
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// n 4-byte words global -> shared, spread over the CTA; 16-byte copies
-// where both ends are 16-byte aligned and n is a multiple of 4 (the same
-// for every thread, so the branch does not diverge).
-__device__ __forceinline__ void copy_words(int* dst, const int* src, int n,
-                                           int tid) {
-  const bool vec = (((reinterpret_cast<uintptr_t>(src) | smem_u32(dst)) &
-                     15) == 0) && (n & 3) == 0;
-  if (vec) {
-    for (int t = tid; t < (n >> 2); t += kThreads) {
-      cp_async16(dst + 4 * t, src + 4 * t);
-    }
-  } else {
-    for (int t = tid; t < n; t += kThreads) cp_async4(dst + t, src + t);
-  }
-}
 
 // Word offsets of one block's metadata buffer.
 struct MetaLayout {
@@ -222,27 +170,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* acc = stage + a4(nm1 * p * r);
   const int tile = a.rows_pp * r;
 
-  const int* c = a.work + 4 * static_cast<long long>(blockIdx.x);
-  const int part = c[0], b0 = c[1], b1 = c[2], partial = c[3];
-  // A malformed row touches no memory (work_from_chunks checks the table).
-  if (part < 0 || part >= a.kappa || b0 < 0 || b1 < b0 ||
-      b1 > a.nblocks || partial >= a.n_partials) {
-    return;
-  }
-  const int nb = b1 - b0;
+  const Chunk c = chunk_row(a.work, blockIdx.x, a.kappa, a.nblocks,
+                            a.n_partials);
+  const int b0 = c.b0;
+  const int nb = c.b1 - c.b0;
+  zero_tile(acc, tile, tid);
 
-  if ((tile & 3) == 0) {
-    float4* acc4 = reinterpret_cast<float4*>(acc);
-    for (int t = tid; t < (tile >> 2); t += kThreads) {
-      acc4[t] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-    for (int t = tid; t < tile; t += kThreads) acc[t] = 0.f;
-  }
-
-  const int lane = tid & 31, wid = tid >> 5;
-  const int spw = (p + kWarps - 1) / kWarps;   // slots a warp
-  const int i0 = min(p, wid * spw), i1 = min(p, i0 + spw);
+  const int lane = tid & 31;
+  int i0, i1;
+  warp_slots(p, tid >> 5, i0, i1);
   if (nb > 0) load_meta<REMAP>(a, ml, meta, b0, tid);
   cp_commit();
   for (int i = 0; i < nb; ++i) {
@@ -260,65 +196,27 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     cp_commit();
     if (REMAP) {
-      // Alg. 3: the destinations are a permutation of the alive slots, so
-      // the copies need no atomics; pads (alpha[i, next] < 0) stay put.
-      // They read only block i's metadata, so they run while its factor
-      // rows are in flight.
-      const int n = a.nmodes;
-      const int* idx = m + ml.idx;
-      const int* alpha = m + ml.alpha;
-      for (int t = tid; t < p * n; t += kThreads) {
-        const int s = t / n;
-        const int mm = t - s * n;
-        const int d = alpha[s * n + a.next_mode];
-        if (d < 0) continue;
-        const long long dst = static_cast<long long>(d) * n + mm;
-        a.nidx[dst] = idx[t];
-        a.nalpha[dst] = alpha[t];
-        if (mm == 0) a.nval[d] = val[s];
-      }
+      // It reads only block i's metadata, so it runs while the block's
+      // factor rows are in flight.
+      remap_scatter(m + ml.idx, m + ml.alpha, val, p, a.nmodes, a.next_mode,
+                    a.nval, a.nidx, a.nalpha, tid);
     }
     cp_wait<1>();          // rows(i) have landed
     __syncthreads();
 
-    // A warp takes a run of consecutive slots, one rank column a lane,
-    // and sums in a register while the row stays the same.
-    for (int col = lane; col < r; col += 32) {
-      int cur = -1;
-      float sum = 0.f;
-      for (int s = i0; s < i1; ++s) {
-        const int lr = lrow[s];
-        if (lr < 0) continue;
-        const int* up = upos + s * nm1;
-        float prod = stage[up[0] * r + col];
-        for (int w = 1; w < nm1; ++w) {
-          prod *= stage[w * p * r + up[w] * r + col];
-        }
-        const float term = prod * val[s];
-        if (lr == cur) {
-          sum += term;
-        } else {
-          if (cur >= 0) atomicAdd(&acc[cur * r + col], sum);
-          cur = lr;
-          sum = term;
-        }
+    warp_runs(acc, lrow, val, i0, i1, r, lane, [&](int s, int col) {
+      const int* up = upos + s * nm1;
+      float prod = stage[up[0] * r + col];
+      for (int w = 1; w < nm1; ++w) {
+        prod *= stage[w * p * r + up[w] * r + col];
       }
-      if (cur >= 0) atomicAdd(&acc[cur * r + col], sum);
-    }
+      return prod;
+    });
   }
   cp_wait<0>();
   __syncthreads();
 
-  float* dst = partial < 0
-                   ? a.out + static_cast<long long>(part) * tile
-                   : a.partials + static_cast<long long>(partial) * tile;
-  if ((tile & 3) == 0) {
-    const float4* acc4 = reinterpret_cast<const float4*>(acc);
-    float4* dst4 = reinterpret_cast<float4*>(dst);
-    for (int t = tid; t < (tile >> 2); t += kThreads) dst4[t] = acc4[t];
-  } else {
-    for (int t = tid; t < tile; t += kThreads) dst[t] = acc[t];
-  }
+  write_tile(acc, tile, c, a.out, a.partials, tid);
 }
 
 // The second pass: for each split partition, out_rel's rows are the sum of
@@ -334,9 +232,10 @@ __global__ void __launch_bounds__(kReduceThreads)
                                   float* __restrict__ out) {
   const int q = blockIdx.x;
   const int part = wsum[2 * q], count = wsum[2 * q + 1];
-  if (count <= 0 || part < 0 || part >= kappa || q + count > n_partials) {
-    return;
-  }
+  if (count <= 0) return;   // not the first partial of a split partition
+  // A malformed head (check_work refuses one on the host) traps rather
+  // than leaving the partition's rows of out_rel unwritten.
+  if (part < 0 || part >= kappa || q + count > n_partials) __trap();
   const long long t =
       static_cast<long long>(blockIdx.y) * kReduceThreads + threadIdx.x;
   if (VEC) {

@@ -359,10 +359,18 @@ def _meta_args(rows_pp=4, nm1=2, r=32):
 
 def _meta_work(chunks=((0, 0, 1, -1), (1, 1, 2, -1)), wsum=(),
                dtype=torch.int32):
+    """A table built by hand (never checked) on meta tensors."""
     return kmt.WorkTable(torch.tensor(chunks, dtype=dtype).reshape(-1, 4)
                          .to("meta"),
                          torch.tensor(wsum, dtype=torch.int32)
                          .reshape(-1, 2).to("meta"))
+
+
+def _checked_meta_work():
+    """``_meta_work()``'s table as ``work_chunks`` builds it for the plan
+    of ``_meta_args`` (2 partitions of 1 block), checked and sealed, moved
+    to meta tensors."""
+    return kmt.work_chunks(np.array([0, 1, 2]), 1).to("meta")
 
 
 @pytest.mark.parametrize("table,err,match", [
@@ -386,7 +394,8 @@ def _meta_work(chunks=((0, 0, 1, -1), (1, 1, 2, -1)), wsum=(),
 def test_wrappers_refuse_a_malformed_work_table(table, err, match, remap):
     """Off the CPU the balanced wrappers check the table before the
     device (so meta tensors reach the check), then refuse to run
-    anything but CUDA tensors; nothing falls back or launches."""
+    anything but CUDA tensors, even with a checked table; nothing falls
+    back or launches."""
     args, kw = _meta_args()
     before = dict(kmt.LAUNCHES)
     val, idx, alpha, lrow, upos, bpart, uidx, nuniq, facs = args
@@ -397,7 +406,7 @@ def test_wrappers_refuse_a_malformed_work_table(table, err, match, remap):
     with pytest.raises(err, match=match):
         call(table())
     with pytest.raises(ValueError, match="CUDA tensors"):
-        call(_meta_work())
+        call(_checked_meta_work())
     assert kmt.LAUNCHES == before
 
 
@@ -408,13 +417,17 @@ def test_plan_tile_and_launch_check_share_one_formula(nmodes, rank,
                                                       block_p):
     """``resolve_rows_pp`` fills the shared memory of the balanced kernel
     with the remap exactly: its rows fit and not one row more; without
-    the remap they fit too."""
+    the remap they fit too, and so do the rect gather kernels' and the
+    pre-gathered kernel's buffers."""
     cfg = ExecutionConfig(device="cpu", rank_hint=rank, block_p=block_p)
     rows = cfg.resolve_rows_pp(nmodes)
     nm1 = nmodes - 1
     need = kmt.balanced_smem_bytes(rows, rank, nm1, block_p, nmodes)
     assert need <= SMEM_PER_BLOCK < need + 4 * rank
     assert kmt.balanced_smem_bytes(rows, rank, nm1, block_p, 0) <= need
+    for m in (0, nmodes):
+        assert kmt.gather_smem_bytes(rows, rank, nm1, block_p, m) <= need
+    assert kmt.pregathered_smem_bytes(rows, rank, nm1, block_p) <= need
 
 
 @pytest.mark.parametrize("rank", [8, 32])
@@ -425,17 +438,21 @@ def test_wrapper_tile_limit_is_the_one_stage_formula(rank):
             ) // (4 * rank)
     args, kw = _meta_args(rows_pp=rows, r=rank)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kmt.mttkrp_fused_remap_compact(*args, **kw, work=_meta_work())
+        kmt.mttkrp_fused_remap_compact(*args, **kw,
+                                       work=_checked_meta_work())
     args, kw = _meta_args(rows_pp=rows + 1, r=rank)
     with pytest.raises(ValueError, match="does not fit"):
-        kmt.mttkrp_fused_remap_compact(*args, **kw, work=_meta_work())
+        kmt.mttkrp_fused_remap_compact(*args, **kw,
+                                       work=_checked_meta_work())
 
 
 @pytest.mark.parametrize("backend,has_work", [("cuda_fused", True),
-                                              ("torch", False)])
+                                              ("torch", False),
+                                              ("cuda", True)])
 def test_engine_init_builds_the_work_table(backend, has_work):
     """``engine.init`` keeps each mode's work table (chunks of at most
-    ``default_cap`` blocks) only for the backend that consumes it."""
+    ``default_cap`` blocks) only for the backends whose kernels take one;
+    under compact ``cuda`` takes the balanced kernels' table."""
     t = TENSORS["zipf-hot"]
     state = engine.init(t, ExecutionConfig(backend=backend, device="cpu"))
     for p, s in zip(t.plans, state.sched):

@@ -1,7 +1,10 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions (the compact in-kernel gather pair on the balanced kernels of
 ``csrc/mttkrp_balanced.cu``, with work tables that split every
-partition, none or only the hot one), the ``cuda_fused`` and ``cuda``
+partition, none or only the hot one; the pre-gathered and rect kernels
+on the engine's tables and on tables that split every block or nothing,
+against the plain versions of their schedule and with mutant tables; an
+unchecked table refused by every wrapper), the ``cuda_fused`` and ``cuda``
 rotations (both schedules) against the COO oracle, CPD on the card, the
 RWKV-6 ``forward`` on the ``wkv6`` kernel and the RecurrentGemma
 ``forward`` on the ``lru_scan`` kernel. Every test is marked
@@ -386,6 +389,235 @@ def test_cuda_rect_and_pregathered_kernels_match_plain(cuda, kappa,
     torch.testing.assert_close(
         kmt.mttkrp_fused_plain(a["gathered"], a["val"], a["lrow"], **rect),
         want[0], **TOL)
+
+
+NEW = ("mttkrp_fused", "mttkrp_fused_compact", "mttkrp_fused_gather",
+       "mttkrp_fused_remap")
+
+
+def _new_case(name, cuda, d=0):
+    """Mode ``d`` of :func:`_hot_tensor` as ``engine.init`` lays it out
+    for kernel ``name``'s backend: rect ``cuda_fused`` for the rect
+    kernels (``mttkrp_fused`` runs on the same layout and table), compact
+    ``cuda`` for ``mttkrp_fused_compact``. Returns the state, the layout,
+    the factors and the plan."""
+    schedule = "compact" if name == "mttkrp_fused_compact" else "rect"
+    t = zipf_tensor((400, 300, 200), 30000, a=2.0, seed=4, rows_pp=16,
+                    block_p=32, schedule=schedule)
+    backend = "cuda" if schedule == "compact" else "cuda_fused"
+    state = engine.init(t, ExecutionConfig(backend=backend), start_mode=d)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    facs = [torch.randn((n, 32), generator=g, device="cuda")
+            for n in t.dims]
+    L = mode_layout(state, (state.val, state.idx, state.alpha), d)
+    return state, L, facs, t.plans[d]
+
+
+def _new_run(name, state, L, facs, d, how, work=None):
+    """Kernel ``name`` on ``work`` (``how="kernel"``), its plain version
+    (``"plain"``) or the plain version of its schedule on ``work``
+    (``"chunked"``)."""
+    from repro_torch.engine.backends import fused_lidx, pregather
+
+    plan = state.statics[d]
+    inputs = tuple(f for w, f in enumerate(facs) if w != d)
+    rect = dict(kappa=plan.kappa, rows_pp=plan.rows_pp,
+                blocks_pp=plan.blocks_pp, block_p=plan.block_p)
+    sched = dict(kappa=plan.kappa, rows_pp=plan.rows_pp,
+                 block_p=plan.block_p, work=work)
+    extra = {"work": work} if how == "kernel" else {}
+    fn = getattr(kmt, name + ("_plain" if how == "plain" else ""))
+    remap = (L["idx"], L["alpha"], state.smax, (d + 1) % len(facs))
+    if name in ("mttkrp_fused", "mttkrp_fused_compact"):
+        g = pregather(L["idx"], facs, d)
+        if how == "chunked":
+            return kmt.chunked_plain_pregathered(g, L["val"], L["lrow"],
+                                                 **sched)
+        if name == "mttkrp_fused":
+            return fn(g, L["val"], L["lrow"], **rect, **extra)
+        return fn(g, L["val"], L["lrow"], L["bpart"], kappa=plan.kappa,
+                  rows_pp=plan.rows_pp, nblocks=plan.nblocks,
+                  block_p=plan.block_p, **extra)
+    lidx = fused_lidx(L["idx"], d)
+    if how == "chunked":
+        return kmt.chunked_plain_gather(
+            L["val"], L["lrow"], lidx, inputs, **sched,
+            remap=remap if name == "mttkrp_fused_remap" else None)
+    if name == "mttkrp_fused_gather":
+        return fn(L["val"], L["lrow"], lidx, inputs, **rect, **extra)
+    return fn(L["val"], L["idx"], L["alpha"], L["lrow"], lidx, inputs,
+              smax=remap[2], next_mode=remap[3], **rect, **extra)
+
+
+def _new_table(split, L, plan):
+    """The state's table, or the same blocks cut into chunks of one
+    block (``every``) or not cut at all (``none``)."""
+    if split == "state":
+        return kmt.WorkTable(L["work"], L["wsum"])
+    ps = L["pstart"].cpu().numpy()
+    if plan.schedule == "rect":
+        begin = ps[:-1]
+        end = begin + -(-plan.part_nnz // plan.block_p)
+    else:
+        begin, end = ps[:-1], ps[1:]
+    cap = 1 if split == "every" else int((end - begin).max())
+    return kmt.work_from_chunks(kmt.split_ranges(begin, end, cap),
+                                ps).to(L["val"].device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("split", ["state", "every", "none"])
+def test_new_kernels_match_plain_and_their_schedule(cuda, name, split):
+    """The pre-gathered kernel (both schedules) and the rect gather pair
+    (``csrc/mttkrp_pregathered.cu``, ``csrc/mttkrp_gather.cu``) on the
+    engine's table (under rect, only the alive extents), on one that cuts
+    every block apart, and on one that splits nothing: each against its
+    plain version and against the plain version of its schedule on the
+    same table, the remap bitwise; one launch each, and the second pass
+    once where a partition is split."""
+    state, L, facs, plan = _new_case(name, cuda)
+    work = _new_table(split, L, plan)
+    nsplit = int((work.wsum[:, 1] > 0).sum())
+    assert (nsplit > 0) == (split != "none")
+    before = dict(kmt.LAUNCHES)
+    got = _new_run(name, state, L, facs, 0, "kernel", work)
+    want = _new_run(name, state, L, facs, 0, "plain")
+    chunked = _new_run(name, state, L, facs, 0, "chunked", work)
+    torch.cuda.synchronize()
+    assert kmt.LAUNCHES[name] == before[name] + 1
+    assert (kmt.LAUNCHES["mttkrp_balanced_reduce"]
+            == before["mttkrp_balanced_reduce"] + (nsplit > 0))
+    if name == "mttkrp_fused_remap":
+        for g, w, c in zip(got[1:], want[1:], chunked[1:]):
+            assert torch.equal(g, w) and torch.equal(c, w)
+        got, want, chunked = got[0], want[0], chunked[0]
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(chunked, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("mutant", ["drop", "repeat"])
+def test_new_kernels_follow_their_table(cuda, name, mutant):
+    """A table that drops one of the hot partition's chunks, or lists one
+    twice: the kernel does what the table says (the plain version of its
+    schedule on the same table), and the hot partition's rows then miss
+    the plain version's, so a check against it catches the table."""
+    state, L, facs, plan = _new_case(name, cuda)
+    hot = int(plan.part_nnz.argmax())
+    c = L["work"].cpu().numpy()[:, :3].astype(np.int64)
+    chunks = c[np.lexsort((c[:, 1], c[:, 0]))]
+    row = np.flatnonzero(chunks[:, 0] == hot)[1]
+    chunks = (np.delete(chunks, row, 0) if mutant == "drop"
+              else np.insert(chunks, row, chunks[row], 0))
+    work = kmt.work_from_chunks(chunks, L["pstart"].cpu().numpy()).to(cuda)
+    got, want, chunked = (_new_run(name, state, L, facs, 0, how, work)
+                          for how in ("kernel", "plain", "chunked"))
+    if name == "mttkrp_fused_remap":   # out_rel only
+        got, want, chunked = got[0], want[0], chunked[0]
+    torch.testing.assert_close(got, chunked, **TOL)
+    rows = slice(hot * plan.rows_pp, (hot + 1) * plan.rows_pp)
+    assert not torch.allclose(got[rows], want[rows], **TOL)
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=cuda)
+    keep[rows] = False
+    torch.testing.assert_close(got[keep], want[keep], **TOL)
+
+
+# Hand-built tables for a 2-partition, 2-block plan, each with one fault
+# that check_work refuses, in a well-formed shape.
+UNCHECKED = {
+    "partition out of range": ((0, 0, 1, -1), (2, 1, 2, -1)),
+    "blocks outside their partition": ((0, 0, 2, -1), (1, 1, 2, -1)),
+    "partition missing": ((0, 0, 1, -1), (0, 1, 2, -1)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(UNCHECKED))
+def test_wrappers_refuse_an_unchecked_table_on_the_card(cuda, fault):
+    """On the card every wrapper that takes ``work=`` refuses a table that
+    never passed ``check_work`` before any launch, whatever its fault;
+    the same wrappers run on the checked table of the same plan."""
+    a, kw = _rect_case(41, 2, 1, 8, 2, 8)
+    a = {k: (tuple(f.to(cuda) for f in v) if k == "facs" else v.to(cuda))
+         for k, v in a.items()}
+    rect = {k: kw[k] for k in ("kappa", "rows_pp", "blocks_pp", "block_p")}
+    comp = dict(kappa=2, rows_pp=kw["rows_pp"], nblocks=2, block_p=8)
+    args, ckw = _kernel_case(43, (1, 1), 8, 2, 8)
+    args = tuple(x.to(cuda) if torch.is_tensor(x)
+                 else tuple(f.to(cuda) for f in x) for x in args)
+    val, idx, alpha, lrow, upos, bpart, uidx, nuniq, facs = args
+    gkw = {k: ckw[k] for k in ("kappa", "rows_pp", "nblocks", "block_p")}
+    remap = (a["val"], a["idx"], a["alpha"], a["lrow"], a["lidx"], a["facs"])
+    calls = {
+        "mttkrp_fused": lambda w: kmt.mttkrp_fused(
+            a["gathered"], a["val"], a["lrow"], **rect, work=w),
+        "mttkrp_fused_compact": lambda w: kmt.mttkrp_fused_compact(
+            a["gathered"], a["val"], a["lrow"], a["bpart"], **comp, work=w),
+        "mttkrp_fused_gather": lambda w: kmt.mttkrp_fused_gather(
+            a["val"], a["lrow"], a["lidx"], a["facs"], **rect, work=w),
+        "mttkrp_fused_remap": lambda w: kmt.mttkrp_fused_remap(
+            *remap, **kw, work=w),
+        "mttkrp_fused_gather_compact": lambda w:
+            kmt.mttkrp_fused_gather_compact(val, lrow, upos, bpart, uidx,
+                                            nuniq, facs, **gkw, work=w),
+        "mttkrp_fused_remap_compact": lambda w:
+            kmt.mttkrp_fused_remap_compact(*args, **ckw, work=w)}
+    bad = kmt.WorkTable(
+        torch.tensor(UNCHECKED[fault], dtype=torch.int32, device=cuda),
+        torch.zeros((0, 2), dtype=torch.int32, device=cuda))
+    before = dict(kmt.LAUNCHES)
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="check_work passed"):
+            call(bad)
+    torch.cuda.synchronize()
+    assert kmt.LAUNCHES == before
+    good = kmt.work_chunks(np.array([0, 1, 2]), 1).to(cuda)
+    for name, call in calls.items():
+        call(good)
+        assert kmt.LAUNCHES[name] == before[name] + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,schedule,fuse,name", [
+    ("cuda", "compact", True, "mttkrp_fused_compact"),
+    ("cuda", "rect", True, "mttkrp_fused"),
+    ("cuda_fused", "rect", True, "mttkrp_fused_remap"),
+    ("cuda_fused", "rect", False, "mttkrp_fused_gather")])
+def test_engine_rotation_uses_the_state_table_for_cuda_and_rect(
+        cuda, monkeypatch, backend, schedule, fuse, name):
+    """``engine.init`` keeps the ``cuda`` and rect tables on the card, and
+    the rotation launches the kernel (and the second pass) with them,
+    never deriving one (no host sync); the outputs match ``mttkrp_ref``
+    and the layout comes back bitwise."""
+    t = zipf_tensor((400, 300, 200), 30000, a=2.0, seed=4, rows_pp=16,
+                    block_p=32, schedule=schedule)
+    state = engine.init(t, ExecutionConfig(backend=backend,
+                                           fuse_remap=fuse))
+    assert all(s.work.is_cuda and s.wsum.is_cuda for s in state.sched)
+
+    def derive(*a, **k):
+        raise AssertionError("the engine path derived a work table")
+
+    monkeypatch.setattr(kmt, "work_chunks", derive)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    facs = [torch.randn((d, 32), generator=g, device="cuda") for d in t.dims]
+    before = dict(kmt.LAUNCHES)
+    outs, nxt = engine.all_modes(state, facs)
+    torch.cuda.synchronize()
+    assert kmt.LAUNCHES[name] == before[name] + 3
+    assert (kmt.LAUNCHES["mttkrp_balanced_reduce"]
+            == before["mttkrp_balanced_reduce"]
+            + sum(s.wsum.shape[0] > 0 for s in state.sched))
+    ti = torch.from_numpy(t.indices).to(cuda)
+    tv = torch.from_numpy(t.values).to(cuda)
+    for d in range(3):
+        torch.testing.assert_close(
+            outs[d], mttkrp_ref(ti, tv, facs, d, t.dims[d]), **TOL)
+    for a in ("val", "idx", "alpha"):
+        assert torch.equal(getattr(nxt, a), getattr(state, a))
 
 
 def _coo(nmodes, nnz, seed):

@@ -225,16 +225,21 @@ def _meta_calls(rows_pp):
                                   "mttkrp_fused_gather",
                                   "mttkrp_fused_remap"])
 def test_rect_and_pregathered_wrappers_refuse(name):
-    """The same refusals for the four other wrappers. At R = 32 the
-    227 KB hold 1816 rows: the gather kernels stage 2 x 8 factor rows
-    beside the accumulator, the pre-gathered ones stage none, so a
-    1810-row tile fits only the latter."""
-    pregathered = name in ("mttkrp_fused", "mttkrp_fused_compact")
+    """The same refusals for the four other wrappers, each at its own
+    kernel's shared-memory formula (P = 8, R = 32, two inputs): the
+    largest tile that fits passes the check and one row more does not.
+    The pre-gathered kernel stages the block's operand, the gather
+    kernels its factor rows (and idx/alpha for the remap), beside two
+    blocks of metadata."""
+    smem = {"mttkrp_fused": kmt.pregathered_smem_bytes(0, 32, 2, 8),
+            "mttkrp_fused_compact": kmt.pregathered_smem_bytes(0, 32, 2, 8),
+            "mttkrp_fused_gather": kmt.gather_smem_bytes(0, 32, 2, 8, 0),
+            "mttkrp_fused_remap": kmt.gather_smem_bytes(0, 32, 2, 8, 3)}
+    rows = (kmt.SMEM_PER_BLOCK - smem[name]) // (4 * 32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         _meta_calls(rows_pp=4)[name]()
-    with pytest.raises(ValueError, match="CUDA tensors" if pregathered
-                       else "does not fit"):
-        _meta_calls(rows_pp=1810)[name]()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _meta_calls(rows_pp=rows)[name]()
     with pytest.raises(ValueError, match="does not fit"):
-        _meta_calls(rows_pp=1817)[name]()
+        _meta_calls(rows_pp=rows + 1)[name]()
     assert kmt.LAUNCHES[name] == 0
