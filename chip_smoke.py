@@ -26,7 +26,8 @@ times the kernels at each path's shapes.
   [9]  ``autotune`` over backend x schedule x P x dedup at nell1 scale
        0.01, measured by the median of 5 CUDA-event rotations a spec
   [2c] the ``wkv6`` kernel against its plain version at the reference
-       kernel tests' shapes and at the model's rows (BH 160, T 256)
+       kernel tests' shapes, at the model's rows (BH 160, T 256) and at
+       BH 161, T 4097 (no multiple of the SMs, a ragged last chunk)
   [10] RWKV-6 at the full width of ``rwkv6-3b`` (32 layers, f32 params,
        random weights from a seed): the prefill ``forward`` in bf16 at
        B 4, S 4096 (one ``wkv6`` launch a layer, timed), layer 0's kernel
@@ -87,8 +88,10 @@ function on absolute inputs) and ``u = 2**-24``:
     positive), so after t + 1 steps the state carries a random walk of
     ~2 sqrt(t + 1) roundings; the readout is a sum of K terms, and each
     term has ~3 roundings of its own; one share for each side. The limit
-    is held against itself: the kernel run with u = 0 (no bonus term) and
-    with w shifted one step late (w_{t-1} in step t) must fail it.
+    is held against itself: the kernel run with u = 0 (no bonus term),
+    with w shifted one step late (w_{t-1} in step t), and with r zeroed
+    in one of the kernel's K slices (what a readout that drops one
+    quarter-warp's partial sums returns) must fail it.
   * RWKV-6 float32 cross-check, ``forward(prompt)[:, -1]`` (the kernel)
     against ``Engine.prefill(prompt)`` (the decode recurrence) at full
     width: max |difference| <= ``XCHECK_ATOL`` on logits of size ~1. The
@@ -1348,7 +1351,7 @@ def phase_autotune(coo, cache, report):
 # RWKV-6: [2c] and [10].
 # --------------------------------------------------------------------------
 WKV_SHAPES = ((2, 16, 8, 8), (4, 32, 16, 32), (1, 64, 64, 64),
-              (160, 256, 64, 64))
+              (160, 256, 64, 64), (161, 4097, 64, 64))
 RWKV_ARCH = "rwkv6-3b"
 RWKV_BATCH, RWKV_SEQ = 4, 4096        # prefill_32k cut 8x in B and in S
 WB_LORA_STD = 0.15                     # wb_lora is zero at init
@@ -1388,8 +1391,12 @@ def wkv_check(kw6, args, tag):
     lim = wkv_limit(kw6, args)
     res = close_to(f"{tag} wkv6", kw6.wkv6(*args), want, lim)
     late = torch.cat([w[:, :1], w[:, :-1]], dim=1).contiguous()
+    kd = r.shape[-1]
+    lane0 = (kw6.slices(kd, kw6.kernel_groups(kd)) == 0).to(r.device)
+    no_lane = torch.where(lane0, 0.0, r)
     for variant, bad in (("u = 0", (r, k, w, v, torch.zeros_like(u))),
-                         ("w_{t-1}", (r, k, late, v, u))):
+                         ("w_{t-1}", (r, k, late, v, u)),
+                         ("r = 0 in one K-slice", (no_lane, k, w, v, u))):
         if not ((kw6.wkv6(*bad).double() - want.double()).abs() > lim).any():
             raise AssertionError(f"{tag} wkv6: the limit does not catch "
                                  f"the {variant} variant")
@@ -1405,8 +1412,8 @@ def phase_wkv6(kw6):
         err, share = wkv_check(kw6, wkv_case(*shape, seed=i), "[2c]")
         torch.cuda.synchronize()
         log(f"[2c] wkv6 (BH, T, K, V) = {shape} == plain (max err "
-            f"{err:.3e}, {share:.3f} of the limit); u = 0 and w_(t-1) "
-            "variants fail it")
+            f"{err:.3e}, {share:.3f} of the limit); u = 0, w_(t-1) and "
+            "one-K-slice variants fail it")
 
 
 def wkv_bound(args):

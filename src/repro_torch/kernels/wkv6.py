@@ -1,5 +1,5 @@
-"""RWKV-6 WKV recurrence: the wrapper of ``csrc/wkv6.cu`` and its plain
-PyTorch version.
+"""RWKV-6 WKV recurrence: the wrapper of ``csrc/wkv6.cu``, its plain
+PyTorch version, and a CPU twin of the kernel's order of sums.
 
 Per row bh of the (batch x heads) axis::
 
@@ -10,6 +10,16 @@ Per row bh of the (batch x heads) axis::
 returns ``y (BH, T, V)`` f32: the contract of the reference's Pallas
 ``wkv6`` (``repro.kernels.ops.wkv6``), without its ``chunk`` argument (the
 CUDA kernel stages its own chunks of steps and takes any T).
+
+The kernel scans t on CUDA cores: one CTA per (bh, tile of up to 16
+columns of V); each column's K rows are cut into :func:`kernel_groups`
+slices, one to each quarter-warp, and a lane scans two columns, keeping
+its slice of them of S in registers. A chunk's partial readouts are
+summed across the quarters by shuffles and across the warps through
+shared memory, in a fixed order; the bonus ``b_t = r_t . (u o k_t)`` is
+computed once a step, so ``y_t = b_t v_t + r_t^T S_{t-1}``.
+:func:`wkv6_grouped` computes the recurrence in that order on any device;
+the tests hold it against the reference, and the kernel against it.
 
 On a CUDA tensor :func:`wkv6` launches the kernel or raises; the plain
 version serves CPU tensors only, and is what ``chip_smoke.py`` holds the
@@ -24,6 +34,9 @@ LAUNCHES = {"wkv6": 0}
 #: Key and value widths the kernel is compiled for (``csrc/wkv6.cu``).
 KERNEL_DIMS = (8, 16, 32, 64)
 _MAX_ROWS = 65535   # grid.y limit: one row of CTAs per bh
+#: Slices the kernel cuts a column's K into (``kGroups`` in
+#: ``csrc/wkv6.cu``), at most K / 4: see :func:`kernel_groups`.
+GROUPS = 8
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +82,77 @@ def wkv6_plain(r, k, w, v, u):
     """Plain version of :func:`wkv6`: :func:`wkv6_scan` in f32."""
     f32 = torch.float32
     return wkv6_scan(*(x.to(f32) for x in (r, k, w, v, u)))
+
+
+def kernel_groups(kd: int) -> int:
+    """Slices the kernel cuts a column's ``kd`` rows of K into."""
+    return min(GROUPS, kd // 4)
+
+
+def slices(kd: int, groups: int) -> torch.Tensor:
+    """The slice that each of the ``kd`` rows of K falls to: quads of rows
+    (fewer rows where ``kd / groups < 4``) dealt round-robin to the
+    ``groups`` slices, as the kernel's float4 reads deal them."""
+    q = min(4, kd // groups)
+    return (torch.arange(kd) // q) % groups
+
+
+def _warp_sums(x, groups):
+    """Partial sums of ``x (BH, K, N)`` over K in the kernel's order, one
+    for each warp's ``min(4, groups)`` slices: each slice's rows
+    (:func:`slices`) summed as two sums, of the even and of the odd
+    positions of its quads, then added; then a warp's slices in the tree
+    of its shuffles (for four slices ``(s0 + s2) + (s1 + s3)``). Returns a
+    list of ``(BH, N)`` tensors, warp 0 first."""
+    bh, kd, n = x.shape
+    q = min(4, kd // groups)
+    part = x.reshape(bh, kd // (q * groups), groups, q, n)
+    if q > 1:
+        part = part.reshape(bh, -1, groups, q // 2, 2, n).sum((1, 3))
+        lanes = list((part[:, :, 0] + part[:, :, 1]).unbind(1))
+    else:
+        lanes = list(part.sum(1)[:, :, 0].unbind(1))
+    per_warp = min(4, groups)
+    warps = []
+    for w0 in range(0, groups, per_warp):
+        tree = lanes[w0:w0 + per_warp]
+        off = per_warp // 2
+        while off:
+            tree = [tree[i] + tree[i ^ off] for i in range(per_warp)]
+            off //= 2
+        warps.append(tree[0])
+    return warps
+
+
+def wkv6_grouped(r, k, w, v, u, groups):
+    """The recurrence in the CUDA kernel's order, in f32: K cut into
+    ``groups`` slices (:func:`slices`), four slices to a warp, and the
+    partial sums taken as :func:`_warp_sums` takes them; ``b_t = r_t .
+    (u o k_t)`` once a step, its warps' sums added in warp order; ``y_t``
+    is warp 0's readout plus ``b_t v_t``, then each further warp's
+    readout in warp order. Used by the tests only; the kernel's own
+    ``groups`` is :func:`kernel_groups`."""
+    bh, t, kd, vd = _shapes(r, k, w, v, u)
+    if groups not in (1, 2, 4, 8) or groups > kd:
+        raise ValueError(f"wkv6_grouped takes groups in (1, 2, 4, 8), at "
+                         f"most K = {kd}; got {groups}")
+    f32 = torch.float32
+    r, k, w, v, u = (x.to(f32) for x in (r, k, w, v, u))
+    s = torch.zeros((bh, kd, vd), dtype=f32, device=r.device)
+    y = torch.empty((bh, t, vd), dtype=f32, device=r.device)
+    for i in range(t):
+        ri = r[:, i, :, None]
+        bonus = _warp_sums(ri * (u * k[:, i])[:, :, None], groups)
+        b = bonus[0]
+        for part in bonus[1:]:
+            b = b + part                                      # (BH, 1)
+        read = _warp_sums(ri * s, groups)
+        yi = b * v[:, i] + read[0]
+        for part in read[1:]:
+            yi = yi + part
+        y[:, i] = yi
+        s = w[:, i, :, None] * s + k[:, i, :, None] * v[:, i, None, :]
+    return y
 
 
 # --------------------------------------------------------------------------
@@ -123,5 +207,6 @@ def wkv6(r, k, w, v, u):
     return _launch(*(x.to(f32).contiguous() for x in (r, k, w, v, u)))
 
 
-__all__ = ["wkv6", "wkv6_plain", "wkv6_scan", "LAUNCHES", "KERNEL_DIMS",
+__all__ = ["wkv6", "wkv6_plain", "wkv6_scan", "wkv6_grouped",
+           "kernel_groups", "slices", "LAUNCHES", "KERNEL_DIMS", "GROUPS",
            "reset_launch_counts"]

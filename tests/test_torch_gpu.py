@@ -17,8 +17,9 @@ the CUDA toolkit only:
 Tolerances: ``out_rel`` and MTTKRP outputs rtol = atol = 2e-4 (float32
 sums of at most a few hundred products, shared-memory atomics against
 ``index_add_``); remap outputs and layouts bitwise; CPD fits 1e-4;
-``wkv6`` rtol = atol = 1e-4 (the same float32 recurrence, the readout
-summed in another order and the state update fused into one FMA);
+``wkv6`` rtol = atol = 1e-4 against its plain version and its twin
+``wkv6_grouped`` (the same float32 recurrence, the readout summed in
+another order and the state update fused into one FMA);
 the float32 ``forward`` on the card against the CPU rtol = atol = 2e-3:
 the per-head RMS norm divides by |y|, so where y nearly cancels it
 carries that sum's condition number into the logits (at t = 0,
@@ -709,16 +710,31 @@ def _wkv_args(bh, t, k, v, seed, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,t,k,v", [
     (2, 16, 8, 8), (4, 32, 16, 32), (1, 64, 64, 64), (160, 256, 64, 64),
-    (3, 37, 32, 16)])
+    (3, 37, 32, 16), (1, 1, 64, 64), (161, 4097, 64, 64), (2, 40, 8, 64)])
 def test_wkv6_kernel_matches_plain(cuda, bh, t, k, v):
     """The shapes of the reference kernel tests, the model's rows at
-    T = 256, and a T that is no multiple of the kernel's chunk."""
+    T = 256, T that are no multiple of the kernel's 16-step chunk (37,
+    one step, the prefill's 4096 + 1), BH = 1 and 161 (no multiple of the
+    132 SMs), and K = 8 (two K slices) with V = 64 (four tiles)."""
     args = _wkv_args(bh, t, k, v, bh + t, cuda)
     before = kw6.LAUNCHES["wkv6"]
     got = kw6.wkv6(*args)
     want = kw6.wkv6_plain(*args)
     torch.cuda.synchronize()
     assert kw6.LAUNCHES["wkv6"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,k,v", [
+    (4, 37, 64, 64), (2, 40, 8, 64), (3, 20, 16, 8)])
+def test_wkv6_kernel_matches_its_twin(cuda, bh, t, k, v):
+    """The kernel against ``wkv6_grouped`` at the kernel's own groups (8
+    K slices at K >= 32, 4 at K = 16, 2 at K = 8)."""
+    args = _wkv_args(bh, t, k, v, bh * t, cuda)
+    got = kw6.wkv6(*args)
+    want = kw6.wkv6_grouped(*args, kw6.kernel_groups(k))
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
