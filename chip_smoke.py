@@ -45,6 +45,17 @@ times the kernels at each path's shapes.
        the plain version, a float32 cross-check of ``forward`` against
        ``Engine.prefill`` (4 layers over the same parameter tensors), and
        ``Engine.generate`` serving 4 requests of 16 + 32 tokens
+  [12] the streaming tier (``engine.stream``: pinned host layouts, a
+       copy-stream chunk ring, the remap on the host): [12a] nell1 scale
+       0.1 ([3]'s tensor and factors) streamed on ``cuda_fused`` and
+       ``cuda`` in ~10 chunks a mode, a mutant whose uploads read the
+       previous chunk's slots, ``cp_als_stream`` against [3]'s fits;
+       [12b] rect nell1 scale 0.01; [12c] twitch scale 0.01 in at least
+       4 chunks a mode; [12d] the paper's full vast tensor through
+       ``make_engine(PlanSpec(residency="auto"))`` at 1/8 of its
+       resident footprint: the streamed rotation timed (uploads, kernels
+       and host remap apart) beside the resident one, its peak device
+       bytes against the budget model's prediction and the resident peak
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -74,6 +85,16 @@ function on absolute inputs) and ``u = 2**-24``:
     within the limit of that table's terms: the compact gather kernel in
     [3], the pre-gathered one in [7], the rect gather one in [8].
   * remap outputs and the layout after a full rotation: bitwise.
+  * a streamed mode ([12]) against the oracle: the limit above; against
+    the resident engine's output: twice it (both float32, one share
+    each); the streamed host layout before every mode: bitwise the
+    resident layout's first S_d slots, and back at its start after the
+    rotation. The limit is held against itself: a stream whose chunk c
+    uploads chunk c - 1's slots must fail it. A streamed ``cuda_fused``
+    rotation's peak device bytes must stay under the reference's budget
+    model (``stream_fixed_bytes`` + ``stream_ring`` x
+    ``chunk_device_bytes`` of the largest chunk) plus the port's work
+    tables and largest partial buffer, and under the resident peak.
   * CPD fits, cuda_fused ([3]) and cuda ([7]) against the torch backend
     from the same initial factors: ``FIT_ATOL`` (the per-mode differences
     above, through three sweeps of R x R solves), on ``FIT_SEEDS`` draws
@@ -1881,6 +1902,454 @@ def lru_scan_record(lru):
     }
 
 
+# --------------------------------------------------------------------------
+# [12] The streaming tier.
+# --------------------------------------------------------------------------
+STREAM_LAYOUT = ("val", "idx", "alpha", "lrow")
+STREAM_CHUNK = 1 << 20         # [12a]: chunk slots, ~10 chunks a mode
+RECT_STREAM_CHUNK = 1 << 22    # [12b]: ~9 chunks a rect mode
+VAST_SCALE = 1.0               # [12d]: the paper's full vast tensor
+VAST_REPS = 3                  # [12d]: timed rotations, median taken
+
+
+def resident_rotation(t, cfg, factors):
+    """One resident rotation, mode by mode: each mode's output and its
+    layout (the first S_d slots, with ``lrow``) on the host."""
+    from repro_torch import engine
+    from repro_torch.engine.api import mode_layout
+
+    st = engine.init(t, cfg)
+    outs, lays = [None] * t.nmodes, [None] * t.nmodes
+    for _ in range(t.nmodes):
+        d = st.mode
+        sd = st.statics[d].padded_nnz
+        lay = mode_layout(st, (st.val, st.idx, st.alpha), d)
+        lays[d] = {k: lay[k][:sd].cpu() for k in STREAM_LAYOUT}
+        outs[d], st = engine.mttkrp(st, factors)
+    return outs, lays
+
+
+def host_layout(ss):
+    """A copy of the streamed host layout of the resident mode."""
+    import torch
+
+    return {k: torch.from_numpy(getattr(ss, k).copy())
+            for k in STREAM_LAYOUT}
+
+
+def stream_model_bytes(ss):
+    """The reference's budget model of this stream, ``stream_fixed_bytes
+    + stream_ring x chunk_device_bytes`` of the largest chunk; and what
+    it does not count that the port adds: the chunks' work tables and the
+    largest chunk's partial tiles (``rows_pp x R`` floats each)."""
+    from repro_torch.engine.stream import (chunk_device_bytes,
+                                           stream_fixed_bytes)
+
+    n = ss.nmodes
+    model = (stream_fixed_bytes(ss.dims, ss.config, rank=RANK,
+                                statics=ss.statics)
+             + ss.config.stream_ring * max(
+                 chunk_device_bytes(cs, n, ss.plan.tables)
+                 for cs in ss.plan.chunks))
+    extra = 0
+    if ss.chunks[0][0].work is not None:
+        tables = sum(4 * (ch.work.chunks.numel() + ch.work.wsum.numel())
+                     for chs in ss.chunks for ch in chs)
+        partials = max(ch.work.n_partials * ss.statics[d].rows_pp * RANK * 4
+                       for d, chs in enumerate(ss.chunks) for ch in chs)
+        extra = tables + partials
+    return model, extra
+
+
+def peak_of(fn):
+    """``fn()``, and the device bytes allocated at most while it ran over
+    those held before it."""
+    import torch
+
+    free_device_memory()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - held
+
+
+def stream_check(kmt, tag, t, cfg, res_cfg, factors, oracle, names):
+    """One streamed rotation of ``t`` under ``cfg`` (the launch counts set
+    to 0 just before it and read just after; each of ``names`` must have
+    launched): each mode against the oracle and against the resident
+    engine's rotation under ``res_cfg`` (two-sided limit), the host layout
+    before every mode bitwise the resident one, and back at its start
+    after the rotation. Returns a row of numbers."""
+    import torch
+    from repro_torch.engine.stream import stream_init, stream_mttkrp
+
+    n = t.nmodes
+    res_outs, res_lays = resident_rotation(t, res_cfg, factors)
+    torch.cuda.synchronize()
+
+    def run():
+        ss = stream_init(t, cfg)
+        start = host_layout(ss)
+        lays, outs = [None] * n, [None] * n
+        kmt.reset_launch_counts()
+        for _ in range(n):
+            d = ss.mode
+            lays[d] = host_layout(ss)
+            outs[d], ss = stream_mttkrp(ss, factors)
+        torch.cuda.synchronize()
+        return ss, start, lays, outs, dict(kmt.LAUNCHES)
+
+    t0 = time.perf_counter()
+    (ss, start, lays, outs, launches), peak = peak_of(run)
+    secs = time.perf_counter() - t0
+    for name in names:
+        if launches[name] == 0:
+            raise AssertionError(f"{tag}: the stream never launched {name}")
+    errs, shares, rshares = [], [], []
+    for d in range(n):
+        e, s = close_to(f"{tag} mode {d} vs mttkrp_ref", outs[d], *oracle[d])
+        r = close_to(f"{tag} mode {d} vs resident", outs[d], res_outs[d],
+                     2 * oracle[d][1])[1]
+        errs.append(e)
+        shares.append(s)
+        rshares.append(r)
+        for k in STREAM_LAYOUT:
+            exact(f"{tag} mode {d} host layout {k}", lays[d][k],
+                  res_lays[d][k])
+    end = host_layout(ss)
+    for k in STREAM_LAYOUT:
+        exact(f"{tag} host layout {k} after rotation", end[k], start[k])
+    model, extra = stream_model_bytes(ss)
+    row = {"chunks": [cs.nchunks for cs in ss.plan.chunks],
+           "target_slots": ss.plan.target_slots,
+           "launches": {k: launches[k] for k in names},
+           "max_err": max(errs), "max_share": max(shares),
+           "resident_share": max(rshares), "peak_bytes": peak,
+           "model_bytes": model, "unmodeled_bytes": extra,
+           "seconds": secs, **ss.stats.as_row()}
+    log(f"{tag}: chunks a mode {row['chunks']} (target {row['target_slots']}"
+        f" slots); each mode == mttkrp_ref (max err {max(errs):.3e}, "
+        f"{max(shares):.2e} of the limit) and == resident ("
+        f"{max(rshares):.2e} of the two-sided limit); host layouts bitwise "
+        f"the resident ones and back at the start; launches "
+        f"{row['launches']}; overlap {ss.stats.overlap_efficiency:.3f}; "
+        f"peak {peak / 2**30:.3f} GiB (model {model / 2**30:.3f} + "
+        f"{extra / 2**30:.4f} GiB tables and partials); "
+        f"{secs:.1f} s with set-up")
+    return row
+
+
+def shifted_chunk_mutant(t, cfg, factors, oracle):
+    """The limit held against itself: the upload of chunk c reads chunk
+    c - 1's slot range (what a missing event wait or a wrong offset
+    returns); mode 0's output must fail the oracle limit."""
+    from repro_torch.engine import stream
+
+    orig = stream._chunk_span
+    stream._chunk_span = lambda cs, c: orig(cs, max(c - 1, 0))
+    try:
+        out, _ = stream.stream_mttkrp(stream.stream_init(t, cfg), factors)
+    finally:
+        stream._chunk_span = orig
+    try:
+        close_to("shifted-chunk mutant", out, *oracle[0])
+    except AssertionError as exc:
+        return str(exc)
+    raise AssertionError("a stream whose uploads read the previous chunk's "
+                         "slots passed the oracle limit")
+
+
+def phase_stream_nell1(kmt, t, factors, fits3, witness3, report):
+    """[12a] nell1 scale 0.1 ([3]'s tensor and factors) streamed at
+    ``chunk_nnz = STREAM_CHUNK``: ``cuda_fused`` and ``cuda``, compact; the
+    shifted-chunk mutant; ``cp_als_stream`` against [3]'s fits and its
+    float64 witness."""
+    import torch
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.engine.stream import cp_als_stream
+
+    oracle = mttkrp_oracle(torch.from_numpy(t.indices).cuda(),
+                           torch.from_numpy(t.values).cuda(), factors,
+                           t.dims)
+    rows = {}
+    for backend, name in (("cuda_fused", "mttkrp_fused_gather_compact"),
+                          ("cuda", "mttkrp_fused_compact")):
+        cfg = ExecutionConfig(backend=backend, rank_hint=RANK,
+                              residency="stream", chunk_nnz=STREAM_CHUNK)
+        res_cfg = ExecutionConfig(backend=backend, rank_hint=RANK)
+        rows[backend] = stream_check(kmt, f"[12a] nell1 stream {backend}",
+                                     t, cfg, res_cfg, factors, oracle,
+                                     (name,))
+    cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK,
+                          residency="stream", chunk_nnz=STREAM_CHUNK)
+    mutant = shifted_chunk_mutant(t, cfg, factors, oracle)
+    log(f"[12a] shifted-chunk mutant fails the limit: {mutant}")
+    fits = cp_als_stream(t, RANK, iters=3, config=cfg, factors=factors).fits
+    f64 = witness3[0]["f64_fits"]
+    gaps = (max(abs(a - b) for a, b in zip(fits, fits3)),
+            max(abs(a - b) for a, b in zip(fits, f64)))
+    if not all(f == f and abs(f) < 1e30 for f in fits) \
+            or max(gaps) > FIT_ATOL:
+        raise AssertionError(f"cp_als_stream fits {fits} vs resident "
+                             f"{fits3}, float64 {f64}")
+    log(f"[12a] cp_als_stream fits {fits} (resident {fits3}, max diff "
+        f"{gaps[0]:.2e}; float64 witness {gaps[1]:.2e})")
+    report["stream_nell1"] = {"rows": rows, "mutant": mutant, "fits": fits,
+                              "fit_gaps": gaps}
+    del oracle
+    free_device_memory()
+
+
+def phase_stream_rect(kmt, report):
+    """[12b] nell1 scale 0.01 ([8]'s tensor), rect, streamed on
+    ``cuda_fused`` (``mttkrp_fused_gather`` a chunk) beside the resident
+    engine (``mttkrp_fused_remap``)."""
+    import torch
+    from repro_torch.core import PlanCache, init_factors, spec, synthesize
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.engine.api import as_flycoo
+
+    ts = spec("nell1", scale=0.01)
+    indices, values = synthesize(ts, seed=0)
+    cfg = ExecutionConfig(backend="cuda_fused", schedule="rect",
+                          rank_hint=RANK, residency="stream",
+                          chunk_nnz=RECT_STREAM_CHUNK)
+    t = as_flycoo((indices, values, ts.dims), cfg, PlanCache())
+    factors = init_factors(torch.Generator(device="cuda").manual_seed(2),
+                           ts.dims, RANK)
+    oracle = mttkrp_oracle(torch.from_numpy(indices).cuda(),
+                           torch.from_numpy(values).cuda(), factors, ts.dims)
+    res_cfg = ExecutionConfig(backend="cuda_fused", schedule="rect",
+                              rank_hint=RANK)
+    report["stream_rect"] = stream_check(
+        kmt, "[12b] nell1 0.01 rect stream cuda_fused", t, cfg, res_cfg,
+        factors, oracle, ("mttkrp_fused_gather",))
+    del oracle
+    free_device_memory()
+
+
+def phase_stream_twitch(kmt, report):
+    """[12c] twitch scale 0.01 ([5]'s tensor, five modes) streamed on
+    ``cuda_fused`` in at least 4 chunks a mode."""
+    import torch
+    from repro_torch.core import build_flycoo, init_factors, spec, synthesize
+    from repro_torch.engine import ExecutionConfig
+
+    ts = spec("twitch", scale=0.01)
+    indices, values = synthesize(ts, seed=0)
+    res_cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK)
+    n = len(ts.dims)
+    t = build_flycoo(indices, values, ts.dims,
+                     kappa=[res_cfg.kappa_for(i, n) for i in ts.dims],
+                     block_p=res_cfg.block_p)
+    target = min(p.padded_nnz for p in t.plans) // 8
+    cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK,
+                          residency="stream", chunk_nnz=target)
+    factors = init_factors(torch.Generator(device="cuda").manual_seed(1),
+                           t.dims, RANK)
+    oracle = mttkrp_oracle(torch.from_numpy(indices).cuda(),
+                           torch.from_numpy(values).cuda(), factors, t.dims)
+    row = stream_check(kmt, "[12c] twitch 0.01 stream cuda_fused", t, cfg,
+                       res_cfg, factors, oracle,
+                       ("mttkrp_fused_gather_compact",))
+    if min(row["chunks"]) < 4:
+        raise AssertionError(f"[12c] fewer than 4 chunks a mode: "
+                             f"{row['chunks']}")
+    report["stream_twitch"] = row
+    del oracle
+    free_device_memory()
+
+
+def timed_rotation(ss, factors):
+    """One ``stream_all_modes`` rotation: wall seconds, its upload ms
+    (copy-stream events), kernel ms (compute-stream events around each
+    chunk's kernels and its copy into the accumulator), host remap
+    seconds and bytes uploaded."""
+    import torch
+    from repro_torch.engine.stream import stream_all_modes
+
+    st = ss.stats
+    st.timeline = []
+    h2d, remap = st.h2d_bytes, st.host_remap_s
+    t0 = time.perf_counter()
+    outs, ss = stream_all_modes(ss, factors)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = {"upload": 0.0, "compute": 0.0}
+    for kind, _, _, a, b in st.timeline:
+        ms[kind] += a.elapsed_time(b)
+    st.timeline = None
+    return outs, ss, {"wall_s": wall, "upload_ms": ms["upload"],
+                      "kernel_ms": ms["compute"],
+                      "remap_s": st.host_remap_s - remap,
+                      "h2d_bytes": st.h2d_bytes - h2d}
+
+
+def phase_stream_vast(kmt, report):
+    """[12d] the paper's vast tensor (Table 3: 165,400 x 11,400 x 2 x 100
+    x 89, R = 32) through ``make_engine`` with ``residency="auto"`` and a
+    budget of 1/8 of its resident footprint: it must resolve to the
+    stream. Times the streamed rotation (one warm-up, the median of
+    ``VAST_REPS``; upload, kernel and host remap apart) beside the
+    resident one, holds its peak against the budget model's prediction
+    and the resident peak. The last timed rotation runs with the launch
+    counts set to 0 (one ``mttkrp_fused_gather_compact`` a chunk), and
+    each of its five modes is held against the oracle and against the
+    resident engine's rotation (two-sided limit); one ``cp_als_stream``
+    sweep against a resident ``cp_als`` sweep from the same factors."""
+    import statistics
+
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import (PlanCache, cp_als, init_factors, spec,
+                                  synthesize)
+    from repro_torch.engine import ExecutionConfig, PlanSpec, make_engine
+    from repro_torch.engine.api import as_flycoo
+    from repro_torch.engine.stream import (StreamState, cp_als_stream,
+                                           resident_bytes,
+                                           stream_transfer_model)
+
+    name = "mttkrp_fused_gather_compact"
+    t0 = time.perf_counter()
+    ts = spec("vast", scale=VAST_SCALE)
+    indices, values = synthesize(ts, seed=0)
+    coo = (indices, values, ts.dims)
+    synth_s = time.perf_counter() - t0
+    cfg_full = ExecutionConfig(backend="cuda_fused", rank_hint=RANK)
+    cache = PlanCache()
+    t = as_flycoo(coo, cfg_full, cache)
+    for d in range(t.nmodes):
+        t.dedup_tables(d)
+    resident = resident_bytes(t, cfg_full)
+    budget = resident // 8
+    spec_s = PlanSpec(backend="cuda_fused", rank_hint=RANK,
+                      residency="auto", device_budget_bytes=budget)
+    factors = init_factors(torch.Generator(device="cuda").manual_seed(3),
+                           t.dims, RANK)
+    plan_s = time.perf_counter() - t0 - synth_s
+
+    def build_and_warm():
+        t1 = time.perf_counter()
+        ss = make_engine(coo, spec_s, cache=cache)
+        if not isinstance(ss, StreamState):
+            raise AssertionError(f"[12d] auto resolved to "
+                                 f"{type(ss).__name__}, not the stream")
+        init_s = time.perf_counter() - t1
+        _, ss, warm = timed_rotation(ss, factors)
+        return ss, init_s, warm
+
+    (ss, init_s, warm), peak_s = peak_of(build_and_warm)
+    host_s = synth_s + plan_s + init_s
+    chunks = [cs.nchunks for cs in ss.plan.chunks]
+    target = ss.plan.target_slots
+    log(f"[12d] vast scale {VAST_SCALE}: dims {ts.dims} nnz {t.nnz}; host "
+        f"set-up {host_s:.1f} s (synthesize {synth_s:.1f}, plans and dedup "
+        f"tables {plan_s:.1f}, make_engine -> StreamState {init_s:.1f}); "
+        f"resident_bytes {resident / 2**30:.3f} GiB, budget "
+        f"{budget / 2**30:.3f} GiB; chunks a mode {chunks} (target "
+        f"{target} slots)")
+    rows = []
+    for _ in range(VAST_REPS):
+        kmt.reset_launch_counts()
+        outs, ss, row = timed_rotation(ss, factors)
+        rows.append(row)
+    launches = kmt.LAUNCHES[name]
+    if launches != ss.plan.total_chunks:
+        raise AssertionError(f"[12d] {name} launched {launches} times in a "
+                             f"rotation of {ss.plan.total_chunks} chunks")
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    model = stream_transfer_model(t, ss.config)
+    model_b, extra = stream_model_bytes(ss)
+    overlap = ss.stats.overlap_efficiency
+    gbs = med["h2d_bytes"] / med["upload_ms"] / 1e6
+    log(f"[12d] streamed rotation, median of {VAST_REPS} (warm-up "
+        f"{warm['wall_s']:.3f} s): wall {med['wall_s']:.3f} s; uploads "
+        f"{med['upload_ms']:.1f} ms on the copy stream, kernels "
+        f"{med['kernel_ms']:.1f} ms on the compute stream, host remap "
+        f"{med['remap_s']:.3f} s; H2D {med['h2d_bytes'] / 1e9:.3f} GB "
+        f"(model {model['h2d_bytes'] / 1e9:.3f} GB), {gbs:.1f} GB/s; "
+        f"overlap {overlap:.3f}; {name} launches {launches} (last "
+        "rotation); each rotation (wall / uploads / kernels / remap): "
+        + "; ".join(f"{r['wall_s']:.3f} s / {r['upload_ms']:.1f} / "
+                    f"{r['kernel_ms']:.1f} ms / {r['remap_s']:.3f} s"
+                    for r in rows))
+    if med["h2d_bytes"] > model["h2d_bytes"]:
+        raise AssertionError("[12d] uploads exceed the transfer model")
+    del ss
+    free_device_memory()
+    fit = cp_als_stream(t, RANK, iters=1, config=spec_s.to_config(),
+                        factors=factors, cache=cache).fits
+    free_device_memory()
+
+    def resident_run():
+        state = engine.init(t, cfg_full)
+        res_outs, _ = engine.all_modes(state, factors)
+        return state, res_outs
+
+    (state, res_outs), peak_r = peak_of(resident_run)
+    res_ms = cuda_median_ms(lambda: engine.all_modes(state, factors),
+                            VAST_REPS)
+    del state
+    free_device_memory()
+    res_fit = cp_als(t, RANK, iters=1, config=cfg_full,
+                     factors=factors).fits
+    fit_gap = abs(fit[0] - res_fit[0])
+    if not all(f == f and abs(f) < 1e30 for f in fit) or fit_gap > FIT_ATOL:
+        raise AssertionError(f"[12d] cp_als_stream fits {fit} vs resident "
+                             f"{res_fit}")
+    oracle = mttkrp_oracle(torch.from_numpy(indices).cuda(),
+                           torch.from_numpy(values).cuda(), factors, t.dims)
+    errs, shares, rshares = [], [], []
+    for d in range(t.nmodes):
+        e, s = close_to(f"[12d] vast mode {d} stream vs mttkrp_ref",
+                        outs[d], *oracle[d])
+        r = close_to(f"[12d] vast mode {d} stream vs resident", outs[d],
+                     res_outs[d], 2 * oracle[d][1])[1]
+        errs.append(e)
+        shares.append(s)
+        rshares.append(r)
+    del oracle, outs, res_outs
+    log(f"[12d] each mode streamed == mttkrp_ref (max err {max(errs):.3e}, "
+        f"{max(shares):.2e} of the limit) and == resident "
+        f"({max(rshares):.2e} of the two-sided limit); cp_als_stream 1 "
+        f"sweep: fit {fit[0]:.6f} (resident cp_als {res_fit[0]:.6f}, diff "
+        f"{fit_gap:.2e}); resident all_modes {res_ms:.2f} ms (median of "
+        f"{VAST_REPS}); peak streamed {peak_s / 2**30:.3f} GiB (model "
+        f"{model_b / 2**30:.3f} + {extra / 2**30:.4f} GiB tables and "
+        f"partials; budget {budget / 2**30:.3f}), resident "
+        f"{peak_r / 2**30:.3f} GiB")
+    if not peak_s < model_b + extra:
+        raise AssertionError(f"[12d] streamed peak {peak_s} over the model "
+                             f"{model_b} + {extra}")
+    if not peak_s < peak_r:
+        raise AssertionError(f"[12d] streamed peak {peak_s} not under the "
+                             f"resident {peak_r}")
+    report["stream_vast"] = {
+        "scale": VAST_SCALE, "dims": ts.dims, "nnz": t.nnz,
+        "host_s": host_s, "synth_s": synth_s, "plan_s": plan_s,
+        "init_s": init_s, "resident_bytes": resident, "budget": budget,
+        "chunks": chunks, "target_slots": target, "launches": {name: launches},
+        "warm": warm, "rotations": rows, "median": med,
+        "model_h2d_bytes": model["h2d_bytes"], "overlap": overlap,
+        "h2d_gbs": gbs, "resident_ms": res_ms, "peak_stream": peak_s,
+        "model_bytes": model_b, "unmodeled_bytes": extra,
+        "peak_resident": peak_r, "max_err": max(errs),
+        "max_share": max(shares), "resident_share": max(rshares),
+        "cp_fit": fit, "resident_cp_fit": res_fit, "fit_gap": fit_gap}
+    free_device_memory()
+
+
+def phase_stream(kmt, t, factors, report):
+    """[12] The streaming tier: [12a]-[12d]."""
+    phase_stream_nell1(kmt, t, factors, report["nell1"]["fits"],
+                       report["nell1"]["fit_witness"], report)
+    phase_stream_rect(kmt, report)
+    phase_stream_twitch(kmt, report)
+    phase_stream_vast(kmt, report)
+
+
 def kernels_record(per_kernel, launches, errs):
     """The ``kernels`` JSON line: ``per_kernel`` maps each kernel to its
     per-mode timing rows and a note of the tensor they were timed at."""
@@ -1947,7 +2416,7 @@ def main(argv=None) -> int:
     oracle = mttkrp_oracle(torch.from_numpy(t.indices).cuda(),
                            torch.from_numpy(t.values).cuda(), factors,
                            t.dims)
-    del state0, t
+    del state0
     rows7, errs7, launches7 = phase_cuda_compact(
         kmt, coo, factors, oracle, report["nell1"]["torch_fits"],
         report["nell1"]["fit_witness"], report, args.reps)
@@ -1961,6 +2430,7 @@ def main(argv=None) -> int:
     del coo8, cache8
     wkv = phase_rwkv(kw6, report, args.reps)
     lru = phase_rg(klru, report, args.reps)
+    phase_stream(kmt, t, factors, report)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [

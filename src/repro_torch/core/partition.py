@@ -1,8 +1,9 @@
 """Tensor partitioning scheme (paper Alg. 1) + row relabeling.
 
 The port's copy of ``repro.core.partition`` (``ModePlan``, ``plan_mode``
-and its helpers, ``plan_from_structure`` and ``plan_mode_reference``),
-kept bitwise-equal to the reference by the tests.
+and its helpers, ``plan_from_structure``, ``plan_mode_reference`` and the
+streaming tier's ``ChunkSchedule`` / ``chunk_schedule`` /
+``chunk_bpart``), kept bitwise-equal to the reference by the tests.
 
 Per output mode d:
   1. order mode-d vertices (output factor rows) by the number of incident
@@ -204,6 +205,87 @@ def plan_mode(
         block_part=block_part,
         max_degree=int(degrees.max(initial=0)),
     )
+
+
+# --------------------------------------------------------------------------
+# Partition-aligned chunking of a block schedule (the streaming tier).
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ChunkSchedule:
+    """Partition-aligned slicing of one mode's block schedule into chunks.
+
+    Chunk ``c`` owns partitions ``[part_start[c], part_start[c+1])`` whose
+    blocks are contiguous in the (partition-major) kernel layout, starting
+    at global block ``block_start[c]``: a chunk is the contiguous slot
+    range ``[block_start[c]*P, block_start[c+1]*P)`` of the mode's layout.
+    Every output row is owned by exactly one partition (paper Observation
+    2), so per-chunk elementwise computations write disjoint output rows.
+
+    ``chunk_kappa`` / ``chunk_blocks`` are the largest chunk's partitions
+    and blocks: the reference pads every chunk to that shape (one XLA
+    program per mode); the port's stream sizes its device ring by them
+    and runs each chunk at its real size.
+    """
+
+    part_start: np.ndarray      # (nchunks+1,) int64 partition boundaries
+    block_start: np.ndarray     # (nchunks+1,) int64 global block boundaries
+    chunk_kappa: int            # max partitions of a chunk
+    chunk_blocks: int           # max real blocks of a chunk
+    block_p: int
+
+    @property
+    def nchunks(self) -> int:
+        return len(self.part_start) - 1
+
+    @property
+    def chunk_slots(self) -> int:
+        """Slots of the largest chunk (the reference's uniform chunk)."""
+        return self.chunk_blocks * self.block_p
+
+    def bounds(self, c: int) -> tuple[int, int, int, int]:
+        """``(p0, p1, b0, b1)``: chunk ``c``'s partition and block range."""
+        return (int(self.part_start[c]), int(self.part_start[c + 1]),
+                int(self.block_start[c]), int(self.block_start[c + 1]))
+
+
+def chunk_schedule(plan: ModePlan, target_slots: int) -> ChunkSchedule:
+    """Greedily pack whole partitions into chunks of <= ``target_slots``
+    kernel slots (at least one partition a chunk, so a partition larger
+    than the target forms an oversized chunk of its own). Works for both
+    schedules: the per-partition block counts come from ``block_part``,
+    which ``rect`` materializes too."""
+    target_blocks = max(1, target_slots // plan.block_p)
+    part_blocks = np.bincount(plan.block_part, minlength=plan.kappa)
+    starts = [0]
+    acc = 0
+    for j in range(plan.kappa):
+        nb = int(part_blocks[j])
+        if acc and acc + nb > target_blocks:
+            starts.append(j)
+            acc = 0
+        acc += nb
+    starts.append(plan.kappa)
+    part_start = np.asarray(starts, dtype=np.int64)
+    cum_blocks = np.concatenate([[0], np.cumsum(part_blocks)])
+    block_start = cum_blocks[part_start]
+    chunk_kappa = int(np.diff(part_start).max())
+    chunk_blocks = int(np.diff(block_start).max())
+    return ChunkSchedule(part_start=part_start, block_start=block_start,
+                         chunk_kappa=chunk_kappa, chunk_blocks=chunk_blocks,
+                         block_p=plan.block_p)
+
+
+def chunk_bpart(plan: ModePlan, cs: ChunkSchedule, c: int) -> np.ndarray:
+    """The reference's chunk-local block -> partition descriptor: rebased
+    to the chunk's first partition and padded to ``chunk_blocks`` (pad
+    blocks repeat the last real local partition). The port's stream
+    passes only its first ``b1 - b0`` entries to a kernel."""
+    p0, _, b0, b1 = cs.bounds(c)
+    seg = plan.block_part[b0:b1].astype(np.int32) - np.int32(p0)
+    out = np.empty(cs.chunk_blocks, dtype=np.int32)
+    out[:len(seg)] = seg
+    out[len(seg):] = seg[-1]
+    return out
 
 
 def plan_from_structure(indices_d: np.ndarray, base: ModePlan) -> ModePlan:

@@ -27,8 +27,12 @@ equality before any plan is reused.
 
 With ``path=`` the cache also keeps content-addressed, checksummed npz
 blobs on disk; a blob that fails its checksum is renamed ``*.corrupt``
-and the lookup falls through to a cold plan. (The streamed chunk-plan
-tier comes with the streaming slice.)
+and the lookup falls through to a cold plan.
+
+A fourth, structural tier memoizes the streaming tier's chunk plans
+(:meth:`PlanCache.get_stream_plan`, keyed by
+``engine.stream._stream_plan_key``): a re-init of the same tensor under
+the same chunk-sizing knobs reuses its ``StreamPlan``.
 """
 from __future__ import annotations
 
@@ -140,6 +144,9 @@ class PlanCache:
         self.disk_loads = 0
         self.disk_saves = 0
         self.disk_corrupt = 0
+        self.stream_hits = 0
+        self.stream_misses = 0
+        self._stream_plans: dict = {}
         self.last_outcome: str | None = None
 
     # ------------------------------------------------------------------ api
@@ -231,6 +238,27 @@ class PlanCache:
                                  {knobs: t.plans}))
         return t
 
+    def get_stream_plan(self, key: str, builder):
+        """Structural tier for streamed chunk plans: ``key`` digests the
+        plan geometry and the chunk-sizing knobs
+        (``engine.stream._stream_plan_key``); ``builder`` runs on a miss.
+        A re-init of the same tensor under the same budget returns the
+        memoized (frozen) ``StreamPlan``. Outcomes land on the
+        ``stream_replan_outcomes`` obs counter."""
+        plan = self._stream_plans.get(key)
+        outcome = "hit" if plan is not None else "miss"
+        if plan is None:
+            plan = builder()
+            self._stream_plans[key] = plan
+            self.stream_misses += 1
+        else:
+            self.stream_hits += 1
+        _obs_counter(
+            "stream_replan_outcomes",
+            "streamed chunk-plan lookups by level (hit/miss)",
+        ).inc(outcome)
+        return plan
+
     def stats(self) -> dict:
         return {
             "hits": self.hits,
@@ -239,12 +267,15 @@ class PlanCache:
             "disk_loads": self.disk_loads,
             "disk_saves": self.disk_saves,
             "disk_corrupt": self.disk_corrupt,
+            "stream_hits": self.stream_hits,
+            "stream_misses": self.stream_misses,
             "entries": sum(len(v) for v in self._by_key.values()),
         }
 
     def clear(self) -> None:
         self._by_key.clear()
         self._order.clear()
+        self._stream_plans.clear()
 
     # ------------------------------------------------------- disk persistence
     def _disk_key(self, dims_t: tuple, nnz: int, knobs: tuple,

@@ -1,13 +1,16 @@
-"""The port's functional spMTTKRP engine (see :mod:`.api`), and above it
-the plan-space entry points: :func:`make_engine` builds an engine from
-one :class:`PlanSpec` through the plan cache, and :func:`autotune` picks
-a spec from a :class:`PlanSpace`.
+"""The port's functional spMTTKRP engine (see :mod:`.api`), its
+out-of-core streaming tier (:mod:`.stream`), and above them the
+plan-space entry points: :func:`make_engine` builds an engine from one
+:class:`PlanSpec` through the plan cache, and :func:`autotune` picks a
+spec from a :class:`PlanSpace`.
 
 Observability (:mod:`repro_torch.obs`): spans ``factory.make_engine``,
 ``autotune``, ``autotune.analytic``, ``autotune.exact``,
-``autotune.hill_climb``, ``autotune.measure``, ``plan.cache_lookup`` and
-the ``engine.*`` spans; counters ``engine_dispatches`` (per entry point)
-and ``plan_cache_outcomes`` (hit / structural / miss / disk_corrupt).
+``autotune.hill_climb``, ``autotune.measure``, ``plan.cache_lookup``, the
+``engine.*`` and the ``stream.*`` spans; counters ``engine_dispatches``
+(per entry point), ``plan_cache_outcomes`` (hit / structural / miss /
+disk_corrupt), ``stream_replan_outcomes``, ``stream_counts`` and
+``stream_bytes``; gauge ``stream_peaks``.
 """
 from .api import (DISPATCH_COUNTS, FoldFn, all_modes, init, mttkrp,
                   reset_counters)
@@ -17,6 +20,9 @@ from .backends import BACKENDS, get_backend, register_backend
 from .config import ExecutionConfig
 from .factory import SPACE_DIMS, PlanSpace, PlanSpec, make_engine
 from .state import EngineState, ModeSched, ModeStatic
+from .stream import (StreamPlan, StreamState, StreamStats, cp_als_stream,
+                     plan_stream, resident_bytes, stream_all_modes,
+                     stream_init, stream_mttkrp, stream_transfer_model)
 
 __all__ = ["init", "mttkrp", "all_modes", "reset_counters",
            "DISPATCH_COUNTS", "FoldFn", "BACKENDS", "get_backend",
@@ -24,4 +30,7 @@ __all__ = ["init", "mttkrp", "all_modes", "reset_counters",
            "EngineState", "ModeSched", "ModeStatic", "PlanSpec",
            "PlanSpace", "make_engine", "SPACE_DIMS", "autotune",
            "AutotuneResult", "analytic_cost", "modeled_cost",
-           "hill_climb"]
+           "hill_climb", "StreamPlan", "StreamState", "StreamStats",
+           "plan_stream", "stream_init", "stream_mttkrp",
+           "stream_all_modes", "cp_als_stream", "resident_bytes",
+           "stream_transfer_model"]

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.mttkrp import (WorkTable, block_starts,
-                                        default_cap, rect_work, remap_plain,
-                                        work_chunks)
+                                        default_cap, rect_cap, rect_work,
+                                        remap_plain, work_chunks)
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import span
 
@@ -130,16 +130,29 @@ def place_sched(host: ModeSched, dev) -> ModeSched:
     return ModeSched(**fields, work=work.chunks, wsum=work.wsum)
 
 
-def mode_work(plan) -> WorkTable:
+def mode_cap(plan) -> int:
+    """The most blocks a CTA's chunk of ``plan`` may hold:
+    ``default_cap(nblocks)`` under compact, :func:`rect_cap` of the alive
+    blocks under rect."""
+    if plan.schedule == "rect":
+        return rect_cap(plan.part_nnz, plan.block_p)
+    return default_cap(plan.nblocks)
+
+
+def mode_work(plan, cap: int | None = None) -> WorkTable:
     """The kernels' work table of one mode's plan: under compact each
-    partition's blocks in chunks of at most ``default_cap(nblocks)``
-    (:func:`work_chunks`); under rect only each partition's alive extent
-    (:func:`rect_work`, checked against the plan's alive slots)."""
+    partition's blocks in chunks of at most ``cap`` (:func:`work_chunks`);
+    under rect only each partition's alive extent (:func:`rect_work`,
+    checked against the plan's alive slots). ``cap`` defaults to
+    :func:`mode_cap`; the streaming tier builds a chunk's table at its
+    resident mode's cap, so that a partition splits as it does there."""
+    if cap is None:
+        cap = mode_cap(plan)
     if plan.schedule == "rect":
         return rect_work(plan.part_nnz, plan.blocks_pp, plan.block_p,
-                         plan.slot_of_elem)
+                         plan.slot_of_elem, cap=cap)
     pstart = block_starts(torch.from_numpy(plan.block_part), plan.kappa)
-    return work_chunks(pstart, default_cap(plan.nblocks))
+    return work_chunks(pstart, cap)
 
 
 def _mode_sched(tensor, d: int, config: ExecutionConfig) -> ModeSched:
@@ -267,5 +280,6 @@ def all_modes(state: EngineState, factors: Sequence[torch.Tensor], *,
 
 
 __all__ = ["init", "mttkrp", "all_modes", "reset_counters", "mode_layout",
-           "mode_sched_arrays", "place_sched", "mode_work", "as_flycoo",
+           "mode_sched_arrays", "place_sched", "mode_work", "mode_cap",
+           "as_flycoo",
            "DISPATCH_COUNTS", "FoldFn"]

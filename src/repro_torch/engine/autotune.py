@@ -17,9 +17,10 @@ factory.PlanSpace` (the port of ``repro.engine.autotune``).
    caller-given ``measure``. Ties break by a seeded draw, so a fixed seed
    reproduces the whole run.
 
-Costs are in slot units (one f32 element move). The streaming tier's
-transfer terms come with the streaming slice (ROADMAP Queue A item 7); a
-spec that resolves to it raises ``NotImplementedError``.
+Costs are in slot units (one f32 element move). A spec that resolves to
+the streaming tier adds its transfer traffic (chunk uploads and remap
+fragments, :func:`repro_torch.engine.stream.stream_transfer_model`), as
+the reference prices it.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import numpy as np
 
 from repro_torch.obs.trace import span
 
-from .factory import SPACE_DIMS, PlanSpace, PlanSpec, refuse_stream
+from .factory import SPACE_DIMS, PlanSpace, PlanSpec
 
 
 def _needs_dedup_tables(spec: PlanSpec) -> bool:
@@ -47,20 +48,84 @@ def _mode_degrees(indices: np.ndarray, dims: Sequence[int]) -> list:
 
 
 # --------------------------------------------------------------------------
+# Streaming transfer term (chunk uploads + remap fragments per mode).
+#
+# Transfer bytes divide by 4 to land in slot units, plus ``block_p`` slots
+# of launch and ring-turnaround overhead per chunk, so that the tuner
+# never picks tiny chunks.
+# --------------------------------------------------------------------------
+def _analytic_stream_cost(spec: PlanSpec, config, dims, nnz: int,
+                          mode_nblocks: Sequence[int]) -> float:
+    """Histogram-stage streaming transfer cost: the reference's
+    ``stream_transfer_model`` with chunk counts approximated from the
+    modeled block totals (no plans built)."""
+    from .stream import bytes_per_slot, resolve_chunk_slots, row_bytes
+
+    n = len(dims)
+    tables = _needs_dedup_tables(spec) and spec.dedup
+    target = resolve_chunk_slots(config, dims, tables=tables)
+    target_blocks = max(1, target // spec.block_p)
+    total = 0.0
+    for nblocks in mode_nblocks:
+        nchunks = max(1, -(-int(nblocks) // target_blocks))
+        upload_slots = int(nblocks) * spec.block_p
+        total += upload_slots * bytes_per_slot(n, tables) / 4.0
+        total += nnz * row_bytes(n) / 4.0          # remap fragment per hop
+        total += nchunks * spec.block_p            # per-chunk overhead
+    return total
+
+
+def _analytic_streams(spec: PlanSpec, config, dims, nnz: int,
+                      mode_nblocks: Sequence[int]) -> bool:
+    """Whether this spec runs the streaming tier, ``"auto"`` resolved
+    against a histogram-stage estimate of the resident footprint."""
+    if spec.residency == "stream":
+        return True
+    if spec.residency != "auto" or config.device_budget_bytes is None:
+        return False
+    n = len(dims)
+    smax = max(int(b) for b in mode_nblocks) * spec.block_p
+    resident = smax * 4 * (1 + 2 * n)
+    tables = _needs_dedup_tables(spec) and spec.dedup
+    for nblocks in mode_nblocks:
+        s_d = int(nblocks) * spec.block_p
+        resident += int(nblocks) * 4
+        if tables:
+            resident += s_d * 8 * (n - 1) + int(nblocks) * 4 * (n - 1)
+    resident += sum(int(d) for d in dims) * 4 * (1 + spec.rank_hint)
+    resident += max(int(d) for d in dims) * spec.rank_hint * 4
+    return resident > config.device_budget_bytes
+
+
+def _spec_streams(spec: PlanSpec, tensor) -> bool:
+    """Exact-stage residency resolution: the rule of
+    ``factory.make_engine`` (``resident_bytes`` against the budget)."""
+    from .stream import resident_bytes
+
+    if spec.residency == "stream":
+        return True
+    config = spec.to_config()
+    return (spec.residency == "auto"
+            and config.device_budget_bytes is not None
+            and resident_bytes(tensor, config) > config.device_budget_bytes)
+
+
+# --------------------------------------------------------------------------
 # Stage 1: analytic cost from degree histograms only.
 # --------------------------------------------------------------------------
 def analytic_cost(degrees: Sequence[np.ndarray], dims: Sequence[int],
                   nnz: int, spec: PlanSpec) -> float:
     """Histogram-only plan cost (slot units): pad slots + modeled factor-
-    row copies + imbalance surplus over the OPT lower bound. No plans
-    built."""
+    row copies + imbalance surplus over the OPT lower bound, plus the
+    modeled transfer traffic when the spec resolves to the streaming
+    tier. No plans built."""
     spec = spec.canonical()
-    refuse_stream(spec)
     config = spec.to_config()
     n = len(dims)
     p_blk = spec.block_p
     dedup = _needs_dedup_tables(spec) and spec.dedup
     total = 0.0
+    mode_nblocks = []
     # per-factor expected unique rows per block (collision model)
     uniq_per_block = []
     for w in range(n):
@@ -79,6 +144,7 @@ def analytic_cost(degrees: Sequence[np.ndarray], dims: Sequence[int],
             nblocks = kappa * int(blocks.max())
         else:
             nblocks = int(blocks.sum())
+        mode_nblocks.append(nblocks)
         pad_slots = nblocks * p_blk - nnz
         # imbalance surplus of the achieved max load over the OPT bound
         opt_lb = max(float(part_nnz.mean()), float(deg[0]))
@@ -89,6 +155,9 @@ def analytic_cost(degrees: Sequence[np.ndarray], dims: Sequence[int],
         else:
             dma = (n - 1) * nblocks * p_blk
         total += pad_slots + dma + surplus
+    if _analytic_streams(spec, config, dims, nnz, mode_nblocks):
+        total += _analytic_stream_cost(spec, config, dims, nnz,
+                                       mode_nblocks)
     return float(total)
 
 
@@ -98,9 +167,10 @@ def analytic_cost(degrees: Sequence[np.ndarray], dims: Sequence[int],
 def modeled_cost(tensor, spec: PlanSpec) -> float:
     """Exact modeled cost of ``tensor``'s built plans under ``spec``: pad
     slots + factor-row copies (the dedup tables' unique rows when the spec
-    uses them, one per slot otherwise)."""
+    uses them, one per slot otherwise), plus the streamed transfer
+    traffic (:func:`repro_torch.engine.stream.stream_transfer_model`) when
+    the spec resolves to the streaming tier."""
     spec = spec.canonical()
-    refuse_stream(spec)
     dedup = _needs_dedup_tables(spec) and spec.dedup
     total = 0.0
     for d in range(tensor.nmodes):
@@ -110,6 +180,12 @@ def modeled_cost(tensor, spec: PlanSpec) -> float:
             total += tensor.dma_row_model(d)["dedup_rows"]
         else:
             total += (tensor.nmodes - 1) * plan.padded_nnz
+    if _spec_streams(spec, tensor):
+        from .stream import stream_transfer_model
+
+        model = stream_transfer_model(tensor, spec.to_config())
+        total += (model["h2d_bytes"] + model["fragment_bytes"]) / 4.0
+        total += model["total_chunks"] * spec.block_p
     return float(total)
 
 

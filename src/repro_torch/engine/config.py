@@ -2,9 +2,10 @@
 
 ``ExecutionConfig`` mirrors ``repro.engine.config.ExecutionConfig``: the
 same fields and meanings, minus Pallas ``interpret`` (a CUDA kernel has no
-interpret mode), plus ``device``. The streaming fields (``residency``,
-``chunk_nnz``, ``device_budget_bytes``, ``stream_ring``) come with the
-streaming slice; ``donate`` has no meaning in eager PyTorch.
+interpret mode) and ``donate`` (no meaning in eager PyTorch), plus
+``device``. The streaming fields (``residency``, ``chunk_nnz``,
+``device_budget_bytes``, ``stream_ring``) are the reference's, with its
+validation.
 
 Backends map one-to-one onto the reference's; each serves both block
 schedules:
@@ -34,9 +35,11 @@ the SMs. With ``min_partitions=1`` and the same
 ``rows_pp`` the plans equal the reference's.
 
 The reference derives its VMEM budget from the device budget
-(``derive_vmem_budget``); the port has no counterpart. A Hopper block's
-shared memory is the card's fixed 227 KB, not a share of device memory,
-so ``smem_budget_bytes`` defaults to that and nothing derives it.
+(``derive_vmem_budget``) and refuses a VMEM budget above the device
+budget; the port has neither. A Hopper block's shared memory is the
+card's fixed 227 KB, not a share of device memory, so
+``smem_budget_bytes`` defaults to that, nothing derives it, and a device
+budget below it is no contradiction.
 """
 from __future__ import annotations
 
@@ -50,6 +53,13 @@ from repro_torch.kernels.mttkrp import (H100_SMS, SMEM_PER_BLOCK,
 
 KAPPA_POLICIES = ("smem", "fixed")
 SCHEDULES = ("compact", "rect")
+
+# Residency tiers: "full" keeps the whole FLYCOO layout on the device;
+# "stream" keeps it in pinned host memory and streams partition-aligned
+# chunks through a ring of device buffers (``engine.stream``); "auto"
+# lets ``factory.make_engine`` pick: stream exactly when the resident
+# layout would exceed ``device_budget_bytes``.
+RESIDENCIES = ("auto", "full", "stream")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +89,16 @@ class ExecutionConfig:
       min_partitions: floor on the partition count of a mode (capped at
         its size); ``None`` = ``2 * H100_SMS``.
       schedule: block schedule when ``engine.init`` builds plans itself.
+      residency: memory tier, ``"full"``, ``"stream"`` or ``"auto"`` (see
+        ``RESIDENCIES``).
+      chunk_nnz: target slots of a streamed chunk (whole partitions; the
+        planner rounds). ``None`` = derive from ``device_budget_bytes``,
+        else the library default.
+      device_budget_bytes: device memory the streaming tier sizes its
+        chunk ring against, and the threshold ``"auto"`` compares the
+        resident layout with.
+      stream_ring: device chunk buffers of the streaming ring (2: chunk
+        k computes while k+1 uploads).
     """
 
     backend: str = "torch"
@@ -94,6 +114,10 @@ class ExecutionConfig:
     rank_hint: int = 32
     min_partitions: int | None = None
     schedule: str = "compact"
+    residency: str = "auto"
+    chunk_nnz: int | None = None
+    device_budget_bytes: int | None = None
+    stream_ring: int = 2
 
     def __post_init__(self):
         if self.kappa_policy not in KAPPA_POLICIES:
@@ -102,10 +126,20 @@ class ExecutionConfig:
         if self.schedule not in SCHEDULES:
             raise ValueError(
                 f"schedule {self.schedule!r} not in {SCHEDULES}")
+        if self.residency not in RESIDENCIES:
+            raise ValueError(
+                f"residency {self.residency!r} not in {RESIDENCIES}")
         if self.kappa_policy == "fixed" and self.kappa is None:
             raise ValueError("kappa_policy='fixed' requires kappa")
         if self.min_partitions is not None and self.min_partitions < 1:
             raise ValueError("min_partitions must be positive")
+        if self.chunk_nnz is not None and self.chunk_nnz < 1:
+            raise ValueError("chunk_nnz must be positive")
+        if (self.device_budget_bytes is not None
+                and self.device_budget_bytes < 1):
+            raise ValueError("device_budget_bytes must be positive")
+        if self.stream_ring < 1:
+            raise ValueError("stream_ring must be >= 1")
         dev = self.torch_device
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -148,5 +182,5 @@ class ExecutionConfig:
         return min(max(kappa, floor), dim)
 
 
-__all__ = ["ExecutionConfig", "KAPPA_POLICIES", "SCHEDULES",
+__all__ = ["ExecutionConfig", "KAPPA_POLICIES", "SCHEDULES", "RESIDENCIES",
            "SMEM_PER_BLOCK", "H100_SMS"]

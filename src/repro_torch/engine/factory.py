@@ -14,8 +14,9 @@
     under the ``rect`` schedule, where no dedup tables exist) collapsed.
 
 ``make_engine``
-    The one entry point: COO triple or prebuilt tensor + spec ->
-    device-resident ``EngineState``, planned through the sparsity-
+    The one entry point: COO triple or prebuilt tensor + spec -> a
+    device-resident ``EngineState`` or, for the streaming tier, a
+    ``StreamState`` (:mod:`.stream`), planned through the sparsity-
     signature plan cache (:mod:`repro_torch.core.plancache`).
 
 Names follow the port's (reference in brackets): backends ``torch``
@@ -23,9 +24,9 @@ Names follow the port's (reference in brackets): backends ``torch``
 kappa policy ``"smem"`` [``"vmem"``]; ``smem_budget_bytes``
 [``vmem_budget_bytes``]. ``device`` takes the place of Pallas
 ``interpret``, and ``min_partitions`` is the port's partition floor
-(see :mod:`.config`). The port serves the single-device resident tier:
-a mesh, the degradation ladder, resuming from a snapshot and the
-streaming tier raise ``NotImplementedError`` until their slices land.
+(see :mod:`.config`). The port serves the single-device tiers, resident
+and streamed: a mesh, the degradation ladder and resuming from a
+snapshot raise ``NotImplementedError`` until their slices land.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import itertools
 
 from repro_torch.kernels.mttkrp import SMEM_PER_BLOCK
 
-from .config import SCHEDULES, ExecutionConfig
+from .config import RESIDENCIES, SCHEDULES, ExecutionConfig
 
 # Searchable spec fields, in enumeration order (PlanSpace dimensions).
 SPACE_DIMS = ("backend", "schedule", "block_p", "rows_pp",
@@ -42,19 +43,6 @@ SPACE_DIMS = ("backend", "schedule", "block_p", "rows_pp",
               "residency", "chunk_nnz")
 
 EXCHANGES = ("permute", "all_gather")     # distributed remap exchanges
-RESIDENCIES = ("auto", "full", "stream")  # memory tiers
-
-
-def refuse_stream(spec: "PlanSpec") -> None:
-    """Raise for a spec that resolves to the streaming tier: ``"stream"``,
-    or ``"auto"`` with a device budget to compare the layout against."""
-    if spec.residency == "stream" or (spec.residency == "auto"
-                                      and spec.device_budget_bytes
-                                      is not None):
-        raise NotImplementedError(
-            "the streaming tier (residency='stream', or 'auto' with "
-            "device_budget_bytes) is ROADMAP Queue A item 7, not yet "
-            "ported; use residency='full'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +50,9 @@ class PlanSpec:
     """One point in the plan space (frozen, usable as a dict key).
 
     Engine knobs mirror :class:`~repro_torch.engine.config.ExecutionConfig`.
-    ``exchange`` (distributed remap schedule), ``residency``,
-    ``chunk_nnz``, ``device_budget_bytes``, ``stream_ring`` (the
-    streaming tier) and ``ladder`` keep the reference's values and
-    meanings so the space enumerates the same points; ``make_engine``
-    serves only what the port has.
+    ``exchange`` (distributed remap schedule) and ``ladder`` keep the
+    reference's values and meanings so the space enumerates the same
+    points; ``make_engine`` serves only what the port has.
     """
 
     backend: str = "torch"
@@ -92,14 +78,6 @@ class PlanSpec:
         if self.exchange not in EXCHANGES:
             raise ValueError(
                 f"exchange {self.exchange!r} not in {EXCHANGES}")
-        if self.residency not in RESIDENCIES:
-            raise ValueError(
-                f"residency {self.residency!r} not in {RESIDENCIES}")
-        for name in ("chunk_nnz", "device_budget_bytes"):
-            if getattr(self, name) is not None and getattr(self, name) < 1:
-                raise ValueError(f"{name} must be positive")
-        if self.stream_ring < 1:
-            raise ValueError("stream_ring must be >= 1")
         self.to_config()   # the engine knobs validate there
 
     def to_config(self) -> ExecutionConfig:
@@ -109,16 +87,20 @@ class PlanSpec:
             rows_pp=self.rows_pp, fuse_remap=self.fuse_remap,
             dedup=self.dedup, smem_budget_bytes=self.smem_budget_bytes,
             rank_hint=self.rank_hint, min_partitions=self.min_partitions,
-            schedule=self.schedule)
+            schedule=self.schedule, residency=self.residency,
+            chunk_nnz=self.chunk_nnz,
+            device_budget_bytes=self.device_budget_bytes,
+            stream_ring=self.stream_ring)
 
     def canonical(self) -> "PlanSpec":
         """Collapse knob settings of identical meaning to one point: dedup
         exists only for ``needs_dedup`` backends under ``compact``; fused
         remap only for backends exposing ``fused_remap``; streaming knobs
         only for the streaming tier. Unlike the reference, the
-        shared-memory budget is never derived from ``device_budget_bytes``:
-        a Hopper block's shared memory is the card's fixed 227 KB, not a
-        share of device memory."""
+        shared-memory budget is never derived from ``device_budget_bytes``
+        (the port has no ``derive_vmem_budget``): a Hopper block's shared
+        memory is the card's fixed 227 KB, not a share of device
+        memory."""
         from .backends import get_backend
 
         backend = get_backend(self.backend)
@@ -175,8 +157,7 @@ class PlanSpace:
 def make_engine(tensor, spec: PlanSpec | None = None, *,
                 start_mode: int = 0, cache=None, mesh=None, ladder=None,
                 resume=None):
-    """Build a device-resident ``EngineState`` from one declarative
-    ``spec``.
+    """Build an engine from one declarative ``spec``.
 
     ``tensor`` is a raw COO triple ``(indices, values, dims)`` or a
     prebuilt :class:`~repro_torch.core.flycoo.FlycooTensor` (its plans
@@ -184,16 +165,24 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
     (``None`` uses the process-wide default; ``cache=False`` forces cold
     planning).
 
+    The spec's ``residency`` picks the memory tier: ``"full"`` returns a
+    device-resident ``EngineState``, ``"stream"`` the out-of-core
+    ``StreamState`` (:mod:`.stream`), and ``"auto"`` compares the
+    resident footprint (:func:`.stream.resident_bytes`) with
+    ``device_budget_bytes``: a tensor that does not fit streams. Without
+    the degradation ladder an out-of-memory error of the resident tier
+    propagates, as in the reference with no policy.
+
     Not yet ported, and refused with ``NotImplementedError`` rather than
     served by something else: ``mesh`` (the distributed tier, ROADMAP
     Queue A item 10), ``ladder`` other than ``None``/``False`` and
-    ``resume`` (resilience, item 9), and a spec that resolves to the
-    streaming tier (item 7).
+    ``resume`` (resilience, item 9).
     """
     from repro_torch.core.plancache import DEFAULT_CACHE
     from repro_torch.obs.trace import span
 
-    from .api import init
+    from .api import as_flycoo, init
+    from .stream import resident_bytes, stream_init
 
     spec = (spec or PlanSpec()).canonical()
     if mesh is not None:
@@ -210,14 +199,24 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
         raise NotImplementedError(
             "make_engine(resume=...): snapshot resume is ROADMAP Queue A "
             "item 9 (resilience), not yet ported")
-    refuse_stream(spec)
     if cache is None:
         cache = DEFAULT_CACHE
     elif cache is False:
         cache = None
+    config = spec.to_config()
     with span("factory.make_engine", backend=spec.backend,
-              schedule=spec.schedule, residency=spec.residency):
-        return init(tensor, spec.to_config(), start_mode, cache=cache)
+              schedule=spec.schedule, residency=spec.residency) as sp:
+        residency = spec.residency
+        if residency == "auto":
+            # the plans size the resident footprint: build them once
+            # (through the cache) and hand the planned tensor to the tier
+            tensor = as_flycoo(tensor, config, cache=cache)
+            over = resident_bytes(tensor, config) > config.device_budget_bytes
+            residency = "stream" if over else "full"
+        sp.set("resolved_residency", residency)
+        if residency == "full":
+            return init(tensor, config, start_mode, cache=cache)
+        return stream_init(tensor, config, start_mode, cache=cache)
 
 
 __all__ = ["PlanSpec", "PlanSpace", "make_engine", "SPACE_DIMS",

@@ -323,14 +323,22 @@ def work_chunks(pstart, cap: int) -> WorkTable:
     return work_from_chunks(split_partitions(pstart, cap), pstart)
 
 
-def rect_work(part_nnz, blocks_pp: int, block_p: int, slots) -> WorkTable:
+def rect_cap(part_nnz, block_p: int) -> int:
+    """:func:`default_cap` of a rect plan's alive blocks (of all ``kappa *
+    blocks_pp`` blocks the cap would be ``blocks_pp``, and nothing would
+    split)."""
+    nnz = np.asarray(part_nnz, dtype=np.int64)
+    return default_cap(int((-(-nnz // block_p)).sum()))
+
+
+def rect_work(part_nnz, blocks_pp: int, block_p: int, slots,
+              cap: int | None = None) -> WorkTable:
     """The work table of a rect plan: each partition's chunks cover only
     its alive extent, ``ceil(part_nnz[j] / block_p)`` blocks from its
     first block ``j * blocks_pp`` (a rect plan lays a partition's alive
     slots first), a partition with no nonzeros one empty chunk (its tile
-    is still written), at :func:`default_cap` of the alive blocks (of
-    all ``kappa * blocks_pp`` blocks the cap would be ``blocks_pp``, and
-    nothing would split). The alive-first order is the plan's invariant,
+    is still written), in chunks of at most ``cap`` blocks (default
+    :func:`rect_cap`). The alive-first order is the plan's invariant,
     not a layout's, so the table is also checked against the plan's alive
     slots ``slots`` (``ModePlan.slot_of_elem``): every one must lie in a
     listed block (:func:`check_covers`)."""
@@ -341,9 +349,10 @@ def rect_work(part_nnz, blocks_pp: int, block_p: int, slots) -> WorkTable:
         raise ValueError(f"a partition of {int(nnz.max())} nonzeros does not "
                          f"fit {blocks_pp} blocks of {block_p}")
     begin = np.arange(kappa, dtype=np.int64) * blocks_pp
-    work = work_from_chunks(
-        split_ranges(begin, begin + alive, default_cap(int(alive.sum()))),
-        np.append(begin, kappa * blocks_pp))
+    if cap is None:
+        cap = rect_cap(nnz, block_p)
+    work = work_from_chunks(split_ranges(begin, begin + alive, cap),
+                            np.append(begin, kappa * blocks_pp))
     check_covers(work, slots, block_p)
     return work
 
@@ -995,6 +1004,7 @@ __all__ = ["mttkrp_fused", "mttkrp_fused_compact", "mttkrp_fused_gather",
            "mttkrp_fused_remap_compact_plain", "remap_plain", "block_starts",
            "rect_block_starts", "LAUNCHES", "reset_launch_counts",
            "WorkTable", "work_chunks", "work_from_chunks", "rect_work",
+           "rect_cap",
            "check_work", "check_covers", "checked_for", "split_ranges",
            "split_partitions", "default_cap", "chunked_plain",
            "chunked_plain_pregathered", "chunked_plain_gather",

@@ -97,8 +97,7 @@ def test_cache_levels_and_plans_equal_reference(schedule):
         assert tc.last_outcome == rc.last_outcome == want
         _assert_plans_equal(t.plans, r.plans)
         _assert_plans_equal(t.plans, build_flycoo(i, v, dims, **kw).plans)
-    assert tc.stats() == {k: v for k, v in rc.stats().items()
-                          if not k.startswith("stream")}
+    assert tc.stats() == rc.stats()
 
 
 def test_cache_knob_key_and_eviction():
@@ -320,17 +319,10 @@ def test_make_engine_plans_like_engine_init_and_reports():
     (dict(mesh=object()), "item 10"),
     (dict(ladder=True), "item 9"),
     (dict(spec=dict(ladder=True)), "item 9"),
-    (dict(resume=object()), "item 9"),
-    (dict(spec=dict(residency="stream")), "item 7"),
-    (dict(spec=dict(residency="auto", device_budget_bytes=1 << 30)),
-     "item 7")])
+    (dict(resume=object()), "item 9")])
 def test_make_engine_refuses_what_is_not_ported(call, item):
-    """Each raises; nothing else runs in its place. The cost models refuse
-    a spec of the streaming tier too."""
+    """Each raises; nothing else runs in its place."""
     idx, val, dims = _coo(nnz=300)
     spec = _spec(backend="cuda_fused", **call.pop("spec", {}))
     with pytest.raises(NotImplementedError, match=item):
         make_engine((idx, val, dims), spec, cache=False, **call)
-    if item == "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            analytic_cost(_mode_degrees(idx, dims), dims, len(idx), spec)

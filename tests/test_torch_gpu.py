@@ -6,8 +6,11 @@ on the engine's tables and on tables that split every block or nothing,
 against the plain versions of their schedule and with mutant tables; an
 unchecked table refused by every wrapper), the ``cuda_fused`` and ``cuda``
 rotations (both schedules) against the COO oracle, CPD on the card, the
-RWKV-6 ``forward`` on the ``wkv6`` kernel and the RecurrentGemma
-``forward`` on the ``lru_scan`` kernel. Every test is marked
+RWKV-6 ``forward`` on the ``wkv6`` kernel, the RecurrentGemma
+``forward`` on the ``lru_scan`` kernel, and the streaming tier (each
+streamed mode against the resident engine and the oracle, host layouts
+bitwise, one host wait a mode, ``cp_als_stream``, the event timeline).
+Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
 the CUDA toolkit only:
@@ -915,3 +918,120 @@ def test_recurrentgemma_engine_on_the_card_by_default(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# The streaming tier on the card (chip_smoke.py [12a] at a small size).
+# --------------------------------------------------------------------------
+def _stream_case(cuda, nmodes=3, schedule="compact"):
+    idx, val, dims, rng = _coo(nmodes, 2000, nmodes + 11)
+    t = build_flycoo(idx, val, dims, rows_pp=4, block_p=8,
+                     schedule=schedule)
+    facs = [torch.from_numpy(rng.standard_normal((d, 32))
+                             .astype(np.float32)).to(cuda) for d in dims]
+    return t, facs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,schedule,name", [
+    ("cuda_fused", "compact", "mttkrp_fused_gather_compact"),
+    ("cuda", "compact", "mttkrp_fused_compact"),
+    ("cuda_fused", "rect", "mttkrp_fused_gather"),
+    ("cuda", "rect", "mttkrp_fused")])
+@pytest.mark.parametrize("nmodes", [3, 5])
+def test_stream_matches_resident_on_the_card(cuda, backend, schedule, name,
+                                             nmodes):
+    """Each mode's streamed output within the tolerance of the resident
+    engine's and the oracle's, the streamed host layout bitwise the
+    resident one's first S_d slots after every mode, one kernel launch a
+    chunk, every upload but each mode's first issued ahead."""
+    from repro_torch.engine.stream import stream_init, stream_mttkrp
+
+    t, facs = _stream_case(cuda, nmodes, schedule)
+    cfg = ExecutionConfig(backend=backend, schedule=schedule, chunk_nnz=64)
+    ti = torch.from_numpy(t.indices).to(cuda)
+    tv = torch.from_numpy(t.values).to(cuda)
+    st = engine.init(t, cfg)
+    ss = stream_init(t, cfg)
+    assert all(cs.nchunks > 1 for cs in ss.plan.chunks)
+    for _ in range(nmodes):
+        d = st.mode
+        lay = mode_layout(st, (st.val, st.idx, st.alpha), d)
+        sd = st.statics[d].padded_nnz
+        for k in ("val", "idx", "alpha", "lrow"):
+            assert np.array_equal(getattr(ss, k), lay[k][:sd].cpu().numpy())
+        out_r, st = engine.mttkrp(st, facs)
+        before = kmt.LAUNCHES[name]
+        out_s, ss = stream_mttkrp(ss, facs)
+        torch.cuda.synchronize()
+        assert kmt.LAUNCHES[name] == before + ss.plan.chunks[d].nchunks
+        torch.testing.assert_close(out_s, out_r, **TOL)
+        torch.testing.assert_close(out_s, mttkrp_ref(ti, tv, facs, d,
+                                                     t.dims[d]), **TOL)
+    assert ss.stats.overlap_efficiency == pytest.approx(
+        1 - nmodes / ss.stats.uploads)
+
+
+@pytest.mark.gpu
+def test_stream_waits_once_a_mode_and_reads_nothing_back(cuda, monkeypatch):
+    """On the card the rotation's only host waits are one event a mode
+    (before the host writes the layout that fed the uploads before): no
+    ``.cpu()``, ``.item()`` or device ``synchronize``."""
+    from repro_torch.engine.stream import stream_all_modes, stream_init
+
+    t, facs = _stream_case(cuda)
+    ss = stream_init(t, ExecutionConfig(backend="cuda_fused",
+                                        chunk_nnz=64))
+    stream_all_modes(ss, facs)          # a warm-up rotation
+    calls = []
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    for name in ("cpu", "item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            counting(name, getattr(torch.Tensor, name)))
+    for owner, name in ((torch.cuda, "device"), (torch.cuda.Stream, "stream"),
+                        (torch.cuda.Event, "event")):
+        monkeypatch.setattr(owner, "synchronize",
+                            counting(name, owner.synchronize))
+    _, ss = stream_all_modes(ss, facs)
+    monkeypatch.undo()
+    assert calls == ["event"] * t.nmodes
+
+
+@pytest.mark.gpu
+def test_cp_als_stream_on_the_card(cuda):
+    from repro_torch.engine.stream import cp_als_stream
+
+    t, facs = _stream_case(cuda, nmodes=5)
+    init = [f[:, :8].contiguous() for f in facs]
+    cfg = ExecutionConfig(backend="cuda_fused", chunk_nnz=64)
+    a = cp_als_stream(t, 8, iters=3, config=cfg, factors=init).fits
+    b = cp_als(t, 8, iters=3, config=cfg, factors=init).fits
+    assert all(np.isfinite(a))
+    assert a == pytest.approx(b, abs=1e-4)
+
+
+@pytest.mark.gpu
+def test_stream_timeline_and_peak(cuda):
+    """With ``stats.timeline`` a list, each upload and each chunk's
+    compute leave a pair of timing events; ``as_row`` reads the device
+    peak."""
+    from repro_torch.engine.stream import stream_all_modes, stream_init
+
+    t, facs = _stream_case(cuda)
+    ss = stream_init(t, ExecutionConfig(backend="cuda_fused",
+                                        chunk_nnz=64))
+    ss.stats.timeline = []
+    _, ss = stream_all_modes(ss, facs)
+    torch.cuda.synchronize()
+    kinds = [e[0] for e in ss.stats.timeline]
+    assert kinds.count("upload") == kinds.count("compute") == \
+        ss.plan.total_chunks
+    assert all(a.elapsed_time(b) >= 0 for _, _, _, a, b in
+               ss.stats.timeline)
+    assert ss.stats.as_row()["device_peak_bytes"] > 0
