@@ -56,9 +56,26 @@ times the kernels at each path's shapes.
        resident footprint: the streamed rotation timed (uploads, kernels
        and host remap apart) beside the resident one, its peak device
        bytes against the budget model's prediction and the resident peak
+  [13] resilience (``repro_torch.resilience``), after [1]-[12] are shown
+       to have taken no rung: [13a] ``cp_als`` at nell1 scale 0.01 in
+       child processes (``--als-child``), clean twice (is the card
+       run-to-run bitwise?), SIGKILLed at sweep 3 by ``REPRO_CHAOS`` and
+       resumed from its snapshots (the resumed child must load one
+       snapshot, run only sweeps 3-5 and keep the snapshot's fits
+       bitwise); [13b] the backend rung ``cuda_fused -> cuda`` on [3]'s
+       tensor, where the card's ladder ends; [13c] the residency rung ``full ->
+       stream`` on a real ``torch.cuda.OutOfMemoryError``, [12d]'s vast
+       tensor under an allocator cap; [13d] the stream's chunk-budget
+       halving and upload retry at nell1 0.1; [13e] the NaN guard; [13f]
+       ``resilience_report`` pairing every injected fault with its answer,
+       and [13]'s Chrome trace in ``chiprun_out/chip_smoke_trace13.json``
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
+
+It refuses to start with ``REPRO_LADDER`` or ``REPRO_CHAOS`` set: phases
+[1]-[12] run with no ladder and no injected fault, so a kernel that does
+not build or launch there fails the run.
 
 Every phase raises on failure. The second-to-last line of standard output
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -95,6 +112,13 @@ function on absolute inputs) and ``u = 2**-24``:
     model (``stream_fixed_bytes`` + ``stream_ring`` x
     ``chunk_device_bytes`` of the largest chunk) plus the port's work
     tables and largest partial buffer, and under the resident peak.
+  * [13]: a resumed ``cp_als`` bitwise the clean run where two clean
+    runs are bitwise equal, else within ``FIT_ATOL`` of it; the backend
+    rung's fits within ``FIT_ATOL`` of [7]'s ``cuda`` fits, the NaN
+    guard's of [3]'s clean fits (the replayed sweep's stronger ridge,
+    1e-3 against Gram products of unit-norm columns, moves them by ~2e-6
+    on an H100); every streamed mode after a rung within the oracle
+    limit above.
   * CPD fits, cuda_fused ([3]) and cuda ([7]) against the torch backend
     from the same initial factors: ``FIT_ATOL`` (the per-mode differences
     above, through three sweeps of R x R solves), on ``FIT_SEEDS`` draws
@@ -2283,12 +2307,19 @@ def phase_stream_vast(kmt, report):
                         factors=factors, cache=cache).fits
     free_device_memory()
 
+    init_peak = []
+
     def resident_run():
         state = engine.init(t, cfg_full)
+        torch.cuda.synchronize()
+        init_peak.append(torch.cuda.max_memory_allocated())
         res_outs, _ = engine.all_modes(state, factors)
         return state, res_outs
 
+    free_device_memory()
+    held = torch.cuda.memory_allocated()
     (state, res_outs), peak_r = peak_of(resident_run)
+    peak_init = init_peak[0] - held
     res_ms = cuda_median_ms(lambda: engine.all_modes(state, factors),
                             VAST_REPS)
     del state
@@ -2310,6 +2341,7 @@ def phase_stream_vast(kmt, report):
         errs.append(e)
         shares.append(s)
         rshares.append(r)
+    oracle_h = [(w.cpu(), lim.cpu()) for w, lim in oracle]
     del oracle, outs, res_outs
     log(f"[12d] each mode streamed == mttkrp_ref (max err {max(errs):.3e}, "
         f"{max(shares):.2e} of the limit) and == resident "
@@ -2319,7 +2351,8 @@ def phase_stream_vast(kmt, report):
         f"{VAST_REPS}); peak streamed {peak_s / 2**30:.3f} GiB (model "
         f"{model_b / 2**30:.3f} + {extra / 2**30:.4f} GiB tables and "
         f"partials; budget {budget / 2**30:.3f}), resident "
-        f"{peak_r / 2**30:.3f} GiB")
+        f"{peak_r / 2**30:.3f} GiB (engine.init alone "
+        f"{peak_init / 2**30:.3f})")
     if not peak_s < model_b + extra:
         raise AssertionError(f"[12d] streamed peak {peak_s} over the model "
                              f"{model_b} + {extra}")
@@ -2335,19 +2368,534 @@ def phase_stream_vast(kmt, report):
         "model_h2d_bytes": model["h2d_bytes"], "overlap": overlap,
         "h2d_gbs": gbs, "resident_ms": res_ms, "peak_stream": peak_s,
         "model_bytes": model_b, "unmodeled_bytes": extra,
-        "peak_resident": peak_r, "max_err": max(errs),
+        "peak_resident": peak_r, "peak_resident_init": peak_init,
+        "max_err": max(errs),
         "max_share": max(shares), "resident_share": max(rshares),
         "cp_fit": fit, "resident_cp_fit": res_fit, "fit_gap": fit_gap}
     free_device_memory()
+    return {"t": t, "cache": cache, "factors": factors,
+            "oracle": oracle_h, "budget": budget, "peak_stream": peak_s,
+            "peak_init": peak_init}
 
 
 def phase_stream(kmt, t, factors, report):
-    """[12] The streaming tier: [12a]-[12d]."""
+    """[12] The streaming tier: [12a]-[12d]; returns [12d]'s vast tensor,
+    factors and oracle for [13c]."""
     phase_stream_nell1(kmt, t, factors, report["nell1"]["fits"],
                        report["nell1"]["fit_witness"], report)
     phase_stream_rect(kmt, report)
     phase_stream_twitch(kmt, report)
-    phase_stream_vast(kmt, report)
+    return phase_stream_vast(kmt, report)
+
+
+# --------------------------------------------------------------------------
+# [13] Resilience on the card.
+# --------------------------------------------------------------------------
+ALS_SCALE = 0.01               # [13a]: the kill-and-resume child's nell1
+ALS_SWEEPS = 6
+KILL_SWEEP = 3
+OOM_CHUNK = 3                  # [13d]: the chunk compute that OOMs
+RESILIENCE_ENV = ("REPRO_LADDER", "REPRO_CHAOS")
+
+
+def resilience_counts():
+    """Totals of the resilience counters on the port's registry:
+    degradations, retries, recoveries and injected faults."""
+    from repro_torch import obs
+
+    return {name: obs.REGISTRY.counter(name).total()
+            for name in ("resilience_degradations", "resilience_retries",
+                         "resilience_recoveries", "chaos_injections")}
+
+
+def als_child(ckpt, out, mode):
+    """``--als-child``: ``cp_als`` on ``cuda_fused`` at nell1 scale
+    ``ALS_SCALE``, ``ALS_SWEEPS`` sweeps, a snapshot every sweep into
+    ``ckpt``; ``mode`` "resume" resumes from it. Writes the factors,
+    lam and fits to ``out`` (npz), with the sweeps this process ran (from
+    the ``cpd.sweep`` spans) and the snapshots it loaded."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build_flycoo, cp_als, init_factors, spec, \
+        synthesize
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.obs import trace
+    from repro_torch.resilience import SnapshotStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ts = spec("nell1", scale=ALS_SCALE)
+    indices, values = synthesize(ts, seed=0)
+    cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK)
+    n = len(ts.dims)
+    t = build_flycoo(indices, values, ts.dims,
+                     kappa=[cfg.kappa_for(i, n) for i in ts.dims],
+                     block_p=cfg.block_p)
+    factors = init_factors(torch.Generator(device="cuda").manual_seed(0),
+                           t.dims, RANK)
+    store = SnapshotStore(ckpt) if ckpt else None
+    tracer = trace.enable()
+    t0 = time.perf_counter()
+    res = cp_als(t, RANK, iters=ALS_SWEEPS, config=cfg, factors=factors,
+                 checkpoint=store, checkpoint_every=1,
+                 resume=mode == "resume")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sweeps = [r.attrs["sweep"] for r in tracer.spans()
+              if r.name == "cpd.sweep"]
+    np.savez(out, *[f.cpu().numpy() for f in res.factors],
+             lam=res.lam.cpu().numpy(), fits=np.asarray(res.fits),
+             seconds=secs, sweeps=np.asarray(sweeps, np.int64),
+             loads=store.loads if store is not None else 0)
+    return 0
+
+
+def run_children(jobs):
+    """Run ``--als-child`` processes at once; ``jobs`` is a list of
+    ``(ckpt, out, mode, chaos)``. Returns their return codes and
+    standard errors, in order."""
+    import os
+
+    procs = []
+    for ckpt, out, mode, chaos in jobs:
+        env = {k: v for k, v in os.environ.items()
+               if k not in RESILIENCE_ENV}
+        if chaos:
+            env["REPRO_CHAOS"] = chaos
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--als-child",
+             ckpt, out, mode], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            out.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def npz_diff(a, b):
+    """Largest |difference| of the factors and lam, and of the fits, of
+    two child outputs; and whether they are bitwise equal."""
+    import numpy as np
+
+    names = [k for k in a.files if k not in ("seconds", "sweeps", "loads")]
+    same = all(np.array_equal(a[k], b[k]) for k in names)
+    fac = max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+              for k in names if k != "fits")
+    fits = float(np.abs(a["fits"] - b["fits"]).max())
+    return same, fac, fits
+
+
+def phase_kill_resume(report):
+    """[13a] ``cp_als`` killed at the start of sweep ``KILL_SWEEP`` by the
+    ``kill_sweep`` fault, then resumed from its snapshots, in child
+    processes: two clean runs (is the card run-to-run bitwise?), the
+    killed run (must die of SIGKILL, leaving snapshots), the resumed run
+    (bitwise the clean one if the card is, else within ``FIT_ATOL``)."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+    from repro_torch.resilience import SnapshotStore
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ckpt")
+        out = {k: os.path.join(tmp, f"{k}.npz")
+               for k in ("clean", "clean2", "resumed")}
+        t0 = time.perf_counter()
+        (rc_a, err_a), (rc_b, err_b), (rc_k, err_k) = run_children([
+            ("", out["clean"], "fresh", None),
+            ("", out["clean2"], "fresh", None),
+            (ck, os.devnull, "fresh", f"kill_sweep={KILL_SWEEP}")])
+        for rc, err in ((rc_a, err_a), (rc_b, err_b)):
+            if rc != 0:
+                raise AssertionError(f"[13a] clean child exited {rc}: "
+                                     f"{err[-2000:]}")
+        if rc_k != -signal.SIGKILL:
+            raise AssertionError(f"[13a] killed child exited {rc_k}, not "
+                                 f"-SIGKILL: {err_k[-2000:]}")
+        left = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+        if not left:
+            raise AssertionError("[13a] no snapshot survived the kill")
+        # the newest snapshot the killed child left: the resumed child
+        # must start from it
+        store = SnapshotStore(ck)
+        snap = max((store.load(os.path.join(ck, f)) for f in left),
+                   key=lambda x: x.sweep)
+        if snap.sweep != KILL_SWEEP:
+            raise AssertionError(f"[13a] the killed child's newest snapshot "
+                                 f"is at sweep {snap.sweep}, not "
+                                 f"{KILL_SWEEP}")
+        (rc_r, err_r), = run_children([(ck, out["resumed"], "resume",
+                                        None)])
+        if rc_r != 0:
+            raise AssertionError(f"[13a] resumed child exited {rc_r}: "
+                                 f"{err_r[-2000:]}")
+        secs = time.perf_counter() - t0
+        with np.load(out["clean"]) as a, np.load(out["clean2"]) as b, \
+                np.load(out["resumed"]) as r:
+            bitwise, cc_fac, cc_fit = npz_diff(a, b)
+            same_r, rc_fac, rc_fit = npz_diff(a, r)
+            fits, rfits = a["fits"].tolist(), r["fits"].tolist()
+            child_s = [float(x["seconds"]) for x in (a, b, r)]
+            ran = [x["sweeps"].tolist() for x in (a, b, r)]
+            loads = [int(x["loads"]) for x in (a, b, r)]
+            kept = np.array_equal(r["fits"][:KILL_SWEEP],
+                                  np.asarray(snap.fits, np.float64))
+    full = list(range(ALS_SWEEPS))
+    if ran[:2] != [full, full] or ran[2] != full[KILL_SWEEP:] \
+            or loads != [0, 0, 1]:
+        raise AssertionError(f"[13a] sweeps run {ran} and snapshots "
+                             f"loaded {loads} (clean, clean, resumed): the "
+                             f"resumed child must load one snapshot and "
+                             f"run only sweeps {full[KILL_SWEEP:]}")
+    if not kept:
+        raise AssertionError(f"[13a] the resumed fits {rfits} do not begin "
+                             f"with the snapshot's {snap.fits} bitwise")
+    if bitwise and not same_r:
+        raise AssertionError("[13a] the card is run-to-run bitwise but the "
+                             f"resumed run is not: fits {rfits} vs {fits}")
+    if not all(f == f for f in rfits) or rc_fit > FIT_ATOL:
+        raise AssertionError(f"[13a] resumed fits {rfits} vs clean {fits}")
+    log(f"[13a] nell1 {ALS_SCALE} cp_als {ALS_SWEEPS} sweeps, killed at "
+        f"sweep {KILL_SWEEP} (SIGKILL, snapshots left {left}) and resumed; "
+        f"clean vs clean bitwise {bitwise} (factors {cc_fac:.3e}, fits "
+        f"{cc_fit:.3e}); resumed vs clean bitwise {same_r} (factors "
+        f"{rc_fac:.3e}, fits {rc_fit:.3e}); the resumed child loaded 1 "
+        f"snapshot, ran sweeps {ran[2]} and kept the snapshot's "
+        f"{KILL_SWEEP} fits bitwise; cp_als in the children "
+        f"{child_s[0]:.2f} / {child_s[1]:.2f} / {child_s[2]:.2f} s "
+        f"(clean, clean, resumed); {secs:.1f} s with the processes")
+    report["kill_resume"] = {
+        "bitwise_run_to_run": bitwise, "clean_clean_factor_diff": cc_fac,
+        "clean_clean_fit_diff": cc_fit, "resumed_bitwise": same_r,
+        "resumed_factor_diff": rc_fac, "resumed_fit_diff": rc_fit,
+        "fits": fits, "resumed_fits": rfits, "snapshots_left": left,
+        "resumed_sweeps": ran[2], "snapshot_loads": loads,
+        "child_cp_als_s": child_s, "seconds": secs}
+
+
+def snapshot_ms(factors, lam, fits):
+    """Milliseconds of one ``SnapshotStore.save`` (the copy off the card
+    and the npz write) and one ``latest`` (read and digest check) of
+    ``factors``, in a temporary directory."""
+    import tempfile
+
+    import torch
+    from repro_torch.resilience import SnapshotStore
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = SnapshotStore(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.save("ab" * 32, 1, factors, lam, fits)
+        t1 = time.perf_counter()
+        snap = store.latest("ab" * 32)
+        t2 = time.perf_counter()
+    if snap is None or snap.sweep != 1:
+        raise AssertionError("snapshot did not load back")
+    mb = sum(f.numel() * f.element_size() for f in factors) / 2**20
+    return {"save_ms": 1e3 * (t1 - t0), "load_ms": 1e3 * (t2 - t1),
+            "mib": mb}
+
+
+def span_ms(tracer, name, since=0):
+    """Milliseconds of the spans ``name`` that started after ``since``
+    (perf_counter_ns)."""
+    return [s.duration_ns / 1e6 for s in tracer.spans()
+            if s.name == name and s.start_ns >= since]
+
+
+def phase_backend_rung(kmt, t, factors, cuda_fits, tracer, report):
+    """[13b] ``cp_als(ladder=True)`` on [3]'s nell1 0.1 tensor and
+    factors with ``compile_fail=("cuda_fused",)``: one ``compile``
+    degradation to ``cuda``, the pre-gathered kernel launching instead
+    of the balanced pair, fits within ``FIT_ATOL`` of [7]'s ``cuda``
+    fits from the same factors; with both kernel backends failing, one
+    rung and then the error (the card's ladder ends at ``cuda``); and a
+    snapshot's save and load at this size."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import cp_als
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.resilience import (ChaosCompileError, ChaosSpec,
+                                        install, uninstall)
+
+    cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK)
+    degr = obs.REGISTRY.counter("resilience_degradations")
+    before = degr.as_dict()
+    kmt.reset_launch_counts()
+    install(ChaosSpec(compile_fail=("cuda_fused",)))
+    t0 = time.perf_counter_ns()
+    try:
+        res = cp_als(t, RANK, iters=3, config=cfg, factors=factors,
+                     ladder=True)
+        torch.cuda.synchronize()
+    finally:
+        uninstall()
+    secs = (time.perf_counter_ns() - t0) / 1e9
+    steps = {k: v - before.get(k, 0) for k, v in degr.as_dict().items()
+             if v != before.get(k, 0)}
+    if steps != {"compile:cuda_fused->cuda": 1}:
+        raise AssertionError(f"[13b] degradations taken: {steps}")
+    pre = kmt.LAUNCHES["mttkrp_fused_compact"]
+    fused = (kmt.LAUNCHES["mttkrp_fused_remap_compact"]
+             + kmt.LAUNCHES["mttkrp_fused_gather_compact"])
+    if pre != 3 * t.nmodes or fused != 0:
+        raise AssertionError(f"[13b] launches: pre-gathered {pre}, "
+                             f"balanced {fused}")
+    gap = max(abs(a - b) for a, b in zip(res.fits, cuda_fits))
+    if not all(f == f for f in res.fits) or gap > FIT_ATOL:
+        raise AssertionError(f"[13b] fits {res.fits} vs [7] {cuda_fits}")
+    rebuild = span_ms(tracer, "engine.init", t0)
+    # the card's ladder ends at cuda: when both kernel backends fail to
+    # build, cp_als raises and no rung hands the tensors to plain PyTorch
+    before = degr.as_dict()
+    install(ChaosSpec(compile_fail=("cuda_fused", "cuda")))
+    try:
+        cp_als(t, RANK, iters=1, config=cfg, factors=factors, ladder=True)
+    except ChaosCompileError:
+        pass
+    else:
+        raise AssertionError("[13b] cp_als ran on after both kernel "
+                             "backends failed to build")
+    finally:
+        uninstall()
+    steps = {k: v - before.get(k, 0) for k, v in degr.as_dict().items()
+             if v != before.get(k, 0)}
+    if steps != {"compile:cuda_fused->cuda": 1}:
+        raise AssertionError(f"[13b] degradations taken when both kernel "
+                             f"backends fail: {steps}")
+    snap = snapshot_ms(res.factors, res.lam, res.fits)
+    log(f"[13b] compile_fail cuda_fused -> cuda: 1 degradation, "
+        f"mttkrp_fused_compact launches {pre}, balanced 0; fits {res.fits} "
+        f"([7] cuda {cuda_fits}, max diff {gap:.2e}); cp_als with the rung "
+        f"{secs:.2f} s, the rebuild (engine.init under cuda) "
+        f"{rebuild[-1]:.1f} ms; both kernel backends failing raised "
+        f"after the one rung; snapshot of {snap['mib']:.1f} MiB: save "
+        f"{snap['save_ms']:.1f} ms, load {snap['load_ms']:.1f} ms")
+    report["backend_rung"] = {"fits": res.fits, "cuda_fits": cuda_fits,
+                              "fit_gap": gap, "launches": pre,
+                              "seconds": secs, "rebuild_ms": rebuild,
+                              "snapshot": snap}
+
+
+def phase_residency_rung(ctx, tracer, report):
+    """[13c] A real ``torch.cuda.OutOfMemoryError`` in ``engine.init``:
+    [12d]'s vast tensor with the allocator capped between the streamed
+    and the resident ``init`` peak. ``make_engine(PlanSpec(residency=
+    "full"))`` without a ladder must raise it; with ``ladder=True`` it
+    must record ``oom: full -> stream`` and return the stream, whose
+    rotation holds [12d]'s oracle limit under the cap. The cap is lifted
+    after."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.engine import PlanSpec, StreamState, make_engine
+    from repro_torch.engine.stream import stream_all_modes
+
+    # [12d]'s planned tensor, its dedup tables already built: through
+    # the cache a COO triple would come back as a new tensor without them
+    t, cache, factors = (ctx[k] for k in ("t", "cache", "factors"))
+    spec = PlanSpec(backend="cuda_fused", rank_hint=RANK, residency="full",
+                    device_budget_bytes=ctx["budget"])
+    free_device_memory()
+    held = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    lo, hi = ctx["peak_stream"], ctx["peak_init"]
+    if not hi > 1.5 * lo:
+        raise AssertionError(f"[13c] resident init peak {hi} too close to "
+                             f"the streamed peak {lo} for a cap between")
+    cap = held + (lo + hi) // 2
+    degr = obs.REGISTRY.counter("resilience_degradations")
+    before = degr.get("oom:full->stream", 0)
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        t0 = time.perf_counter()
+        try:
+            make_engine(t, spec, cache=cache)
+        except torch.cuda.OutOfMemoryError as exc:
+            refused = str(exc).splitlines()[0][:120]
+        else:
+            raise AssertionError("[13c] the resident init fit under the "
+                                 "cap without a ladder")
+        no_ladder_s = time.perf_counter() - t0
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter_ns()
+        ss = make_engine(t, spec, cache=cache, ladder=True)
+        rung_s = (time.perf_counter_ns() - t1) / 1e9
+        if not isinstance(ss, StreamState):
+            raise AssertionError(f"[13c] the rung returned "
+                                 f"{type(ss).__name__}")
+        peak_rung = torch.cuda.max_memory_allocated()
+        after_rung = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.perf_counter()
+        outs, ss = stream_all_modes(ss, factors)
+        torch.cuda.synchronize()
+        rot_s = time.perf_counter() - t2
+        peak = torch.cuda.max_memory_allocated()
+        outs = [o.cpu() for o in outs]
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    if degr.get("oom:full->stream", 0) != before + 1:
+        raise AssertionError(f"[13c] degradations {degr.as_dict()}")
+    shares = [close_to(f"[13c] vast mode {d} after the rung", outs[d],
+                       *ctx["oracle"][d])[1] for d in range(t.nmodes)]
+    del ss, outs
+    free_device_memory()
+    init_ms = span_ms(tracer, "stream.init", t1)
+    snap = snapshot_ms(factors, torch.ones(RANK, device="cuda"), [0.5])
+    log(f"[13c] vast under a cap of {cap / 2**30:.3f} GiB ({held / 2**30:.3f}"
+        f" held; streamed peak {lo / 2**30:.3f}, resident init peak "
+        f"{hi / 2**30:.3f} GiB): without a ladder make_engine raised "
+        f"({refused!r}) after {no_ladder_s:.1f} s; with ladder=True "
+        f"oom: full -> stream in {rung_s:.1f} s (stream.init "
+        f"{init_ms[-1] / 1e3:.1f} s); rotation {rot_s:.1f} s, each mode == "
+        f"mttkrp_ref ({max(shares):.2e} of the limit); peak under the cap "
+        f"{peak_rung / 2**30:.3f} GiB in the rung (the failed init's "
+        f"partial state included), {after_rung / 2**30:.3f} held after "
+        f"it, {peak / 2**30:.3f} in the rotation; snapshot of {snap['mib']:.1f} MiB: save "
+        f"{snap['save_ms']:.1f} ms, load {snap['load_ms']:.1f} ms")
+    report["residency_rung"] = {
+        "cap_bytes": cap, "held_bytes": held, "peak_stream": lo,
+        "peak_init": hi, "refused": refused, "no_ladder_s": no_ladder_s,
+        "rung_s": rung_s, "stream_init_ms": init_ms[-1],
+        "rotation_s": rot_s, "peak_rung": peak_rung,
+        "held_after_rung": after_rung, "peak_rotation": peak,
+        "max_share": max(shares), "snapshot": snap}
+
+
+def phase_stream_rungs(kmt, t, factors, report):
+    """[13d] nell1 0.1 streamed on ``cuda_fused`` ([12a]'s chunking):
+    ``oom_chunk`` halves the chunk budget once and replans, the
+    ``upload_fail`` fault is retried twice; every mode of both within the
+    oracle limit."""
+    import torch
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.engine.stream import stream_all_modes, stream_init
+    from repro_torch.resilience import (DEFAULT_POLICY, ChaosSpec, install,
+                                        uninstall)
+
+    oracle = mttkrp_oracle(torch.from_numpy(t.indices).cuda(),
+                           torch.from_numpy(t.values).cuda(), factors,
+                           t.dims)
+    cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK,
+                          residency="stream", chunk_nnz=STREAM_CHUNK)
+    rows = {}
+    for tag, spec, field, want in (
+            ("oom_chunk", ChaosSpec(oom_chunk=OOM_CHUNK), "budget_halvings",
+             1),
+            ("upload_fail", ChaosSpec(upload_fail=0, upload_fail_times=2),
+             "upload_retries", 2)):
+        ss = stream_init(t, cfg)
+        install(spec)
+        t0 = time.perf_counter_ns()
+        try:
+            outs, ss = stream_all_modes(ss, factors, policy=DEFAULT_POLICY)
+            torch.cuda.synchronize()
+        finally:
+            uninstall()
+        secs = (time.perf_counter_ns() - t0) / 1e9
+        got = getattr(ss.stats, field)
+        if got != want:
+            raise AssertionError(f"[13d] {tag}: {field} {got}, not {want}")
+        shares = [close_to(f"[13d] {tag} mode {d}", outs[d], *oracle[d])[1]
+                  for d in range(t.nmodes)]
+        rows[tag] = {field: got, "max_share": max(shares), "seconds": secs,
+                     "target_slots": ss.plan.target_slots,
+                     "chunks": [cs.nchunks for cs in ss.plan.chunks]}
+        del outs, ss
+    del oracle
+    free_device_memory()
+    report["stream_rungs"] = rows
+    return rows
+
+
+def phase_nan_guard(t, factors, clean_fits, report):
+    """[13e] ``nan_sweep=1`` with ``ladder=True``: a ``nan_rollback``
+    recovery, finite fits within ``FIT_ATOL`` of [3]'s clean run from the
+    same factors."""
+    from repro_torch import obs
+    from repro_torch.core import cp_als
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.resilience import ChaosSpec, install, uninstall
+
+    rec = obs.REGISTRY.counter("resilience_recoveries")
+    before = rec.get("nan_rollback", 0)
+    install(ChaosSpec(nan_sweep=1))
+    t0 = time.perf_counter()
+    try:
+        res = cp_als(t, RANK, iters=3, factors=factors, ladder=True,
+                     config=ExecutionConfig(backend="cuda_fused",
+                                            rank_hint=RANK))
+    finally:
+        uninstall()
+    secs = time.perf_counter() - t0
+    gap = max(abs(a - b) for a, b in zip(res.fits, clean_fits))
+    if rec.get("nan_rollback", 0) != before + 1 or gap > FIT_ATOL \
+            or not all(f == f for f in res.fits):
+        raise AssertionError(f"[13e] fits {res.fits} vs clean {clean_fits}, "
+                             f"recoveries {rec.as_dict()}")
+    log(f"[13e] nan_sweep=1: 1 nan_rollback; fits {res.fits} (clean "
+        f"{clean_fits}, max diff {gap:.2e}); {secs:.2f} s")
+    report["nan_guard"] = {"fits": res.fits, "fit_gap": gap,
+                           "seconds": secs}
+
+
+def phase_resilience(kmt, t, factors, vast, report):
+    """[13] Resilience on the card: [13a] kill and resume, [13b] the
+    backend rung, [13c] the residency rung on a real OOM, [13d] the
+    stream's rungs, [13e] the NaN guard, [13f] the report pairing every
+    injected fault with its answer and the phase's Chrome trace."""
+    from repro_torch import obs
+
+    tracer = obs.enable(obs.Tracer(profiler_annotations=False))
+    t0 = time.perf_counter()
+    try:
+        phase_kill_resume(report)
+        phase_backend_rung(kmt, t, factors,
+                           report["cuda_compact"]["fits"], tracer, report)
+        phase_residency_rung(vast, tracer, report)
+        rows = phase_stream_rungs(kmt, t, factors, report)
+        phase_nan_guard(t, factors, report["nell1"]["fits"], report)
+    finally:
+        obs.disable()
+    replan = span_ms(tracer, "stream.replan")
+    o, u = rows["oom_chunk"], rows["upload_fail"]
+    log(f"[13d] oom_chunk={OOM_CHUNK}: 1 budget halving (target "
+        f"{o['target_slots']} slots after, chunks a mode {o['chunks']}), "
+        f"the replan {replan[0]:.1f} ms, rotation {o['seconds']:.2f} s, "
+        f"{o['max_share']:.2e} of the limit; upload_fail=0 x2: 2 retries, "
+        f"rotation {u['seconds']:.2f} s, {u['max_share']:.2e} of the limit")
+    rep = obs.resilience_report()
+    want = {"compile_fail", "oom_chunk", "upload_fail", "nan_burst"}
+    if rep["unanswered"] or set(rep["injections"]) != want \
+            or set(rep["answered"]) != want:
+        raise AssertionError(f"[13f] resilience report {rep}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "chip_smoke_trace13.json"
+    trace = obs.write_chrome_trace(
+        str(path), tracer, manifest=obs.run_manifest(extra={"phase": 13}))
+    problems = obs.validate_chrome_trace(trace)
+    if problems:
+        raise AssertionError(f"[13f] trace: {problems[:5]}")
+    secs = time.perf_counter() - t0
+    log(f"[13f] every injection answered ({rep['answered']}), none silent; "
+        f"degradations {rep['degradations']}, retries {rep['retries']}, "
+        f"recoveries {rep['recoveries']}; Chrome trace of [13] "
+        f"({trace['metadata']['span_count']} spans) valid, in {path.name}; "
+        f"[13] took {secs:.1f} s")
+    report["resilience"] = {"report": rep, "replan_ms": replan,
+                            "trace_spans": trace["metadata"]["span_count"],
+                            "seconds": secs}
 
 
 def kernels_record(per_kernel, launches, errs):
@@ -2384,12 +2932,25 @@ def main(argv=None) -> int:
                     help="build and check the kernels only (phases 1-2d)")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per measurement (after a warm-up)")
+    ap.add_argument("--als-child", nargs=3, metavar=("CKPT", "OUT", "MODE"),
+                    help="[13a]'s child process: cp_als with snapshots in "
+                    "CKPT, results to OUT, MODE 'fresh' or 'resume'")
     args = ap.parse_args(argv)
+
+    import os
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    if args.als_child:
+        ckpt, out, mode = args.als_child
+        return als_child(ckpt or None, out, mode)
+    set_env = [k for k in RESILIENCE_ENV if os.environ.get(k)]
+    if set_env:
+        print(f"chip_smoke: unset {', '.join(set_env)}: phases [1]-[12] "
+              "run with no ladder and no injected faults", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2430,7 +2991,15 @@ def main(argv=None) -> int:
     del coo8, cache8
     wkv = phase_rwkv(kw6, report, args.reps)
     lru = phase_rg(klru, report, args.reps)
-    phase_stream(kmt, t, factors, report)
+    vast = phase_stream(kmt, t, factors, report)
+    counts = resilience_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phases [1]-[12] took resilience steps: "
+                             f"{counts}")
+    log(f"[1]-[12] no degradation, retry, recovery or injected fault: "
+        f"{counts}")
+    phase_resilience(kmt, t, factors, vast, report)
+    del vast
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [

@@ -8,7 +8,10 @@ nothing of it (nor ``jax``):
              ``mttkrp_ref`` and CPD-ALS (``cp_als``)
   engine/    ``init`` / ``mttkrp`` / ``all_modes`` over an ``EngineState``
   kernels/   hand-written CUDA kernels, their wrappers and plain versions
-  obs/       spans and the metrics registry
+  obs/       spans, the metrics registry, Chrome-trace / JSONL export
+             and run reports
+  resilience/  checkpoint/resume, the degradation ladder, seeded chaos
+             and the NaN guard
   models/    RWKV-6 (``wkv6`` in ``time_mix``) and RecurrentGemma
              (``lru_scan`` in ``apply_rglru``, local attention, MLP):
              ``forward``, ``decode_step``

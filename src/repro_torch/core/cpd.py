@@ -12,8 +12,10 @@ in its ``fold`` hook. Fit uses the sparse-CPD identity
 The Gram products and the R x R solve stay library calls
 (``torch.matmul``, ``torch.linalg.solve``), as the reference leaves them
 to XLA; TF32 is switched off so they run in full f32, as the reference
-runs ``precision="float32"``. The reference's ``mesh``, ``ladder`` and
-``checkpoint`` arguments come with the distributed and resilience slices.
+runs ``precision="float32"``. ``cp_als`` takes the reference's
+resilience arguments (``ladder``, ``checkpoint``, ``checkpoint_every``,
+``resume``; :mod:`repro_torch.resilience`); its ``mesh`` comes with the
+distributed tier (ROADMAP Queue A item 10) and raises until then.
 """
 from __future__ import annotations
 
@@ -27,6 +29,12 @@ from repro_torch import engine
 from repro_torch.engine import ExecutionConfig
 from repro_torch.obs.metrics import gauge as _obs_gauge
 from repro_torch.obs.trace import span
+from repro_torch.resilience import chaos as _chaos
+from repro_torch.resilience import guard as _guard
+from repro_torch.resilience.ladder import (classify, next_backend,
+                                           record_degradation,
+                                           resolve_policy)
+from repro_torch.resilience.snapshot import as_store, fingerprint
 
 from .flycoo import FlycooTensor
 from .mttkrp import mttkrp_ref
@@ -74,6 +82,23 @@ def _als_fold(d: int, m_d, factors, lam):
     return tuple(factors[:d]) + (y,) + tuple(factors[d + 1:]), lam
 
 
+#: Ridge strength a rolled-back sweep is replayed under: strong enough to
+#: dominate a near-singular gram product that NaN'd the plain solve, small
+#: enough to leave a well-conditioned sweep's fixed point nearly where it
+#: was (the reference's value).
+RECOVERY_EPS = 1e-3
+
+
+def _als_fold_recovery(d: int, m_d, factors, lam):
+    """The Gauss-Seidel update under the stronger :data:`RECOVERY_EPS`
+    ridge: the replay of a sweep after a NaN/Inf burst
+    (``resilience.guard``)."""
+    n = len(factors)
+    grams_other = tuple(gram(factors[w]) for w in range(n) if w != d)
+    y, lam = _als_update(m_d, grams_other, RECOVERY_EPS)
+    return tuple(factors[:d]) + (y,) + tuple(factors[d + 1:]), lam
+
+
 @dataclasses.dataclass
 class CPDResult:
     factors: list[torch.Tensor]
@@ -92,35 +117,172 @@ def _initial(factors, generator, dims, rank, device, dtype=torch.float32):
                                               device=device)]
 
 
+def init_key(factors=None, generator=None) -> np.ndarray:
+    """The initial factors' identity, hashed into a snapshot's problem
+    fingerprint where the reference hashes its PRNG key: the bytes of
+    ``factors`` (as float32) when given, else the generator's seed and
+    state before it draws (the default CPU generator seeded 0 when both
+    are ``None``). So a resume refuses a run that started elsewhere."""
+    if factors is not None:
+        return np.concatenate([
+            np.ascontiguousarray(
+                f.detach().cpu().numpy() if torch.is_tensor(f)
+                else np.asarray(f), dtype=np.float32).view(np.uint8).ravel()
+            for f in factors])
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return np.concatenate([
+        np.asarray([generator.initial_seed()], dtype=np.uint64)
+        .view(np.uint8), generator.get_state().cpu().numpy()])
+
+
+def _restore(snap, dev):
+    """A snapshot's ``(factors, lam, fits)`` on ``dev``."""
+    factors = tuple(torch.from_numpy(np.array(f)).to(dev)
+                    for f in snap.factors)
+    return (factors, torch.from_numpy(np.array(snap.lam)).to(dev),
+            [float(f) for f in snap.fits])
+
+
 def cp_als(tensor: FlycooTensor, rank: int, iters: int = 10,
            generator: torch.Generator | None = None,
            config: ExecutionConfig | None = None, track_fit: bool = True,
-           *, factors=None) -> CPDResult:
+           mesh=None, *, factors=None, ladder=None, checkpoint=None,
+           checkpoint_every: int = 1, resume: bool = False) -> CPDResult:
     """Run CPD-ALS for ``iters`` sweeps over all modes (paper Alg. 5 outer).
 
     Initial factors are ``factors`` when given (tensors or numpy arrays —
     how the tests hand in the JAX reference's ``jax.random`` draws), else
     drawn from ``generator`` (default: CPU generator seeded 0).
+
+    Resilience (:mod:`repro_torch.resilience`), as in the reference:
+
+    * ``ladder``: ``True`` / a :class:`~repro_torch.resilience.
+      LadderPolicy` enables the degradation ladder (a kernel build failure
+      steps the backend down ``cuda_fused -> cuda``, and on the CPU on to
+      ``torch``) and the per-sweep NaN/Inf guard (a burst rolls the sweep
+      back and replays it under the stronger :data:`RECOVERY_EPS` ridge).
+      Every transition lands on the obs registry. ``None`` defers to the
+      ambient ``REPRO_LADDER`` policy, off when there is none.
+    * ``checkpoint``: a directory or :class:`~repro_torch.resilience.
+      SnapshotStore`; every ``checkpoint_every`` completed sweeps (and
+      after the last) ``(factors, lam, fits)`` are snapshotted under the
+      problem fingerprint (tensor bytes, rank, config, the initial
+      factors' :func:`init_key`). ``resume=True`` restores the newest
+      intact snapshot of the same problem and runs only the remaining
+      sweeps: at a sweep boundary the layout has rotated back to its
+      start, so ``(factors, lam)`` are the whole state, and on the CPU
+      the result is bitwise the uninterrupted run's.
+
+    The rotation is eager (a Python loop, the fold after each mode), so a
+    build failure at mode d > 0 comes after modes 0..d-1 have updated the
+    factors. The backend rung therefore restores the sweep's starting
+    ``(factors, lam)`` and rebuilds the state from the tensor under the
+    next backend before it replays the sweep. ``mesh`` (the distributed
+    tier, ROADMAP Queue A item 10) raises.
     """
+    if mesh is not None:
+        raise NotImplementedError(
+            "cp_als(mesh=...): the distributed tier is ROADMAP Queue A "
+            "item 10, not yet ported")
     config = config or ExecutionConfig()
+    store = as_store(checkpoint)
     _full_fp32()
-    dev = config.torch_device
-    n = tensor.nmodes
-    factors = tuple(_initial(factors, generator, tensor.dims, rank, dev))
-    lam = torch.ones((rank,), dtype=torch.float32, device=dev)
-    state = engine.init(tensor, config)
-    norm_x_sq = float(np.sum(tensor.values.astype(np.float64) ** 2))
+    key = init_key(factors, generator) if store is not None else None
+    fp = None if store is None else fingerprint(
+        tensor.indices, tensor.values, tensor.dims, rank, config=config,
+        key=key, extra="resident")
+    return als_sweeps(
+        engine.all_modes, engine.init(tensor, config),
+        _initial(factors, generator, tensor.dims, rank,
+                 config.torch_device),
+        tensor.values, iters, track_fit=track_fit,
+        policy=resolve_policy(ladder), store=store, fp=fp,
+        checkpoint_every=checkpoint_every, resume=resume, tier="resident",
+        rebuild=lambda cfg: engine.init(tensor, cfg))
+
+
+def als_sweeps(sweep, state, factors, values, iters: int, *,
+               track_fit: bool, policy, store, fp, checkpoint_every: int,
+               resume: bool, tier: str, rebuild=None) -> CPDResult:
+    """The sweep loop of ``cp_als`` and ``cp_als_stream``, with the
+    resilience that acts at a sweep boundary: resume from ``store``'s
+    newest snapshot under ``fp``, chaos's kill and NaN hooks, the NaN
+    guard (roll back, replay under :data:`RECOVERY_EPS`, raise if the
+    burst persists), the backend rung on a build failure (with a
+    ``rebuild(config) -> state``; the stream steps its backend inside
+    ``stream_mttkrp`` instead) and a snapshot every ``checkpoint_every``
+    sweeps and after the last.
+
+    ``sweep(state, factors, fold=, carry=)`` is one rotation that returns
+    ``(outs, state, factors, lam)``; ``tier`` ("resident" / "streamed")
+    names the fit gauge's label and the sweep span's ``streamed``."""
+    dev = factors[0].device
+    factors = tuple(factors)
+    lam = torch.ones((factors[0].shape[1],), dtype=torch.float32,
+                     device=dev)
+    norm_x_sq = float(np.sum(values.astype(np.float64) ** 2))
     fits: list = []
-    for i in range(iters):
-        with span("cpd.sweep", sweep=i) as sp:
-            outs, state, factors, lam = engine.all_modes(
-                state, factors, fold=_als_fold, carry=lam)
+    first = 0
+    snap = store.latest(fp) if store is not None and resume else None
+    if snap is not None:
+        factors, lam, fits = _restore(snap, dev)
+        first = snap.sweep
+    streamed = tier == "streamed"
+    backend_steps = 0
+    for i in range(first, iters):
+        cz = _chaos.active()
+        if cz is not None:
+            cz.maybe_kill(i)
+        # the sweep-boundary state, read only by the rungs
+        prev = (factors, lam) if policy is not None else None
+        with span("cpd.sweep", sweep=i, streamed=streamed) as sp:
+            fold = _als_fold
+            while True:
+                try:
+                    outs, state, factors, lam = sweep(
+                        state, factors, fold=fold, carry=lam)
+                except Exception as exc:
+                    if (rebuild is None or policy is None
+                            or classify(exc) != "compile"
+                            or backend_steps >= policy.max_backend_steps):
+                        raise
+                    nb = next_backend(state.config.backend,
+                                      state.config.torch_device)
+                    if nb is None:
+                        raise
+                    backend_steps += 1
+                    record_degradation("compile", state.config.backend,
+                                       nb, site="cpd.backend", sweep=i)
+                    factors, lam = prev
+                    state = rebuild(dataclasses.replace(state.config,
+                                                        backend=nb))
+                    continue
+                if cz is not None:
+                    factors = tuple(cz.mangle_factors(i, factors))
+                if policy is not None \
+                        and not _guard.all_finite(factors, lam):
+                    if fold is _als_fold_recovery:
+                        raise FloatingPointError(
+                            f"NaN/Inf burst in sweep {i} persisted "
+                            "through the ridge-recovery replay")
+                    # the layout is back at its start arrangement, so the
+                    # replay sees exactly the pre-sweep problem
+                    _guard.record_recovery("nan_rollback", sweep=i,
+                                           streamed=streamed)
+                    factors, lam = prev
+                    fold = _als_fold_recovery
+                    continue
+                break
             if track_fit:
-                fit = _fit(norm_x_sq, outs[n - 1], factors, lam)
+                fit = _fit(norm_x_sq, outs[len(factors) - 1], factors, lam)
                 fits.append(fit)
                 sp.set("fit", fit)
                 _obs_gauge("cpd_fit", "latest ALS fit per tier").set(
-                    "resident", fit)
+                    tier, fit)
+        if store is not None and ((i + 1) % checkpoint_every == 0
+                                  or i + 1 == iters):
+            store.save(fp, i + 1, factors, lam, fits)
     return CPDResult(factors=list(factors), lam=lam, fits=fits)
 
 

@@ -26,8 +26,10 @@ compare; a structural hit is then verified by exact per-mode degree
 equality before any plan is reused.
 
 With ``path=`` the cache also keeps content-addressed, checksummed npz
-blobs on disk; a blob that fails its checksum is renamed ``*.corrupt``
-and the lookup falls through to a cold plan.
+blobs on disk, verified with ``resilience.snapshot.payload_digest``; a
+blob that fails its checksum is renamed ``*.corrupt`` and the lookup
+falls through to a cold plan (the ``corrupt_blob`` chaos fault tears a
+blob just after it lands, to exercise this).
 
 A fourth, structural tier memoizes the streaming tier's chunk plans
 (:meth:`PlanCache.get_stream_plan`, keyed by
@@ -45,24 +47,11 @@ import numpy as np
 
 from repro_torch.obs.metrics import counter as _obs_counter
 from repro_torch.obs.trace import span as _obs_span
+from repro_torch.resilience import chaos as _chaos
+from repro_torch.resilience.snapshot import payload_digest
 
 from .flycoo import FlycooTensor, build_flycoo
 from .partition import ModePlan, plan_from_structure
-
-
-def payload_digest(arrays: dict) -> str:
-    """Order-stable sha256 over a dict of numpy arrays (key order is the
-    caller's contract): name, dtype, shape and bytes of each. The same
-    digest as the reference's ``repro.resilience.snapshot.payload_digest``,
-    so blobs verify alike in both packages."""
-    h = hashlib.sha256()
-    for name in arrays:
-        a = np.ascontiguousarray(arrays[name])
-        h.update(name.encode())
-        h.update(str(a.dtype).encode())
-        h.update(repr(a.shape).encode())
-        h.update(a.tobytes())
-    return h.hexdigest()
 
 
 def sparsity_signature(
@@ -365,6 +354,9 @@ class PlanCache:
             np.savez(f, **arrays)
         os.replace(tmp, fn)
         self.disk_saves += 1
+        cz = _chaos.active()
+        if cz is not None:
+            cz.on_disk_save(fn)
 
     def _quarantine(self, fn: str) -> None:
         """Move a corrupt blob aside (``*.corrupt``) so the cold plan's

@@ -11,6 +11,15 @@ Observability (:mod:`repro_torch.obs`): spans ``factory.make_engine``,
 (per entry point), ``plan_cache_outcomes`` (hit / structural / miss /
 disk_corrupt), ``stream_replan_outcomes``, ``stream_counts`` and
 ``stream_bytes``; gauge ``stream_peaks``.
+
+Resilience (:mod:`repro_torch.resilience`): ``make_engine(ladder=)``
+takes the ``full -> stream`` rung on an OOM, ``stream_mttkrp(policy=)``
+the chunk-budget and backend rungs and upload retries, ``cp_als`` /
+``cp_als_stream`` the backend rung, the NaN guard and checkpoints
+(``BACKEND_LADDER``, on the card ``CARD_LADDER``, in :mod:`.config`);
+every rung is a ``resilience_degradations`` / ``resilience_retries``
+counter label and a ``resilience.*`` span, every injected fault a
+``chaos_injections`` label.
 """
 from .api import (DISPATCH_COUNTS, FoldFn, all_modes, init, mttkrp,
                   reset_counters)

@@ -27,6 +27,7 @@ from repro_torch.kernels.mttkrp import (WorkTable, block_starts,
                                         remap_plain, work_chunks)
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import span
+from repro_torch.resilience import chaos as _chaos
 
 from .backends import compute_lrow, get_backend
 from .config import ExecutionConfig
@@ -243,6 +244,9 @@ def mttkrp(state: EngineState, factors: Sequence[torch.Tensor],
             f"state holds the mode-{state.mode} layout; cannot compute "
             f"mode {mode} without rotating (use all_modes or step to it)")
     d = state.mode
+    _c = _chaos.active()
+    if _c is not None:
+        _c.on_dispatch(state.config.backend)
     DISPATCH_COUNTS["mttkrp"] += 1
     with span("engine.dispatch", kind="mttkrp", mode=d):
         out, (nval, nidx, nalpha) = _mode_step(
@@ -262,6 +266,9 @@ def all_modes(state: EngineState, factors: Sequence[torch.Tensor], *,
     hook runs right after each mode's output.
     """
     n, m0 = state.nmodes, state.mode
+    _c = _chaos.active()
+    if _c is not None:
+        _c.on_dispatch(state.config.backend)
     DISPATCH_COUNTS["all_modes"] += 1
     factors = tuple(factors)
     outs: list = [None] * n

@@ -61,6 +61,16 @@ SCHEDULES = ("compact", "rect")
 # layout would exceed ``device_budget_bytes``.
 RESIDENCIES = ("auto", "full", "stream")
 
+# The degradation ladder's backend order (``repro_torch.resilience``): on
+# a kernel build failure the engine steps one rung down, each rung more
+# portable than the one above; the reference's ``pallas_fused -> pallas
+# -> xla -> ref`` (``ref`` is the same function as ``torch`` here, so it
+# is no rung). On the card the ladder ends at the last hand-written
+# kernel backend, ``CARD_LADDER``: plain PyTorch never takes over a
+# card's tensors, so a failure of both kernels raises.
+CARD_LADDER = ("cuda_fused", "cuda")
+BACKEND_LADDER = CARD_LADDER + ("torch",)
+
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionConfig:
@@ -183,4 +193,4 @@ class ExecutionConfig:
 
 
 __all__ = ["ExecutionConfig", "KAPPA_POLICIES", "SCHEDULES", "RESIDENCIES",
-           "SMEM_PER_BLOCK", "H100_SMS"]
+           "BACKEND_LADDER", "CARD_LADDER", "SMEM_PER_BLOCK", "H100_SMS"]

@@ -25,8 +25,9 @@ kappa policy ``"smem"`` [``"vmem"``]; ``smem_budget_bytes``
 [``vmem_budget_bytes``]. ``device`` takes the place of Pallas
 ``interpret``, and ``min_partitions`` is the port's partition floor
 (see :mod:`.config`). The port serves the single-device tiers, resident
-and streamed: a mesh, the degradation ladder and resuming from a
-snapshot raise ``NotImplementedError`` until their slices land.
+and streamed, with the degradation ladder's residency rung and the
+resume shape guard; a mesh (the distributed tier, ROADMAP Queue A item
+10) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,9 +51,9 @@ class PlanSpec:
     """One point in the plan space (frozen, usable as a dict key).
 
     Engine knobs mirror :class:`~repro_torch.engine.config.ExecutionConfig`.
-    ``exchange`` (distributed remap schedule) and ``ladder`` keep the
-    reference's values and meanings so the space enumerates the same
-    points; ``make_engine`` serves only what the port has.
+    ``exchange`` (distributed remap schedule) keeps the reference's
+    values and meanings so the space enumerates the same points;
+    ``ladder`` is ``make_engine``'s default ``ladder=``.
     """
 
     backend: str = "torch"
@@ -169,17 +170,31 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
     device-resident ``EngineState``, ``"stream"`` the out-of-core
     ``StreamState`` (:mod:`.stream`), and ``"auto"`` compares the
     resident footprint (:func:`.stream.resident_bytes`) with
-    ``device_budget_bytes``: a tensor that does not fit streams. Without
-    the degradation ladder an out-of-memory error of the resident tier
-    propagates, as in the reference with no policy.
+    ``device_budget_bytes``: a tensor that does not fit streams.
 
-    Not yet ported, and refused with ``NotImplementedError`` rather than
-    served by something else: ``mesh`` (the distributed tier, ROADMAP
-    Queue A item 10), ``ladder`` other than ``None``/``False`` and
-    ``resume`` (resilience, item 9).
+    ``ladder`` (``True`` / a :class:`~repro_torch.resilience.
+    LadderPolicy`) enables the residency rung, as in the reference: if
+    placing the *full* layout runs out of memory (a real
+    ``torch.cuda.OutOfMemoryError`` or the ``oom_resident`` chaos fault),
+    the factory records ``oom: full -> stream`` and returns the streaming
+    tier instead. Before it does, it drops every reference to the partial
+    state and returns the cached blocks to the card, so the stream does
+    not meet the same OOM. ``ladder=None`` defers to ``spec.ladder``,
+    then to the ambient ``REPRO_LADDER`` policy; without a policy the
+    error propagates.
+
+    ``resume`` (a :class:`~repro_torch.resilience.Snapshot`) is checked
+    against this problem before any state is built: one factor a mode
+    with matching rows (the ALS entry points also match the content
+    fingerprint). ``mesh`` (the distributed tier, ROADMAP Queue A item
+    10) raises ``NotImplementedError``, with or without a ladder.
     """
+    from repro_torch.core.flycoo import FlycooTensor
     from repro_torch.core.plancache import DEFAULT_CACHE
     from repro_torch.obs.trace import span
+    from repro_torch.resilience import chaos as _chaos
+    from repro_torch.resilience.ladder import (classify, record_degradation,
+                                               resolve_policy)
 
     from .api import as_flycoo, init
     from .stream import resident_bytes, stream_init
@@ -189,16 +204,15 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
         raise NotImplementedError(
             "make_engine(mesh=...): the distributed tier is ROADMAP Queue A "
             "item 10, not yet ported")
-    if ladder is None:
-        ladder = spec.ladder
-    if ladder not in (None, False):
-        raise NotImplementedError(
-            "make_engine(ladder=...): the degradation ladder is ROADMAP "
-            "Queue A item 9 (resilience), not yet ported")
+    policy = resolve_policy(spec.ladder if ladder is None else ladder)
     if resume is not None:
-        raise NotImplementedError(
-            "make_engine(resume=...): snapshot resume is ROADMAP Queue A "
-            "item 9 (resilience), not yet ported")
+        dims = (tensor.dims if isinstance(tensor, FlycooTensor)
+                else tuple(int(d) for d in tensor[2]))
+        shapes = tuple(int(f.shape[0]) for f in resume.factors)
+        if shapes != tuple(dims):
+            raise ValueError(
+                f"snapshot {resume.path!r} does not match this problem: "
+                f"factor rows {shapes} != dims {tuple(dims)}")
     if cache is None:
         cache = DEFAULT_CACHE
     elif cache is False:
@@ -215,8 +229,35 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
             residency = "stream" if over else "full"
         sp.set("resolved_residency", residency)
         if residency == "full":
-            return init(tensor, config, start_mode, cache=cache)
+            try:
+                cz = _chaos.active()
+                if cz is not None:
+                    cz.on_resident_init()
+                return init(tensor, config, start_mode, cache=cache)
+            except Exception as exc:
+                if policy is None or classify(exc) != "oom":
+                    raise
+                record_degradation("oom", "full", "stream",
+                                   site="factory.residency")
+                sp.set("resolved_residency", "stream")
+            # out of the except block, the traceback and its frames (the
+            # partial state's last references) are gone
+            _release_device(config)
         return stream_init(tensor, config, start_mode, cache=cache)
+
+
+def _release_device(config) -> None:
+    """After an OOM of the resident tier: collect what the failed ``init``
+    left in reference cycles and return the allocator's cached blocks to
+    the card."""
+    if config.torch_device.type != "cuda":
+        return
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 __all__ = ["PlanSpec", "PlanSpace", "make_engine", "SPACE_DIMS",

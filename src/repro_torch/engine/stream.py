@@ -58,13 +58,24 @@ Public surface: :class:`StreamPlan` / :func:`plan_stream`,
 :func:`stream_all_modes`, :func:`cp_als_stream`, and the budget model
 (:func:`resident_bytes`, :func:`resolve_chunk_slots`,
 :func:`stream_transfer_model`) that ``factory.make_engine`` and
-``engine.autotune`` price streaming with. The reference's degradation
-ladder, checkpoints and chaos hooks belong to the resilience slice
-(ROADMAP Queue A item 9).
+``engine.autotune`` price streaming with.
+
+Resilience (:mod:`repro_torch.resilience`), as in the reference: with a
+ladder policy an upload that fails transiently is retried with seeded
+backoff; a mode that runs out of memory halves the chunk budget and
+replans through the plan cache; a kernel build failure steps the backend
+down the ladder (``CARD_LADDER`` on the card) and replans. A replan
+re-derives the pinned tables, the chunk-local descriptors and the
+per-chunk work tables at the resident mode's cap, and keeps the ring
+where its slots still hold the new chunks (a slot is written only after
+its "free" event). The chaos
+hooks ``on_upload``, ``on_chunk_compute`` and ``on_dispatch`` fire here;
+``cp_als_stream`` adds checkpoints, resume and the NaN guard.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
 import time
@@ -78,6 +89,11 @@ from repro_torch.obs.metrics import counter as _obs_counter
 from repro_torch.obs.metrics import gauge as _obs_gauge
 from repro_torch.obs.probe import device_peak_bytes
 from repro_torch.obs.trace import span
+from repro_torch.resilience import chaos as _chaos
+from repro_torch.resilience.ladder import (backoff_delay, classify,
+                                           next_backend, record_degradation,
+                                           record_retry, resolve_policy)
+from repro_torch.resilience.snapshot import as_store, fingerprint
 
 from .api import as_flycoo, mode_cap, mode_work
 from .backends import get_backend
@@ -322,6 +338,9 @@ class StreamStats:
     modes_streamed: int = 0
     uploads: int = 0
     overlapped_uploads: int = 0   # uploads issued ahead of their compute
+    upload_retries: int = 0       # transient-failure upload re-attempts
+    budget_halvings: int = 0      # chunk-budget ladder rungs taken (OOM)
+    backend_steps: int = 0        # backend ladder rungs taken (build)
     peak_ring_bytes: int = 0      # max bytes of chunks in the ring
     peak_ring_chunks: int = 0
     host_remap_s: float = 0.0
@@ -345,6 +364,9 @@ class StreamStats:
             "transfer_bytes": self.transfer_bytes,
             "chunks_streamed": self.chunks_streamed,
             "modes_streamed": self.modes_streamed,
+            "upload_retries": self.upload_retries,
+            "budget_halvings": self.budget_halvings,
+            "backend_steps": self.backend_steps,
             "peak_ring_bytes": self.peak_ring_bytes,
             "peak_ring_chunks": self.peak_ring_chunks,
             "overlap_efficiency": self.overlap_efficiency,
@@ -361,6 +383,8 @@ def _mirror_stats(stats: StreamStats, before: StreamStats) -> None:
     counts.inc("uploads", stats.uploads - before.uploads)
     counts.inc("overlapped_uploads",
                stats.overlapped_uploads - before.overlapped_uploads)
+    counts.inc("upload_retries",
+               stats.upload_retries - before.upload_retries)
     counts.inc("chunks", stats.chunks_streamed - before.chunks_streamed)
     counts.inc("modes", 1)
     nbytes = _obs_counter("stream_bytes",
@@ -403,6 +427,7 @@ class _Ring:
     def __init__(self, device, n: int, slots: int, blocks: int, nmodes: int,
                  idx: bool, tables: bool):
         self.device = device
+        self.shape = (n, slots, blocks, idx, tables)
         self.cuda = device.type == "cuda"
         nm1 = nmodes - 1
 
@@ -430,6 +455,15 @@ class _Ring:
             for slot in self.slots:
                 for t in slot.values():
                     t.record_stream(self.copy)
+
+    def holds(self, n: int, slots: int, blocks: int, idx: bool,
+              tables: bool) -> bool:
+        """Whether this ring can serve a ring of ``n`` slots of ``slots``
+        slots and ``blocks`` blocks with these fields (a replan keeps
+        it then)."""
+        n0, slots0, blocks0, idx0, tables0 = self.shape
+        return ((n0, idx0, tables0) == (n, idx, tables)
+                and slots0 >= slots and blocks0 >= blocks)
 
 
 def _chunk_span(cs: ChunkSchedule, c: int) -> int:
@@ -460,7 +494,31 @@ def _host_chunk(state: "StreamState", d: int, c: int) -> dict:
     return host
 
 
-def _upload(state: "StreamState", d: int, c: int) -> int:
+def _upload(state: "StreamState", d: int, c: int, policy=None) -> int:
+    """Issue chunk ``c``'s upload (:func:`_issue_upload`), with bounded
+    retry and seeded backoff on *transient* failures when a ladder
+    ``policy`` is active (the reference's ``_upload``). Other failures
+    (OOM, build) go up to the mode's ladder."""
+    attempt = 0
+    while True:
+        try:
+            cz = _chaos.active()
+            if cz is not None:
+                cz.on_upload(d, c, attempt)
+            return _issue_upload(state, d, c)
+        except Exception as exc:
+            if (policy is None or classify(exc) != "transient"
+                    or attempt >= policy.max_retries):
+                raise
+            state.stats.upload_retries += 1
+            record_retry("stream.upload", attempt,
+                         backoff_delay(policy, attempt,
+                                       token=("upload", d, c)),
+                         mode=d, chunk=c)
+            attempt += 1
+
+
+def _issue_upload(state: "StreamState", d: int, c: int) -> int:
     """Issue chunk ``c``'s upload into ring slot ``c % ring``; returns its
     bytes. On the card it runs on the copy stream, after the compute
     stream has freed the slot, and records the slot's ``ready`` event."""
@@ -670,7 +728,6 @@ def stream_init(tensor, config: ExecutionConfig | None = None,
         plan = plan_stream_cached(tensor, config, cache=cache)
         sp.set("total_chunks", plan.total_chunks)
         sp.set("target_slots", plan.target_slots)
-        takes_work = getattr(get_backend(config), "takes_work", False)
 
         smax = max(s.padded_nnz for s in statics)
         layouts = tuple({"val": _host(smax, torch.float32, pin),
@@ -697,25 +754,61 @@ def stream_init(tensor, config: ExecutionConfig | None = None,
             dead = np.ones(p.padded_nnz, dtype=bool)
             dead[p.slot_of_elem] = False
             pads.append(np.flatnonzero(dead))
-        tables = tuple(
-            _pinned_tables(tensor, d, plan.chunks[d], config, pin)
-            if plan.tables else None for d in range(n))
-        ring = _Ring(dev, config.stream_ring,
-                     max(cs.chunk_slots for cs in plan.chunks),
-                     max(cs.chunk_blocks for cs in plan.chunks), n,
-                     idx=not plan.tables, tables=plan.tables)
         return StreamState(
-            tensor=tensor, plan=plan, statics=statics, layouts=layouts,
-            cur=0, tables=tables,
-            lbpart=tuple(_local_bpart(p, cs, pin)
-                         for p, cs in zip(tensor.plans, plan.chunks)),
-            chunks=tuple(_mode_chunks(p, cs, takes_work, dev)
-                         for p, cs in zip(tensor.plans, plan.chunks)),
+            tensor=tensor, statics=statics, layouts=layouts, cur=0,
             pads=tuple(pads),
             relabel=tuple(torch.from_numpy(p.row_relabel).to(dev)
                           for p in tensor.plans),
-            ring=ring, read_by=[None, None], mode=int(start_mode),
-            dims=tensor.dims, config=config, stats=StreamStats())
+            read_by=[None, None], mode=int(start_mode), dims=tensor.dims,
+            config=config, stats=StreamStats(),
+            **_plan_parts(tensor, plan, config))
+
+
+def _plan_parts(tensor, plan: StreamPlan, config: ExecutionConfig,
+                ring: _Ring | None = None) -> dict:
+    """The :class:`StreamState` fields that follow the chunk plan and the
+    backend: ``plan``, each mode's pinned dedup tables (when the backend
+    reads them), chunk-local block descriptor and :class:`_Chunk` list
+    (work tables at the resident mode's cap, when its kernels take one),
+    and the ring. A replan passes its old ``ring``, which is kept when
+    its slots carry the same fields and hold the new largest chunk."""
+    dev = config.torch_device
+    pin = dev.type == "cuda"
+    n = tensor.nmodes
+    takes_work = getattr(get_backend(config), "takes_work", False)
+    shape = (config.stream_ring, max(cs.chunk_slots for cs in plan.chunks),
+             max(cs.chunk_blocks for cs in plan.chunks), not plan.tables,
+             plan.tables)
+    if ring is None or not ring.holds(*shape):
+        ring = _Ring(dev, *shape[:3], n, idx=shape[3], tables=shape[4])
+    return {
+        "plan": plan,
+        "tables": tuple(
+            _pinned_tables(tensor, d, plan.chunks[d], config, pin)
+            if plan.tables else None for d in range(n)),
+        "lbpart": tuple(_local_bpart(p, cs, pin)
+                        for p, cs in zip(tensor.plans, plan.chunks)),
+        "chunks": tuple(_mode_chunks(p, cs, takes_work, dev)
+                        for p, cs in zip(tensor.plans, plan.chunks)),
+        "ring": ring}
+
+
+def _with_config(state: StreamState,
+                 config: ExecutionConfig) -> StreamState:
+    """``state`` replanned under a degraded ``config`` (the reference's
+    ``_with_config``), through the plan cache's stream tier. Safe in the
+    middle of a rotation: a failed mode attempt wrote only the next
+    layout's buffer, which the retry rewrites whole. On the card the copy
+    stream is drained first, so that no pinned table a pending copy reads
+    is dropped under it; a kept ring's slots are written again only after
+    their "free" events, as always."""
+    with span("stream.replan", mode=state.mode, backend=config.backend,
+              chunk_nnz=config.chunk_nnz):
+        if state.ring.cuda:
+            state.ring.copy.synchronize()
+        plan = plan_stream_cached(state.tensor, config)
+        return state.replace(config=config, **_plan_parts(
+            state.tensor, plan, config, ring=state.ring))
 
 
 # --------------------------------------------------------------------------
@@ -727,12 +820,58 @@ def stream_mttkrp(state: StreamState, factors: Sequence[torch.Tensor],
     ``(out, next_state)`` with ``out (dims[mode], R)`` (on the CPU bitwise
     the resident ``engine.mttkrp``'s). The next mode's host layout (the
     Alg. 3 remap) is reassembled chunk by chunk while the device
-    computes. ``policy`` (the degradation ladder) is ROADMAP Queue A item
-    9 and raises."""
-    if policy is not None:
-        raise NotImplementedError(
-            "stream_mttkrp(policy=...): the degradation ladder is ROADMAP "
-            "Queue A item 9 (resilience), not yet ported")
+    computes.
+
+    With a ``policy`` (:class:`~repro_torch.resilience.LadderPolicy`) the
+    mode rides the degradation ladder, as in the reference: an OOM halves
+    the chunk budget and replans (at most ``max_budget_halvings`` times;
+    chunks are whole partitions and their work tables are built at the
+    resident mode's cap, so any chunking sums each row as the resident
+    engine does); a kernel build failure steps the backend down the
+    ladder (``CARD_LADDER`` on the card, ``BACKEND_LADDER`` on the CPU)
+    and replans. A sticky CUDA error is ``"fatal"`` and raises. The
+    degraded config rides the returned state, so later modes inherit
+    it. Every transition is a ``resilience_degradations`` counter label
+    and a span.
+    """
+    halvings = steps = 0
+    while True:
+        try:
+            return _stream_mode_once(state, factors, mode, policy)
+        except Exception as exc:
+            if policy is None:
+                raise
+            kind = classify(exc)
+            if kind == "oom" and halvings < policy.max_budget_halvings:
+                cur = state.plan.target_slots
+                new = max(state.config.block_p, cur // 2)
+                if new >= cur:
+                    raise
+                halvings += 1
+                state.stats.budget_halvings += 1
+                record_degradation("oom", cur, new,
+                                   site="stream.chunk_budget",
+                                   mode=state.mode)
+                state = _with_config(
+                    state, dataclasses.replace(state.config, chunk_nnz=new))
+                continue
+            if kind == "compile" and steps < policy.max_backend_steps:
+                nb = next_backend(state.config.backend,
+                                  state.config.torch_device)
+                if nb is None:
+                    raise
+                steps += 1
+                state.stats.backend_steps += 1
+                record_degradation("compile", state.config.backend, nb,
+                                   site="stream.backend", mode=state.mode)
+                state = _with_config(
+                    state, dataclasses.replace(state.config, backend=nb))
+                continue
+            raise
+
+
+def _stream_mode_once(state: StreamState, factors, mode: int | None,
+                      policy):
     if mode is not None and mode != state.mode:
         raise ValueError(
             f"state holds the mode-{state.mode} layout; cannot compute "
@@ -751,6 +890,9 @@ def stream_mttkrp(state: StreamState, factors: Sequence[torch.Tensor],
     compute = (torch.cuda.current_stream(ring.device) if ring.cuda
                else None)
     timeline = stats.timeline if ring.cuda else None
+    cz = _chaos.active()
+    if cz is not None:
+        cz.on_dispatch(config.backend)
 
     # The next layout's buffer fed the uploads of the mode before: wait
     # for them (the one host wait of the mode), then lay its pads.
@@ -779,7 +921,7 @@ def stream_mttkrp(state: StreamState, factors: Sequence[torch.Tensor],
             for k in range(c, min(c + len(ring.slots), cs.nchunks)):
                 if k not in in_ring:
                     with span("stream.upload", chunk=k, prefetch=k > c):
-                        in_ring[k] = _upload(state, d, k)
+                        in_ring[k] = _upload(state, d, k, policy)
                     stats.h2d_bytes += in_ring[k]
                     stats.uploads += 1
                     if k > c:
@@ -789,6 +931,8 @@ def stream_mttkrp(state: StreamState, factors: Sequence[torch.Tensor],
             stats.peak_ring_bytes = max(stats.peak_ring_bytes,
                                         sum(in_ring.values()))
             ch = chunks[c]
+            if cz is not None:
+                cz.on_chunk_compute(d, c)
             with span("stream.compute", chunk=c):
                 layout = _chunk_layout(state, d, c)
                 if timeline is not None:
@@ -871,36 +1015,35 @@ def cp_als_stream(tensor, rank: int, iters: int = 10,
     (Gauss-Seidel fold after each mode, fit from the sparse-CPD identity)
     for tensors whose layout does not fit the device. Initial factors are
     ``factors`` when given, else drawn from ``generator``, as in
-    ``cp_als``. ``ladder``, ``checkpoint`` and ``resume`` (resilience) are
-    ROADMAP Queue A item 9 and raise."""
-    from repro_torch.core.cpd import (CPDResult, _als_fold, _fit,
-                                      _full_fp32, _initial)
+    ``cp_als``.
 
-    del checkpoint_every
-    if ladder not in (None, False) or checkpoint is not None or resume:
-        raise NotImplementedError(
-            "cp_als_stream(ladder=, checkpoint=, resume=): resilience is "
-            "ROADMAP Queue A item 9, not yet ported")
+    Resilience, as in the reference's ``cp_als_stream``: ``ladder``
+    enables the stream's rungs (backend steps, chunk-budget halving on
+    OOM, upload retries) and the per-sweep NaN guard with rollback and a
+    replay under the stronger ridge, which raises if the burst persists
+    (the reference's stream goes on; here both entry points run one loop,
+    ``core.cpd.als_sweeps``); ``checkpoint`` /
+    ``checkpoint_every`` / ``resume`` snapshot and restore ``(factors,
+    lam, fits)`` under the problem fingerprint (which also covers
+    ``start_mode``), bitwise the uninterrupted run on the CPU."""
+    from repro_torch.core.cpd import _full_fp32, _initial, als_sweeps, \
+        init_key
+
     config = config or ExecutionConfig()
+    policy = resolve_policy(ladder)
+    store = as_store(checkpoint)
     _full_fp32()
     state = stream_init(tensor, config, start_mode, cache=cache)
-    n = state.nmodes
-    dev = config.torch_device
-    factors = tuple(_initial(factors, generator, state.dims, rank, dev))
-    lam = torch.ones((rank,), dtype=torch.float32, device=dev)
-    norm_x_sq = float(np.sum(state.tensor.values.astype(np.float64) ** 2))
-    fits: list = []
-    for i in range(iters):
-        with span("cpd.sweep", sweep=i, streamed=True) as sp:
-            outs, state, factors, lam = stream_all_modes(
-                state, factors, fold=_als_fold, carry=lam)
-            if track_fit:
-                fit = _fit(norm_x_sq, outs[n - 1], factors, lam)
-                fits.append(fit)
-                sp.set("fit", fit)
-                _obs_gauge("cpd_fit", "latest ALS fit per tier").set(
-                    "streamed", fit)
-    return CPDResult(factors=list(factors), lam=lam, fits=fits)
+    key = init_key(factors, generator) if store is not None else None
+    fp = None if store is None else fingerprint(
+        state.tensor.indices, state.tensor.values, state.dims, rank,
+        config=config, key=key, start_mode=start_mode, extra="stream")
+    return als_sweeps(
+        functools.partial(stream_all_modes, policy=policy), state,
+        _initial(factors, generator, state.dims, rank, config.torch_device),
+        state.tensor.values, iters, track_fit=track_fit, policy=policy,
+        store=store, fp=fp, checkpoint_every=checkpoint_every,
+        resume=resume, tier="streamed")
 
 
 __all__ = ["StreamPlan", "StreamState", "StreamStats", "plan_stream",

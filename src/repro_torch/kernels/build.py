@@ -57,6 +57,12 @@ BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built or loaded: ``nvcc`` missing or
+    failing, or ``ctypes`` refusing the library. The degradation ladder
+    classifies it as ``"compile"``."""
+
+
 def nvcc() -> str:
     """Path of ``nvcc``: ``$CUDA_HOME/bin`` as PyTorch resolves it, else
     the ``PATH``."""
@@ -65,8 +71,9 @@ def nvcc() -> str:
     cand = Path(CUDA_HOME or "") / "bin" / "nvcc"
     found = str(cand) if CUDA_HOME and cand.exists() else shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelBuildError(
+            "nvcc not found: the CUDA kernels need the CUDA toolkit (set "
+            "CUDA_HOME or put nvcc on PATH)")
     return found
 
 
@@ -82,7 +89,8 @@ def library_path(name: str) -> Path:
 
 def build_all(names=None) -> dict[str, Path]:
     """Compile every missing library, one ``nvcc`` per source, all started
-    together; raises with the compiler's output if any build fails."""
+    together; raises :class:`KernelBuildError` with the compiler's output
+    if any build fails."""
     names = sorted(SIGNATURES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -106,7 +114,7 @@ def build_all(names=None) -> dict[str, Path]:
         os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
         os.replace(tmp, out)   # atomic: concurrent builders never see half
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelBuildError("\n".join(failed))
     return {name: library_path(name) for name in names}
 
 
@@ -115,7 +123,12 @@ def load(name: str) -> ctypes.CDLL:
     function's argument and return types declared."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
+        path = build_all([name])[name]
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as exc:
+            raise KernelBuildError(f"loading {path.name} failed: {exc}") \
+                from exc
         for fn, (restype, argtypes) in SIGNATURES[name].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes

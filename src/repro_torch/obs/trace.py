@@ -10,8 +10,11 @@ kernels they launch.
 
 Tracing is off by default; the module-level :func:`span` is then one
 global load and one ``is None`` test returning a shared no-op context
-manager.  ``REPRO_TORCH_TRACE=1`` in the environment enables it at
-import.  The Chrome-trace exporter comes with a later slice.
+manager.  Enable it from the environment, as the reference does::
+
+    REPRO_TRACE=1 python ...            # collect spans (export manually)
+    REPRO_TRACE=out/trace.json python … # collect, and write a Chrome
+                                        # trace there at exit
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import time
 __all__ = ["SpanRecord", "Tracer", "span", "traced", "enable", "disable",
            "is_enabled", "get_tracer", "ENV_VAR"]
 
-ENV_VAR = "REPRO_TORCH_TRACE"
+ENV_VAR = "REPRO_TRACE"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +212,26 @@ def get_tracer() -> Tracer | None:
     return _ACTIVE
 
 
-if os.environ.get(ENV_VAR, "").strip().lower() not in ("", "0", "false",
-                                                        "off"):
+def _init_from_env() -> None:
+    """``REPRO_TRACE`` opt-in: any non-empty value other than
+    ``0/false/off`` enables tracing at import; a value other than
+    ``1/true/on`` is a path, where a Chrome trace is written at
+    interpreter exit (:func:`repro_torch.obs.export.write_chrome_trace`)."""
+    val = os.environ.get(ENV_VAR, "").strip()
+    if not val or val.lower() in ("0", "false", "off"):
+        return
     enable()
+    if val.lower() in ("1", "true", "on"):
+        return
+    import atexit
+
+    def _dump(path=val):
+        from .export import write_chrome_trace
+
+        if _ACTIVE is not None and len(_ACTIVE):
+            write_chrome_trace(path)
+
+    atexit.register(_dump)
+
+
+_init_from_env()

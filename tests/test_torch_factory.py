@@ -317,11 +317,14 @@ def test_make_engine_plans_like_engine_init_and_reports():
 
 @pytest.mark.parametrize("call,item", [
     (dict(mesh=object()), "item 10"),
-    (dict(ladder=True), "item 9"),
-    (dict(spec=dict(ladder=True)), "item 9"),
-    (dict(resume=object()), "item 9")])
+    (dict(mesh=object(), ladder=True), "item 10"),
+    (dict(spec=dict(ladder=True), mesh=object()), "item 10"),
+    (dict(mesh=object(), resume=object()), "item 10")])
 def test_make_engine_refuses_what_is_not_ported(call, item):
-    """Each raises; nothing else runs in its place."""
+    """Each raises naming its ROADMAP item (the distributed tier); no
+    ladder and no resume steps over the refusal, and nothing else runs in
+    its place. The ladder and resume themselves are held in
+    ``tests/test_torch_resilience.py``."""
     idx, val, dims = _coo(nnz=300)
     spec = _spec(backend="cuda_fused", **call.pop("spec", {}))
     with pytest.raises(NotImplementedError, match=item):

@@ -9,7 +9,10 @@ rotations (both schedules) against the COO oracle, CPD on the card, the
 RWKV-6 ``forward`` on the ``wkv6`` kernel, the RecurrentGemma
 ``forward`` on the ``lru_scan`` kernel, and the streaming tier (each
 streamed mode against the resident engine and the oracle, host layouts
-bitwise, one host wait a mode, ``cp_als_stream``, the event timeline).
+bitwise, one host wait a mode, ``cp_als_stream``, the event timeline),
+and resilience on the card (``classify`` on a real
+``torch.cuda.OutOfMemoryError``, the backend rung of ``cp_als``, the
+stream's budget halving and upload retry, a resume).
 Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
@@ -1035,3 +1038,108 @@ def test_stream_timeline_and_peak(cuda):
     assert all(a.elapsed_time(b) >= 0 for _, _, _, a, b in
                ss.stats.timeline)
     assert ss.stats.as_row()["device_peak_bytes"] > 0
+
+
+# --------------------------------------------------------------------------
+# Resilience on the card (chip_smoke.py [13] at a small size).
+# --------------------------------------------------------------------------
+@pytest.fixture
+def no_chaos():
+    from repro_torch.resilience import uninstall
+
+    uninstall()
+    yield
+    uninstall()
+
+
+@pytest.mark.gpu
+def test_classify_a_real_cuda_oom(cuda):
+    from repro_torch.resilience import classify
+
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(1 << 46, dtype=torch.uint8, device=cuda)
+    assert classify(ei.value) == "oom"
+
+
+@pytest.mark.gpu
+def test_compile_rung_on_the_card(cuda, no_chaos):
+    """An injected build failure of ``cuda_fused`` steps ``cp_als`` down
+    to ``cuda``: the pre-gathered kernel launches from then on, the
+    balanced pair no more, and the fits are ``cuda``'s own."""
+    from repro_torch.resilience import ChaosSpec, install
+
+    idx, val, dims, rng = _coo(4, 3000, 5)
+    t = build_flycoo(idx, val, dims, rows_pp=8, block_p=16)
+    init = [rng.random((d, 8)).astype(np.float32) for d in dims]
+    want = cp_als(t, 8, iters=3, factors=init,
+                  config=ExecutionConfig(backend="cuda")).fits
+    install(ChaosSpec(compile_fail=("cuda_fused",)))
+    fused = kmt.LAUNCHES["mttkrp_fused_remap_compact"]
+    pre = kmt.LAUNCHES["mttkrp_fused_compact"]
+    got = cp_als(t, 8, iters=3, factors=init, ladder=True,
+                 config=ExecutionConfig(backend="cuda_fused")).fits
+    torch.cuda.synchronize()
+    assert kmt.LAUNCHES["mttkrp_fused_remap_compact"] == fused
+    assert kmt.LAUNCHES["mttkrp_fused_compact"] == pre + 3 * len(dims)
+    assert got == pytest.approx(want, abs=1e-4)
+
+
+@pytest.mark.gpu
+def test_no_plain_rung_on_the_card(cuda, no_chaos):
+    """Under a ladder, a build failure of ``cuda`` (the last hand-written
+    backend) raises on the card, in ``cp_als`` and in the stream: no rung
+    hands the card's tensors to plain PyTorch."""
+    from repro_torch.engine.stream import stream_all_modes, stream_init
+    from repro_torch.resilience import (DEFAULT_POLICY, ChaosCompileError,
+                                        ChaosSpec, install)
+
+    idx, val, dims, rng = _coo(3, 3000, 5)
+    t = build_flycoo(idx, val, dims, rows_pp=8, block_p=16)
+    install(ChaosSpec(compile_fail=("cuda_fused", "cuda")))
+    with pytest.raises(ChaosCompileError):
+        cp_als(t, 8, iters=2, ladder=True,
+               config=ExecutionConfig(backend="cuda_fused"))
+    facs = [torch.from_numpy(rng.random((d, 8)).astype(np.float32))
+            .to(cuda) for d in dims]
+    install(ChaosSpec(compile_fail=("cuda",)))
+    with pytest.raises(ChaosCompileError):
+        stream_all_modes(stream_init(t, ExecutionConfig(
+            backend="cuda", block_p=16, chunk_nnz=256)), facs,
+            policy=DEFAULT_POLICY)
+
+
+@pytest.mark.gpu
+def test_stream_rungs_on_the_card(cuda, no_chaos):
+    """The chunk-budget halving and the upload retry on the card: each
+    mode within the tolerance of a clean stream."""
+    from repro_torch.engine.stream import stream_all_modes, stream_init
+    from repro_torch.resilience import ChaosSpec, LadderPolicy, install
+
+    t, facs = _stream_case(cuda)
+    # block_p as the tensor's, so that the 64-slot budget can halve
+    cfg = ExecutionConfig(backend="cuda_fused", block_p=8, chunk_nnz=64)
+    want, _ = stream_all_modes(stream_init(t, cfg), facs)
+    policy = LadderPolicy(backoff_base_s=1e-4, backoff_cap_s=1e-3)
+    for spec, field in ((ChaosSpec(oom_chunk=3), "budget_halvings"),
+                        (ChaosSpec(upload_fail=1, upload_fail_times=2),
+                         "upload_retries")):
+        install(spec)
+        got, ss = stream_all_modes(stream_init(t, cfg), facs, policy=policy)
+        torch.cuda.synchronize()
+        assert getattr(ss.stats, field) == (1 if field[0] == "b" else 2)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.gpu
+def test_cp_als_resume_on_the_card(cuda, tmp_path, no_chaos):
+    idx, val, dims, rng = _coo(3, 3000, 2)
+    t = build_flycoo(idx, val, dims, rows_pp=8, block_p=16)
+    init = [rng.random((d, 8)).astype(np.float32) for d in dims]
+    cfg = ExecutionConfig(backend="cuda_fused")
+    full = cp_als(t, 8, iters=4, factors=init, config=cfg).fits
+    cp_als(t, 8, iters=2, factors=init, config=cfg, checkpoint=tmp_path)
+    got = cp_als(t, 8, iters=4, factors=init, config=cfg,
+                 checkpoint=tmp_path, resume=True).fits
+    assert got[:2] == pytest.approx(full[:2], abs=1e-4)
+    assert got == pytest.approx(full, abs=1e-4)

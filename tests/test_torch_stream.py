@@ -49,6 +49,7 @@ from repro_torch.engine.stream import (cp_als_stream, plan_stream,
                                        stream_all_modes, stream_init,
                                        stream_mttkrp, stream_transfer_model)
 from repro_torch.kernels import mttkrp as kmt
+from repro_torch.resilience import DEFAULT_POLICY
 
 BACKENDS = ("torch", "ref", "cuda", "cuda_fused")
 RBACKEND = {"torch": "xla", "ref": "ref", "cuda": "pallas",
@@ -208,7 +209,7 @@ def test_cp_als_stream_equals_cp_als(backend):
     assert torch.equal(res.lam, res_s.lam)
 
 
-def test_cp_als_stream_generator_and_refusals():
+def test_cp_als_stream_generator_and_refusals(tmp_path):
     idx, val, dims = _coo(nnz=300)
     t = build_flycoo(idx, val, dims, rows_pp=8, block_p=8)
     config = _cfg(rows_pp=8, chunk_nnz=64)
@@ -217,14 +218,19 @@ def test_cp_als_stream_generator_and_refusals():
     b = cp_als(t, 3, iters=2, config=config,
                generator=torch.Generator().manual_seed(4))
     assert a.fits == b.fits and len(a.fits) == 2
-    for kw in (dict(ladder=True), dict(checkpoint="x"), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cp_als_stream(t, 3, iters=1, config=config, **kw)
+    # the resilience arguments run (resilience is ported); with no fault
+    # they change nothing
+    for kw in (dict(ladder=True), dict(checkpoint=str(tmp_path)),
+               dict(checkpoint=str(tmp_path), resume=True)):
+        c = cp_als_stream(t, 3, iters=2, config=config,
+                          generator=torch.Generator().manual_seed(4), **kw)
+        assert c.fits == a.fits
     ss = stream_init(t, config)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        stream_mttkrp(ss, interop.factors_from_numpy(_factors(dims),
-                                                     device="cpu"),
-                      policy=object())
+    f = interop.factors_from_numpy(_factors(dims), device="cpu")
+    out, _ = stream_mttkrp(ss, f, policy=DEFAULT_POLICY)
+    want, _ = stream_mttkrp(stream_init(t, config), f)
+    assert torch.equal(out, want)
+    ss = stream_init(t, config)
     with pytest.raises(ValueError, match="without rotating"):
         stream_mttkrp(ss, interop.factors_from_numpy(_factors(dims),
                                                      device="cpu"), mode=1)
