@@ -69,6 +69,22 @@ times the kernels at each path's shapes.
        halving and upload retry at nell1 0.1; [13e] the NaN guard; [13f]
        ``resilience_report`` pairing every injected fault with its answer,
        and [13]'s Chrome trace in ``chiprun_out/chip_smoke_trace13.json``
+  [14] the distributed tier (``engine.dist``: a single controller drives
+       every shard of a ``launch.mesh.Mesh``; here 4 shards on one card,
+       so its times are not a multi-GPU speed): [14a] [3]'s nonzeros
+       planned by ``build_sharded_flycoo(n_dev=4)`` and sharded on
+       ``cuda:0``, one ``dist_all_modes`` rotation under each exchange
+       (``permute``, ``all_gather``) held to the oracle, to the
+       single-device ``cuda_fused`` rotation and, after each transition,
+       to ``shard_state`` of the single-device layout (bitwise), the bytes
+       copied between shards to the schedule's, then timed (rotation,
+       exchange a transition, each shard's kernel against its byte
+       bound); [14b] ``cp_als(mesh=)``; [14c] twitch 0.01 on 4 shards,
+       the ``cuda`` backend, rect ``cuda_fused`` on 2 shards and a (2, 2)
+       data x model mesh at nell1 0.01; [14d] a dropped hop must fail the
+       checks; [14e] the exchange and device-loss rungs, and
+       ``--dist-child`` processes killed at sweep 3 on 4 shards and
+       resumed on 2 and on 1
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -112,6 +128,16 @@ function on absolute inputs) and ``u = 2**-24``:
     model (``stream_fixed_bytes`` + ``stream_ring`` x
     ``chunk_device_bytes`` of the largest chunk) plus the port's work
     tables and largest partial buffer, and under the resident peak.
+  * [14]: each distributed mode within the oracle limit above, and within
+    the same limit of the single-device rotation; every layout after a
+    transition bitwise ``shard_state`` of the single-device layout (the
+    exchange only moves data), the two exchanges' layouts bitwise each
+    other; bytes copied exactly ``n_dev`` x ``exchange_bytes``; the
+    limit held against itself by a rotation with one hop dropped;
+    ``cp_als(mesh=)`` fits within ``FIT_ATOL`` of the single-device run
+    and the float64 witness; the rungs and the resumes on 2 and 1 shards
+    within ``FIT_ATOL`` of the clean 4-shard run (the card is not
+    run-to-run bitwise).
   * [13]: a resumed ``cp_als`` bitwise the clean run where two clean
     runs are bitwise equal, else within ``FIT_ATOL`` of it; the backend
     rung's fits within ``FIT_ATOL`` of [7]'s ``cuda`` fits, the NaN
@@ -780,6 +806,7 @@ def phase_twitch(kmt):
         exact(f"twitch layout {name}", getattr(state1, name),
               getattr(state0, name))
     log("[5] 5-mode all_modes == mttkrp_ref; layout bitwise back")
+    return indices, values, ts.dims
 
 
 def alive_extents(L, plan):
@@ -2898,6 +2925,569 @@ def phase_resilience(kmt, t, factors, vast, report):
                             "seconds": secs}
 
 
+# --------------------------------------------------------------------------
+# [14] The distributed tier.
+# --------------------------------------------------------------------------
+DIST_SHARDS = 4                # [14a]: nell1 0.1's shards, all on cuda:0
+DIST_SCALE = 0.01              # [14e]: the children's nell1, [8]'s scale
+DIST_KILL_SWEEP = 3
+
+
+def dist_mesh(n, shape=None, axes=("data",)):
+    """``n`` shards on ``cuda:0`` (the shape defaults to ``(n,)``)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape or (n,), axes, devices=["cuda:0"] * n)
+
+
+def dist_expected(state, ds, factors):
+    """The layouts a distributed rotation must leave after each
+    transition: ``shard_state`` of the single-device engine's layout
+    after the same transitions (host arrays); the last, back at the start
+    mode, is ``ds``'s own (``shard_state`` of ``state``)."""
+    from repro_torch import engine
+    from repro_torch.engine import dist
+
+    out = []
+    for _ in range(state.nmodes - 1):
+        _, state = engine.mttkrp(state, factors)
+        out.append(dist.shard_state(state, ds.mesh).host_layout())
+    return out + [ds.host_layout()]
+
+
+def dist_check(kmt, tag, ds0, factors, oracle, names, single=None,
+               expected=None):
+    """One ``dist_all_modes`` rotation of ``ds0`` (the launch counts and
+    the copied bytes read around it): each mode against the oracle and,
+    with ``single`` (a single-device rotation's outputs), within the same
+    limit of it; the layout back at its start; each of ``names``
+    launched once a shard a mode; the bytes copied between shards
+    ``n_dev`` times ``exchange_bytes``. With ``expected``
+    (:func:`dist_expected`) the rotation is stepped again with
+    ``dist_mttkrp``, each layout after a transition held bitwise to it.
+    Returns a row of numbers and the stepped layouts."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.engine import dist
+
+    n, n_dev = ds0.nmodes, ds0.n_dev
+    exchange = ds0.dist.exchange
+    counter = obs.REGISTRY.counter("dist_copied_bytes")
+    before = counter.as_dict()
+    kmt.reset_launch_counts()
+    outs, ds1 = dist.dist_all_modes(ds0, factors)
+    torch.cuda.synchronize()
+    launches = dict(kmt.LAUNCHES)
+    after = counter.as_dict()
+    for name in names:
+        if launches[name] != n * n_dev * ds0.grid.shape[1]:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} "
+                                 f"times in a rotation of {n} modes over "
+                                 f"{n_dev} shards")
+    xb = dist.exchange_bytes(ds0.schedule, n, ds0.slocs)
+    copied = [after.get(f"{exchange}:mode{d}", 0)
+              - before.get(f"{exchange}:mode{d}", 0) for d in range(n)]
+    want = [n_dev * e[f"{exchange}_bytes"] for e in xb]
+    if copied != want:
+        raise AssertionError(f"{tag}: copied {copied} bytes a transition, "
+                             f"the schedule says {want}")
+    shares, sshares = [], []
+    for d in range(n):
+        shares.append(close_to(f"{tag} mode {d} vs mttkrp_ref", outs[d],
+                               *oracle[d])[1])
+        if single is not None:
+            sshares.append(close_to(f"{tag} mode {d} vs single device",
+                                    outs[d], single[d], oracle[d][1])[1])
+    for name, a, b in zip(("val", "idx", "alpha"), ds1.host_layout(),
+                          ds0.host_layout()):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{tag}: layout {name} not back after the "
+                                 "rotation")
+    lays = []
+    if expected is not None:
+        ds = ds0
+        for i in range(n):
+            _, ds = dist.dist_mttkrp(ds, factors)
+            lays.append(ds.host_layout())
+            for name, a, b in zip(("val", "idx", "alpha"), lays[-1],
+                                  expected[i]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{tag}: layout {name} after "
+                                         f"transition {i} differs from "
+                                         "shard_state of the single-device "
+                                         "layout")
+    row = {"launches": {k: launches[k] for k in names},
+           "copied_bytes": copied, "max_share": max(shares),
+           "single_share": max(sshares) if sshares else None,
+           "hops": [list(h) for h in ds0.schedule.hops],
+           "exchange_bytes": xb}
+    log(f"{tag}: {n} modes over {n_dev} shards == mttkrp_ref "
+        f"({max(shares):.2e} of the limit"
+        + (f"; the single-device rotation {max(sshares):.2e}"
+           if sshares else "")
+        + f"); launches {row['launches']}; copied {copied} B a transition "
+        f"(= {n_dev} x exchange_bytes); layout back at its start"
+        + ("; layouts after each transition bitwise shard_state of the "
+           "single-device engine's" if expected is not None else ""))
+    return row, lays
+
+
+def dist_times(kmt, ds, factors, reps):
+    """[14a]'s timings on the card (CUDA events, median of ``reps``): per
+    mode the exchange of each kind, and per shard the gather kernel (on
+    its work table), its plain version, the torch backend and the byte
+    bound of the shard's real blocks."""
+    import torch
+    from repro_torch.engine import dist
+    from repro_torch.engine.backends import ec_torch
+
+    n, n_dev = ds.nmodes, ds.n_dev
+    modes = []
+    errs = 0.0
+    for _ in range(n):
+        d = ds.mode
+        ls = ds.lstatics[d]
+        parts = [dist.shard_layout(ds, k, d) for k in range(n_dev)]
+        local = [(L["val"], L["idx"], L["alpha"]) for L, _ in parts]
+        alive = [a for _, a in parts]
+        kw = dict(d=d, nxt=(d + 1) % n, smax_loc=ds.smax_loc, n_dev=n_dev,
+                  nmodes=n, devices=ds.devices)
+        row = {"mode": d, "exchange_ms": {
+            "permute": cuda_median_ms(lambda: dist._exchange_permute(
+                local, alive, hops=ds.schedule.hops[d], **kw), reps),
+            "all_gather": cuda_median_ms(lambda: dist._exchange_all_gather(
+                local, alive, **kw), reps)}, "shards": []}
+        inputs = tuple(f for w, f in enumerate(factors) if w != d)
+        kk = dict(kappa=ls.kappa, rows_pp=ls.rows_pp, nblocks=ls.nblocks,
+                  block_p=ls.block_p)
+        for k, (L, live) in enumerate(parts):
+            got = run_gather(kmt, L, inputs, kk)
+            want = run_gather(kmt, L, inputs, kk, plain=True)
+            lim = limit(*row_stats(kmt, L, inputs, kk), n, sides=2)
+            errs = max(errs, close_to(f"[14a] mode {d} shard {k} gather "
+                                      "out_rel", got, want, lim)[0])
+            nreal = int(L["work"][:, 2].max())
+            nbytes, _ = byte_bound(L, ls._replace(nblocks=nreal), d,
+                                   ds.smax_loc, n, RANK, False)
+            flops = int(live.sum()) * RANK * n
+            row["shards"].append({
+                "ms": cuda_median_ms(lambda: run_gather(kmt, L, inputs, kk),
+                                     reps),
+                "plain_ms": cuda_median_ms(
+                    lambda: run_gather(kmt, L, inputs, kk, plain=True),
+                    reps),
+                "torch_backend_ms": cuda_median_ms(
+                    lambda: ec_torch(L, factors, d, plan=ls,
+                                     config=ds.config), reps),
+                "bytes": nbytes, "flops": flops, "real_blocks": nreal,
+                "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                      flops / F32_FLOP_PER_S)})
+        modes.append(row)
+        _, ds = dist.dist_mttkrp(ds, factors)
+    torch.cuda.synchronize()
+    return modes, errs
+
+
+def phase_dist_nell1(kmt, t, factors, nell1, report, reps):
+    """[14a] nell1 scale 0.1 ([3]'s nonzeros and factors) planned by
+    ``build_sharded_flycoo(n_dev=4)`` and sharded 4 ways on ``cuda:0``:
+    one ``dist_all_modes`` rotation under each exchange (the main
+    distributed path), checked by :func:`dist_check` against the oracle,
+    the single-device ``cuda_fused`` rotation and ``shard_state`` of its
+    layouts, the two exchanges' layouts against each other, then timed;
+    where torch sees 2 or more cards, again with a shard a card (2 or
+    4).
+    [14b] ``cp_als(mesh=)``, 3 sweeps, against [3]'s single-device run
+    (``nell1``: the same nonzeros and factors) and its float64 ALS
+    witness from these factors (seed 0). [14d] the gate: with one hop
+    of the first transition dropped (its cap set to 0, so nothing of it
+    is copied) the layout check and the next mode's oracle check must
+    fail. Returns the [14a] rows and launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import build_sharded_flycoo, cp_als
+    from repro_torch.engine import DistConfig, ExecutionConfig, dist
+
+    t0 = time.perf_counter()
+    ts = build_sharded_flycoo(t.indices, t.values, t.dims, n_dev=DIST_SHARDS)
+    n = ts.nmodes
+    cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK)
+    state = engine.init(ts, cfg)
+    mesh = dist_mesh(DIST_SHARDS)
+    oracle = mttkrp_oracle(torch.from_numpy(t.indices).cuda(),
+                           torch.from_numpy(t.values).cuda(), factors,
+                           t.dims)
+    single, _ = engine.all_modes(state, factors)
+    for d in range(n):
+        close_to(f"[14a] single-device mode {d}", single[d], *oracle[d])
+    ds = dist.shard_state(state, mesh)
+    # the exchange rung's own switch: the same shards, the other exchange
+    states = {ex: ds.replace(dist=DistConfig(exchange=ex))
+              for ex in dist.EXCHANGES}
+    expected = dist_expected(state, ds, factors)
+    setup_s = time.perf_counter() - t0
+    log(f"[14a] nell1 0.1 sharded {DIST_SHARDS} ways on cuda:0 (4 shards "
+        f"on one card): kappa {[s.kappa for s in ts.plans]} (rows_pp "
+        f"{[s.rows_pp for s in ts.plans]}), slots a shard {list(ds.slocs)}, "
+        f"hop caps {[list(h) for h in ds.schedule.hops]}; set-up "
+        f"{setup_s:.1f} s")
+    rows, lays = {}, {}
+    for ex in dist.EXCHANGES:
+        rows[ex], lays[ex] = dist_check(
+            kmt, f"[14a] nell1 0.1 {ex}", states[ex], factors, oracle,
+            ("mttkrp_fused_gather_compact",), single=single,
+            expected=expected)
+    for i, (a, b) in enumerate(zip(lays["permute"], lays["all_gather"])):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"[14a] permute and all_gather layouts "
+                                 f"differ after transition {i}")
+    launches = rows["permute"]["launches"]
+    rot = {ex: cuda_median_ms(lambda: dist.dist_all_modes(states[ex],
+                                                          factors), reps)
+           for ex in dist.EXCHANGES}
+    single_ms = cuda_median_ms(lambda: engine.all_modes(state, factors),
+                               reps)
+    times, kerr = dist_times(kmt, ds, factors, reps)
+    for m in times:
+        sh = m["shards"]
+        log(f"[14a] mode {m['mode']} (4 shards on one card): exchange "
+            f"permute {m['exchange_ms']['permute']:.3f} ms, all_gather "
+            f"{m['exchange_ms']['all_gather']:.3f} ms; per shard gather "
+            f"kernel " + ", ".join(f"{x['ms']:.3f}" for x in sh)
+            + " ms (bound " + ", ".join(f"{x['bound_ms']:.4f}" for x in sh)
+            + "; plain " + ", ".join(f"{x['plain_ms']:.3f}" for x in sh)
+            + "; torch backend "
+            + ", ".join(f"{x['torch_backend_ms']:.3f}" for x in sh) + ")")
+    log(f"[14a] rotation (4 shards on one card, not a multi-GPU speed): "
+        f"permute {rot['permute']:.3f} ms, all_gather "
+        f"{rot['all_gather']:.3f} ms; the single-device cuda_fused "
+        f"rotation {single_ms:.3f} ms; kernel vs plain max err {kerr:.3e}")
+    cards = torch.cuda.device_count()
+    multi = None
+    if cards >= 2:
+        # a shard a card: the same checks, then the rotation timed
+        from repro_torch.launch.mesh import make_mesh
+
+        nc = 4 if cards >= 4 else 2
+        dsc = dist.shard_state(state, make_mesh((nc,), ("data",)))
+        multi, _ = dist_check(kmt, f"[14a] nell1 0.1 over {nc} cards", dsc,
+                              factors, oracle,
+                              ("mttkrp_fused_gather_compact",),
+                              single=single)
+        multi["rotation_ms"] = cuda_median_ms(
+            lambda: dist.dist_all_modes(dsc, factors), reps)
+        log(f"[14a] rotation over {nc} cards, a shard a card: "
+            f"{multi['rotation_ms']:.3f} ms")
+        del dsc
+
+    # ---- [14b] cp_als over the shards ------------------------------------
+    fits1 = nell1["fits"]
+    f64 = nell1["fit_witness"][0]["f64_fits"]
+    fits = cp_als(ts, RANK, iters=3, config=cfg, factors=factors,
+                  mesh=mesh).fits
+    gaps = (max(abs(a - b) for a, b in zip(fits, fits1)),
+            max(abs(a - b) for a, b in zip(fits, f64)))
+    if not all(f == f and abs(f) < 1e30 for f in fits) \
+            or max(gaps) > FIT_ATOL:
+        raise AssertionError(f"[14b] cp_als(mesh=) fits {fits} vs single "
+                             f"device {fits1}, float64 {f64}")
+    log(f"[14b] cp_als over 4 shards: fits {fits} ([3]'s single-device "
+        f"run {fits1}, max diff {gaps[0]:.2e}; its float64 witness "
+        f"{gaps[1]:.2e})")
+
+    # ---- [14d] a dropped hop must fail the checks ------------------------
+    hops = [list(h) for h in ds.schedule.hops]
+    h = next(i for i, c in enumerate(hops[0]) if c)
+    hops[0][h] = 0
+    mutant = ds.replace(schedule=dist.ExchangeSchedule(
+        ds.n_dev, tuple(tuple(x) for x in hops)))
+    _, m1 = dist.dist_mttkrp(mutant, factors)
+    caught = []
+    if not all(np.array_equal(a, b) for a, b in zip(m1.host_layout(),
+                                                    expected[0])):
+        caught.append("layout")
+    out1, _ = dist.dist_mttkrp(m1, factors)
+    try:
+        close_to("[14d] dropped-hop mutant mode 1", out1, *oracle[1])
+    except AssertionError as exc:
+        caught.append(str(exc))
+    if len(caught) != 2:
+        raise AssertionError(f"[14d] a rotation with hop {h + 1} of "
+                             f"transition 0 dropped passed: {caught}")
+    log(f"[14d] hop {h + 1} of transition 0 dropped: the layout check and "
+        f"the next mode's limit both fail ({caught[1]})")
+    report["dist_nell1"] = {
+        "kappa": [p.kappa for p in ts.plans], "slocs": list(ds.slocs),
+        "rows": rows, "rotation_ms": rot, "single_rotation_ms": single_ms,
+        "times": times, "kernel_err": kerr, "fits": fits,
+        "single_fits": fits1, "f64_fits": f64, "fit_gaps": gaps,
+        "mutant": caught, "setup_s": setup_s, "cards": multi}
+    del states, ds, mutant, m1, state, oracle, single, expected
+    free_device_memory()
+    return times, launches, kerr
+
+
+def phase_dist_more(kmt, small, twitch, report):
+    """[14c] the other kernels of the distributed path, each rotation
+    against the oracle: twitch (``twitch``, [5]'s COO, 5 modes) on 4
+    shards, the ``cuda`` backend (pre-gathered, compact) on nell1 0.01
+    (``small``, [8]'s COO) over 4 shards, rect ``cuda_fused`` on it over 2
+    shards, and a (2, 2) data x model mesh on it (the rank split over the
+    model axis)."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import build_sharded_flycoo, init_factors
+    from repro_torch.engine import DistConfig, ExecutionConfig, dist
+
+    rows = {}
+    cases = (
+        ("twitch 0.01 cuda_fused", twitch, 4, None, "cuda_fused",
+         "mttkrp_fused_gather_compact", {}),
+        ("nell1 0.01 cuda", small, 4, None, "cuda",
+         "mttkrp_fused_compact", {}),
+        ("nell1 0.01 rect cuda_fused", small, 2, "rect", "cuda_fused",
+         "mttkrp_fused_gather", {}),
+        ("nell1 0.01 data x model (2, 2) cuda_fused", small, 4, None,
+         "cuda_fused", "mttkrp_fused_gather_compact",
+         {"model_axis": "model"}))
+    for tag, coo, n_dev, schedule, backend, kname, dkw in cases:
+        t0 = time.perf_counter()
+        t = build_sharded_flycoo(*coo, n_dev=2 if schedule else n_dev,
+                                 schedule=schedule)
+        factors = init_factors(torch.Generator(device="cuda").manual_seed(2),
+                               t.dims, RANK)
+        oracle = mttkrp_oracle(torch.from_numpy(t.indices).cuda(),
+                               torch.from_numpy(t.values).cuda(), factors,
+                               t.dims)
+        state = engine.init(t, ExecutionConfig(backend=backend,
+                                               rank_hint=RANK))
+        if dkw:
+            mesh = dist_mesh(4, (2, 2), ("data", "model"))
+        else:
+            mesh = dist_mesh(n_dev)
+        ds = dist.shard_state(state, mesh, DistConfig(**dkw))
+        if schedule == "rect":
+            log(f"[14c] {tag}: {list(ds.slocs)} slots a shard")
+        rows[tag], _ = dist_check(kmt, f"[14c] {tag}", ds, factors, oracle,
+                                  (kname,))
+        rows[tag]["seconds"] = time.perf_counter() - t0
+        del state, ds, oracle
+    report["dist_more"] = rows
+    free_device_memory()
+    return rows
+
+
+def dist_child(ckpt, out, mode, n):
+    """``--dist-child``: ``cp_als`` on ``cuda_fused`` at nell1 scale
+    ``DIST_SCALE`` planned for 4 shards, over ``n`` shards on ``cuda:0``,
+    ``ALS_SWEEPS`` sweeps, a snapshot every sweep into ``ckpt``; ``mode``
+    "resume" resumes from it. Writes the factors, lam and fits to
+    ``out``, with the sweeps this process ran and the snapshots it
+    loaded."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (build_sharded_flycoo, cp_als,
+                                  init_factors, spec, synthesize)
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.obs import trace
+    from repro_torch.resilience import SnapshotStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ts = spec("nell1", scale=DIST_SCALE)
+    indices, values = synthesize(ts, seed=0)
+    t = build_sharded_flycoo(indices, values, ts.dims, n_dev=4)
+    factors = init_factors(torch.Generator(device="cuda").manual_seed(0),
+                           t.dims, RANK)
+    store = SnapshotStore(ckpt) if ckpt else None
+    tracer = trace.enable()
+    t0 = time.perf_counter()
+    res = cp_als(t, RANK, iters=ALS_SWEEPS,
+                 config=ExecutionConfig(backend="cuda_fused",
+                                        rank_hint=RANK),
+                 factors=factors, mesh=dist_mesh(int(n)), checkpoint=store,
+                 resume=mode == "resume")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sweeps = [r.attrs["sweep"] for r in tracer.spans()
+              if r.name == "cpd.sweep"]
+    np.savez(out, *[f.cpu().numpy() for f in res.factors],
+             lam=res.lam.cpu().numpy(), fits=np.asarray(res.fits),
+             seconds=secs, sweeps=np.asarray(sweeps, np.int64),
+             loads=store.loads if store is not None else 0)
+    return 0
+
+
+def run_dist_children(jobs):
+    """Run ``--dist-child`` processes at once; ``jobs`` is a list of
+    ``(ckpt, out, mode, n, chaos)``. Returns their return codes and
+    standard errors, in order."""
+    import os
+
+    procs = []
+    for ckpt, out, mode, n, chaos in jobs:
+        env = {k: v for k, v in os.environ.items()
+               if k not in RESILIENCE_ENV}
+        if chaos:
+            env["REPRO_CHAOS"] = chaos
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child",
+             ckpt, out, mode, str(n)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            out.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def phase_dist_resilience(small, report):
+    """[14e] at nell1 scale 0.01 (``small``, [8]'s COO; the children
+    synthesize it again) over 4 shards on ``cuda:0``: the exchange
+    rung (``exchange_fail=1``: ``permute -> all_gather``) and the
+    device-loss rung (``device_lost=1``, 2 lost: re-shard on 2) against a
+    clean 4-shard ``cp_als``, fits within ``FIT_ATOL``; then
+    ``--dist-child`` processes: a clean run on 4 shards beside one killed
+    at sweep ``DIST_KILL_SWEEP`` (SIGKILL), whose snapshots resume on 2
+    and on 1 shard, each within ``FIT_ATOL`` of the clean run and keeping
+    the snapshot's fits bitwise."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core import build_sharded_flycoo, cp_als, init_factors
+    from repro_torch.engine import ExecutionConfig
+    import torch
+    from repro_torch.resilience import (ChaosSpec, LadderPolicy,
+                                        SnapshotStore, install, uninstall)
+
+    t0 = time.perf_counter()
+    t = build_sharded_flycoo(*small, n_dev=4)
+    factors = init_factors(torch.Generator(device="cuda").manual_seed(0),
+                           t.dims, RANK)
+    cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK)
+    mesh = dist_mesh(4)
+    clean = cp_als(t, RANK, iters=4, config=cfg, factors=factors,
+                   mesh=mesh).fits
+    policy = LadderPolicy(backoff_base_s=1e-4, backoff_cap_s=1e-3)
+    degr = obs.REGISTRY.counter("resilience_degradations")
+    rungs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, spec_, label in (
+                ("exchange_fail", ChaosSpec(exchange_fail=1),
+                 "exchange:permute->all_gather"),
+                ("device_lost", ChaosSpec(device_lost=1, device_lost_n=2),
+                 "device_lost:4->2")):
+            before = degr.as_dict().get(label, 0)
+            install(spec_)
+            try:
+                got = cp_als(t, RANK, iters=4, config=cfg, factors=factors,
+                             mesh=mesh, ladder=policy,
+                             checkpoint=os.path.join(tmp, tag)).fits
+            finally:
+                uninstall()
+            gap = max(abs(a - b) for a, b in zip(got, clean))
+            if degr.as_dict().get(label, 0) != before + 1 or gap > FIT_ATOL:
+                raise AssertionError(f"[14e] {tag}: fits {got} vs clean "
+                                     f"{clean}, degradations "
+                                     f"{degr.as_dict()}")
+            rungs[tag] = {"fits": got, "gap": gap}
+            log(f"[14e] {tag}: the rung {label} once, fits within {gap:.2e} "
+                f"of the clean 4-shard run")
+        ck = os.path.join(tmp, "ckpt")
+        out = {k: os.path.join(tmp, f"{k}.npz")
+               for k in ("clean", "resumed2", "resumed1")}
+        (rc_a, err_a), (rc_k, err_k) = run_dist_children([
+            ("", out["clean"], "fresh", 4, None),
+            (ck, os.devnull, "fresh", 4, f"kill_sweep={DIST_KILL_SWEEP}")])
+        if rc_a != 0:
+            raise AssertionError(f"[14e] clean child exited {rc_a}: "
+                                 f"{err_a[-2000:]}")
+        if rc_k != -signal.SIGKILL:
+            raise AssertionError(f"[14e] killed child exited {rc_k}: "
+                                 f"{err_k[-2000:]}")
+        left = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+        if not left:
+            raise AssertionError("[14e] no snapshot survived the kill")
+        store = SnapshotStore(ck)
+        snap = max((store.load(os.path.join(ck, f)) for f in left),
+                   key=lambda x: x.sweep)
+        if snap.sweep != DIST_KILL_SWEEP or snap.mesh["n_dev"] != 4:
+            raise AssertionError(f"[14e] the killed child's newest snapshot "
+                                 f"is at sweep {snap.sweep}, mesh "
+                                 f"{snap.mesh}")
+        for n in (2, 1):
+            shutil.copytree(ck, ck + str(n))
+        res = run_dist_children([
+            (ck + "2", out["resumed2"], "resume", 2, None),
+            (ck + "1", out["resumed1"], "resume", 1, None)])
+        for (rc, err), n in zip(res, (2, 1)):
+            if rc != 0:
+                raise AssertionError(f"[14e] child resumed on {n} exited "
+                                     f"{rc}: {err[-2000:]}")
+        resumed = {}
+        with np.load(out["clean"]) as a:
+            want = a["fits"].tolist()
+            for n in (2, 1):
+                with np.load(out[f"resumed{n}"]) as r:
+                    _, fac, fit = npz_diff(a, r)
+                    ran, loads = r["sweeps"].tolist(), int(r["loads"])
+                    fits = r["fits"].tolist()
+                kept = np.array_equal(np.asarray(fits[:DIST_KILL_SWEEP]),
+                                      np.asarray(snap.fits, np.float64))
+                if ran != list(range(DIST_KILL_SWEEP, ALS_SWEEPS)) \
+                        or loads != 1 or fit > FIT_ATOL or not kept \
+                        or not all(f == f for f in fits):
+                    raise AssertionError(f"[14e] resumed on {n}: sweeps "
+                                         f"{ran}, loads {loads}, fits {fits}"
+                                         f" vs clean {want}")
+                resumed[n] = {"fits": fits, "fit_diff": fit,
+                              "factor_diff": fac, "sweeps": ran}
+    rep = obs.resilience_report()
+    if rep["unanswered"]:
+        raise AssertionError(f"[14e] unanswered faults {rep['unanswered']}")
+    secs = time.perf_counter() - t0
+    log(f"[14e] killed on 4 shards at sweep {DIST_KILL_SWEEP} (snapshots "
+        f"{left}), resumed on 2 and on 1 shard: each loaded 1 snapshot, ran "
+        f"sweeps {resumed[2]['sweeps']}, kept its fits bitwise and ended "
+        f"within {resumed[2]['fit_diff']:.2e} / "
+        f"{resumed[1]['fit_diff']:.2e} of the clean 4-shard run's fits; "
+        f"[14e] took {secs:.1f} s")
+    report["dist_resilience"] = {"clean_fits": clean, "rungs": rungs,
+                                 "resumed": resumed, "seconds": secs}
+
+
+def phase_dist(kmt, t, factors, small, twitch, report, reps):
+    """[14] the distributed tier: [14a], [14b] and [14d] on nell1 0.1 (the
+    nonzeros and factors of [3], whose fits and float64 witness [14b]
+    holds the sharded run to), [14c] the other kernels on ``small``
+    ([8]'s nell1 0.01 COO) and ``twitch`` ([5]'s COO), [14e] resilience
+    on ``small``. Returns [14a]'s per-mode times, the launches of
+    [14a]'s ``permute`` rotation and [14c]'s rotations by kernel, and
+    [14a]'s kernel error."""
+    t0 = time.perf_counter()
+    times, launches, err = phase_dist_nell1(kmt, t, factors,
+                                            report["nell1"], report, reps)
+    launches = dict(launches)
+    for row in phase_dist_more(kmt, small, twitch, report).values():
+        for name, count in row["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    phase_dist_resilience(small, report)
+    log(f"[14] took {time.perf_counter() - t0:.1f} s; kernels launched by "
+        f"its driven rotations ([14a] permute, [14c]): {launches}")
+    return times, launches, err
+
+
 def kernels_record(per_kernel, launches, errs):
     """The ``kernels`` JSON line: ``per_kernel`` maps each kernel to its
     per-mode timing rows and a note of the tensor they were timed at."""
@@ -2926,6 +3516,31 @@ def kernels_record(per_kernel, launches, errs):
     return out
 
 
+def dist_record(kernels, times, launches, err):
+    """Add [14]'s numbers to each kernel's record: ``dist_launches``, its
+    launches in [14]'s driven rotations ([14a]'s ``permute`` rotation,
+    [14c]'s four; 0 for a kernel [14] does not run), and for the gather
+    kernel [14a]'s per-shard sums over one rotation of 4 shards on one
+    card."""
+    shards = [x for m in times for x in m["shards"]]
+    for rec in kernels:
+        name = rec["name"]
+        rec["dist_launches"] = launches.get(name, 0)
+        if name != "mttkrp_fused_gather_compact":
+            continue
+        rec.update(
+            dist_ms=sum(x["ms"] for x in shards),
+            dist_plain_ms=sum(x["plain_ms"] for x in shards),
+            dist_torch_backend_ms=sum(x["torch_backend_ms"] for x in shards),
+            dist_bound_ms=1e3 * max(
+                sum(x["bytes"] for x in shards) / HBM_BYTES_PER_S,
+                sum(x["flops"] for x in shards) / F32_FLOP_PER_S),
+            dist_max_abs_err=err,
+            dist_per="one dist_all_modes rotation of nell1 (scale 0.1) "
+                     "over 4 shards on one card: each shard's launch on its "
+                     "own work table, summed")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2935,6 +3550,10 @@ def main(argv=None) -> int:
     ap.add_argument("--als-child", nargs=3, metavar=("CKPT", "OUT", "MODE"),
                     help="[13a]'s child process: cp_als with snapshots in "
                     "CKPT, results to OUT, MODE 'fresh' or 'resume'")
+    ap.add_argument("--dist-child", nargs=4,
+                    metavar=("CKPT", "OUT", "MODE", "SHARDS"),
+                    help="[14e]'s child process: cp_als over SHARDS shards "
+                    "on cuda:0, as --als-child")
     args = ap.parse_args(argv)
 
     import os
@@ -2947,6 +3566,9 @@ def main(argv=None) -> int:
     if args.als_child:
         ckpt, out, mode = args.als_child
         return als_child(ckpt or None, out, mode)
+    if args.dist_child:
+        ckpt, out, mode, shards = args.dist_child
+        return dist_child(ckpt or None, out, mode, int(shards))
     set_env = [k for k in RESILIENCE_ENV if os.environ.get(k)]
     if set_env:
         print(f"chip_smoke: unset {', '.join(set_env)}: phases [1]-[12] "
@@ -2969,7 +3591,7 @@ def main(argv=None) -> int:
         return 0
     report = {"device": name, "nvidia_smi": smi}
     t, state0, factors, launches = main_path(kmt, report)
-    phase_twitch(kmt)
+    twitch = phase_twitch(kmt)
     rows, errs = phase_times(kmt, t, state0, factors, report, args.reps)
     nell1 = "nell1 (scale 0.1, compact, R 32)"
     per_kernel = {k: (rows, nell1) for k in errs}
@@ -2988,7 +3610,7 @@ def main(argv=None) -> int:
     for k in RECT_NEW:
         per_kernel[k] = (rows8, "nell1 (scale 0.01, rect, R 32)")
     phase_autotune(coo8, cache8, report)
-    del coo8, cache8
+    del cache8
     wkv = phase_rwkv(kw6, report, args.reps)
     lru = phase_rg(klru, report, args.reps)
     vast = phase_stream(kmt, t, factors, report)
@@ -3000,10 +3622,14 @@ def main(argv=None) -> int:
         f"{counts}")
     phase_resilience(kmt, t, factors, vast, report)
     del vast
+    times14, launches14, err14 = phase_dist(kmt, t, factors, coo8, twitch,
+                                            report, args.reps)
+    del coo8, twitch
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [
         wkv6_record(wkv), lru_scan_record(lru)]
+    dist_record(kernels, times14, launches14, err14)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

@@ -1,5 +1,5 @@
-"""Host-side FLYCOO planning, the plan cache, datasets, the COO oracle and
-CPD-ALS."""
+"""Host-side FLYCOO planning (also sharded, :mod:`.distributed`), the
+plan cache, datasets, the COO oracle and CPD-ALS."""
 from .datasets import (PAPER_TENSORS, TensorSpec, random_tensor, spec,
                        synthesize, zipf_tensor)
 from .flycoo import FlycooTensor, build_flycoo, dedup_tables_from_rows
@@ -10,6 +10,7 @@ from .plancache import (DEFAULT_CACHE, PlanCache, cached_build_flycoo,
                         sparsity_signature)
 from .cpd import (CPDResult, cp_als, cp_als_reference, gram,  # noqa: E402
                   init_factors)
+from .distributed import DistributedMTTKRP, build_sharded_flycoo
 
 __all__ = ["PAPER_TENSORS", "TensorSpec", "random_tensor", "spec",
            "synthesize", "zipf_tensor", "FlycooTensor", "build_flycoo",
@@ -18,4 +19,4 @@ __all__ = ["PAPER_TENSORS", "TensorSpec", "random_tensor", "spec",
            "plan_from_structure", "plan_mode_reference", "PlanCache",
            "DEFAULT_CACHE", "cached_build_flycoo", "sparsity_signature",
            "CPDResult", "cp_als", "cp_als_reference", "gram",
-           "init_factors"]
+           "init_factors", "build_sharded_flycoo", "DistributedMTTKRP"]

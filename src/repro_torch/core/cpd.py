@@ -14,12 +14,14 @@ The Gram products and the R x R solve stay library calls
 to XLA; TF32 is switched off so they run in full f32, as the reference
 runs ``precision="float32"``. ``cp_als`` takes the reference's
 resilience arguments (``ladder``, ``checkpoint``, ``checkpoint_every``,
-``resume``; :mod:`repro_torch.resilience`); its ``mesh`` comes with the
-distributed tier (ROADMAP Queue A item 10) and raises until then.
+``resume``; :mod:`repro_torch.resilience`) and its ``mesh`` / ``dist``:
+the sweep is then ``engine.dist.dist_all_modes`` over the shards, with
+the same fold.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -147,8 +149,9 @@ def _restore(snap, dev):
 def cp_als(tensor: FlycooTensor, rank: int, iters: int = 10,
            generator: torch.Generator | None = None,
            config: ExecutionConfig | None = None, track_fit: bool = True,
-           mesh=None, *, factors=None, ladder=None, checkpoint=None,
-           checkpoint_every: int = 1, resume: bool = False) -> CPDResult:
+           mesh=None, dist=None, *, factors=None, ladder=None,
+           checkpoint=None, checkpoint_every: int = 1,
+           resume: bool = False) -> CPDResult:
     """Run CPD-ALS for ``iters`` sweeps over all modes (paper Alg. 5 outer).
 
     Initial factors are ``factors`` when given (tensors or numpy arrays —
@@ -178,41 +181,69 @@ def cp_als(tensor: FlycooTensor, rank: int, iters: int = 10,
     build failure at mode d > 0 comes after modes 0..d-1 have updated the
     factors. The backend rung therefore restores the sweep's starting
     ``(factors, lam)`` and rebuilds the state from the tensor under the
-    next backend before it replays the sweep. ``mesh`` (the distributed
-    tier, ROADMAP Queue A item 10) raises.
+    next backend before it replays the sweep.
+
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) the state is
+    sharded over its data axis (``engine.dist.shard_state``) and each
+    sweep is one ``dist_all_modes`` rotation with the same fold, the
+    factors on the first shard's device and copied to each other
+    distinct device once a mode. ``tensor``'s partition counts must
+    divide over the mesh (``core.distributed.build_sharded_flycoo``);
+    ``dist`` is an optional ``DistConfig`` whose ``model_axis`` stays
+    ``None``. Snapshots are then v2, under a problem fingerprint that
+    leaves the mesh out, so a run killed on 4 shards resumes on 2 or 1.
+    With a ladder two more rungs act, as in the reference: an exchange
+    failure steps ``permute -> all_gather``, and a lost device re-shards
+    on the surviving mesh (``engine.dist.surviving_mesh``) and rolls back
+    to the latest snapshot or the sweep's start; transient dispatch
+    failures retry with the policy's backoff.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "cp_als(mesh=...): the distributed tier is ROADMAP Queue A "
-            "item 10, not yet ported")
+    if mesh is None and dist is not None:
+        raise ValueError("dist config given without a mesh")
+    if mesh is not None:   # before any state is built
+        engine.dist.check_mesh(mesh, dist or engine.dist.DistConfig())
     config = config or ExecutionConfig()
     store = as_store(checkpoint)
+    policy = resolve_policy(ladder)
     _full_fp32()
     key = init_key(factors, generator) if store is not None else None
     fp = None if store is None else fingerprint(
         tensor.indices, tensor.values, tensor.dims, rank, config=config,
-        key=key, extra="resident")
+        key=key, extra="resident" if mesh is None else "dist")
+
+    def rebuild(cfg, mesh=None, dist=None):
+        state = engine.init(tensor, cfg)
+        return state if mesh is None else engine.dist.shard_state(
+            state, mesh, dist)
+
+    state = rebuild(config, mesh, dist)
+    if mesh is None:
+        sweep, dev = engine.all_modes, config.torch_device
+    else:
+        sweep = functools.partial(engine.dist.dist_all_modes, policy=policy)
+        dev = state.device
     return als_sweeps(
-        engine.all_modes, engine.init(tensor, config),
-        _initial(factors, generator, tensor.dims, rank,
-                 config.torch_device),
-        tensor.values, iters, track_fit=track_fit,
-        policy=resolve_policy(ladder), store=store, fp=fp,
-        checkpoint_every=checkpoint_every, resume=resume, tier="resident",
-        rebuild=lambda cfg: engine.init(tensor, cfg))
+        sweep, state, _initial(factors, generator, tensor.dims, rank, dev),
+        tensor.values, iters, track_fit=track_fit, policy=policy,
+        store=store, fp=fp, checkpoint_every=checkpoint_every,
+        resume=resume, tier="resident", rebuild=rebuild)
 
 
 def als_sweeps(sweep, state, factors, values, iters: int, *,
                track_fit: bool, policy, store, fp, checkpoint_every: int,
                resume: bool, tier: str, rebuild=None) -> CPDResult:
-    """The sweep loop of ``cp_als`` and ``cp_als_stream``, with the
-    resilience that acts at a sweep boundary: resume from ``store``'s
-    newest snapshot under ``fp``, chaos's kill and NaN hooks, the NaN
-    guard (roll back, replay under :data:`RECOVERY_EPS`, raise if the
-    burst persists), the backend rung on a build failure (with a
-    ``rebuild(config) -> state``; the stream steps its backend inside
-    ``stream_mttkrp`` instead) and a snapshot every ``checkpoint_every``
-    sweeps and after the last.
+    """The sweep loop of ``cp_als`` (resident or distributed) and
+    ``cp_als_stream``, with the resilience that acts at a sweep
+    boundary: resume from ``store``'s newest snapshot under ``fp``,
+    chaos's kill and NaN hooks, the NaN guard (roll back, replay under
+    :data:`RECOVERY_EPS`, raise if the burst persists), the rungs (with a
+    ``rebuild(config, mesh=None, dist=None) -> state``; the stream steps
+    its backend inside ``stream_mttkrp`` instead) and a snapshot every
+    ``checkpoint_every`` sweeps and after the last (v2 for a
+    ``DistState``). The rungs: a build failure steps the backend; on a
+    ``DistState`` an exchange failure steps ``permute -> all_gather`` and
+    a lost device re-shards on the surviving mesh, rolling back to the
+    newest snapshot when there is one.
 
     ``sweep(state, factors, fold=, carry=)`` is one rotation that returns
     ``(outs, state, factors, lam)``; ``tier`` ("resident" / "streamed")
@@ -230,12 +261,14 @@ def als_sweeps(sweep, state, factors, values, iters: int, *,
         first = snap.sweep
     streamed = tier == "streamed"
     backend_steps = 0
-    for i in range(first, iters):
+    i = first
+    while i < iters:
         cz = _chaos.active()
         if cz is not None:
             cz.maybe_kill(i)
         # the sweep-boundary state, read only by the rungs
         prev = (factors, lam) if policy is not None else None
+        rewind = None
         with span("cpd.sweep", sweep=i, streamed=streamed) as sp:
             fold = _als_fold
             while True:
@@ -243,21 +276,62 @@ def als_sweeps(sweep, state, factors, values, iters: int, *,
                     outs, state, factors, lam = sweep(
                         state, factors, fold=fold, carry=lam)
                 except Exception as exc:
-                    if (rebuild is None or policy is None
-                            or classify(exc) != "compile"
-                            or backend_steps >= policy.max_backend_steps):
+                    if rebuild is None or policy is None:
                         raise
-                    nb = next_backend(state.config.backend,
-                                      state.config.torch_device)
-                    if nb is None:
-                        raise
-                    backend_steps += 1
-                    record_degradation("compile", state.config.backend,
-                                       nb, site="cpd.backend", sweep=i)
-                    factors, lam = prev
-                    state = rebuild(dataclasses.replace(state.config,
-                                                        backend=nb))
-                    continue
+                    kind = classify(exc)
+                    sharded = isinstance(state, engine.dist.DistState)
+                    where = ({"mesh": state.mesh, "dist": state.dist}
+                             if sharded else {})
+                    if kind == "compile" \
+                            and backend_steps < policy.max_backend_steps:
+                        nb = next_backend(state.config.backend,
+                                          state.config.torch_device)
+                        if nb is None:
+                            raise
+                        backend_steps += 1
+                        record_degradation("compile", state.config.backend,
+                                           nb, site="cpd.backend", sweep=i)
+                        factors, lam = prev
+                        state = rebuild(dataclasses.replace(
+                            state.config, backend=nb), **where)
+                        continue
+                    if kind == "exchange" and sharded \
+                            and state.dist.exchange == "permute":
+                        # the same layouts and outputs, moved another way
+                        record_degradation("exchange", "permute",
+                                           "all_gather", site="cpd.exchange",
+                                           sweep=i)
+                        factors, lam = prev
+                        state = state.replace(dist=dataclasses.replace(
+                            state.dist, exchange="all_gather"))
+                        continue
+                    if kind == "device_lost" and sharded:
+                        lost = getattr(exc, "lost", 1)
+                        mesh = engine.dist.surviving_mesh(
+                            state.mesh, lost, [s.kappa for s in state.statics],
+                            data_axis=state.dist.data_axis)
+                        new_n = mesh.shape[state.dist.data_axis]
+                        record_degradation("device_lost", state.n_dev, new_n,
+                                           site="cpd.mesh", sweep=i,
+                                           lost=lost)
+                        # the latest snapshot when there is one (a real
+                        # loss takes the shards' buffers with it), else the
+                        # sweep's start, which the failed dispatch left
+                        factors, lam = prev
+                        resume_at = i
+                        snap = store.latest(fp) if store is not None \
+                            else None
+                        if snap is not None:
+                            factors, lam, fits = _restore(snap, dev)
+                            resume_at = snap.sweep
+                        state = rebuild(state.config, mesh=mesh,
+                                        dist=state.dist)
+                        if resume_at == i:
+                            prev = (factors, lam)
+                            continue
+                        rewind = resume_at
+                        break
+                    raise
                 if cz is not None:
                     factors = tuple(cz.mangle_factors(i, factors))
                 if policy is not None \
@@ -274,15 +348,23 @@ def als_sweeps(sweep, state, factors, values, iters: int, *,
                     fold = _als_fold_recovery
                     continue
                 break
-            if track_fit:
+            if rewind is None and track_fit:
                 fit = _fit(norm_x_sq, outs[len(factors) - 1], factors, lam)
                 fits.append(fit)
                 sp.set("fit", fit)
                 _obs_gauge("cpd_fit", "latest ALS fit per tier").set(
                     tier, fit)
+        if rewind is not None:
+            i = rewind
+            continue
         if store is not None and ((i + 1) % checkpoint_every == 0
                                   or i + 1 == iters):
-            store.save(fp, i + 1, factors, lam, fits)
+            if isinstance(state, engine.dist.DistState):
+                store.save(fp, i + 1, factors, lam, fits, mesh=state.mesh,
+                           dist=state.dist)
+            else:
+                store.save(fp, i + 1, factors, lam, fits)
+        i += 1
     return CPDResult(factors=list(factors), lam=lam, fits=fits)
 
 

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.kernels.mttkrp import (WorkTable, block_starts,
                                         default_cap, rect_cap, rect_work,
-                                        remap_plain, work_chunks)
+                                        remap_plain, split_ranges,
+                                        work_chunks, work_from_chunks)
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import span
 from repro_torch.resilience import chaos as _chaos
@@ -141,19 +142,38 @@ def mode_cap(plan) -> int:
 
 
 def mode_work(plan, cap: int | None = None) -> WorkTable:
-    """The kernels' work table of one mode's plan: under compact each
-    partition's blocks in chunks of at most ``cap`` (:func:`work_chunks`);
-    under rect only each partition's alive extent (:func:`rect_work`,
-    checked against the plan's alive slots). ``cap`` defaults to
-    :func:`mode_cap`; the streaming tier builds a chunk's table at its
-    resident mode's cap, so that a partition splits as it does there."""
-    if cap is None:
-        cap = mode_cap(plan)
-    if plan.schedule == "rect":
-        return rect_work(plan.part_nnz, plan.blocks_pp, plan.block_p,
-                         plan.slot_of_elem, cap=cap)
-    pstart = block_starts(torch.from_numpy(plan.block_part), plan.kappa)
-    return work_chunks(pstart, cap)
+    """The kernels' work table of one mode's plan (:func:`layout_work`
+    over its block descriptor and alive slots) at ``cap`` blocks a chunk,
+    by default :func:`mode_cap`; the streaming tier builds a chunk's
+    table at its resident mode's cap, so that a partition splits as it
+    does there."""
+    return layout_work(plan, plan.block_part, plan.slot_of_elem,
+                       cap=mode_cap(plan) if cap is None else cap)
+
+
+def layout_work(static, bpart, slots, nreal: int | None = None,
+                cap: int | None = None) -> WorkTable:
+    """The work table of a layout given by its plan constants ``static``
+    (a ``ModePlan`` or ``ModeStatic``), its block -> partition descriptor
+    ``bpart`` and its alive slots ``slots`` (numpy; read only under rect).
+    Under rect only each partition's alive extent (:func:`rect_work`,
+    nonzeros counted from ``slots``, checked against them); under compact
+    each partition's blocks below ``nreal`` (default all
+    ``static.nblocks``, and ``default_cap(nreal)`` blocks a chunk), so
+    that a distributed shard's trailing pad blocks, which repeat its last
+    partition's id, join no chunk."""
+    if static.schedule == "rect":
+        extent = static.blocks_pp * static.block_p
+        part_nnz = np.bincount(np.asarray(slots, np.int64) // extent,
+                               minlength=static.kappa)
+        return rect_work(part_nnz, static.blocks_pp, static.block_p, slots,
+                         cap=cap)
+    nreal = static.nblocks if nreal is None else int(nreal)
+    ps = block_starts(torch.from_numpy(np.array(bpart, np.int32)),
+                      static.kappa).numpy()
+    return work_from_chunks(
+        split_ranges(ps[:-1], np.minimum(ps[1:], nreal),
+                     default_cap(nreal) if cap is None else cap), ps)
 
 
 def _mode_sched(tensor, d: int, config: ExecutionConfig) -> ModeSched:
@@ -173,11 +193,12 @@ def _mode_sched(tensor, d: int, config: ExecutionConfig) -> ModeSched:
     return mode_sched_arrays(plan.block_part, plan.kappa, dedup, work)
 
 
-def as_flycoo(tensor, config: ExecutionConfig, cache=None):
+def as_flycoo(tensor, config: ExecutionConfig, cache=None, n_dev: int = 1):
     """``tensor`` as a :class:`~repro_torch.core.flycoo.FlycooTensor`: a
     prebuilt one as it is; a COO triple ``(indices, values, dims)``
-    planned under ``config`` (per-mode ``kappa_for``, ``block_p``,
-    ``schedule``), through ``cache`` when one is given."""
+    planned under ``config`` (per-mode ``kappa_for``, rounded for
+    ``n_dev`` shards, ``block_p``, ``schedule``), through ``cache`` when
+    one is given."""
     from repro_torch.core.flycoo import FlycooTensor, build_flycoo
 
     if isinstance(tensor, FlycooTensor):
@@ -186,7 +207,8 @@ def as_flycoo(tensor, config: ExecutionConfig, cache=None):
     n = len(dims)
     build = cache.get_tensor if cache is not None else build_flycoo
     return build(indices, values, dims,
-                 kappa=[config.kappa_for(int(i), n) for i in dims],
+                 kappa=[config.kappa_for(int(i), n, n_dev=n_dev)
+                        for i in dims],
                  block_p=config.block_p, schedule=config.schedule)
 
 
@@ -288,5 +310,5 @@ def all_modes(state: EngineState, factors: Sequence[torch.Tensor], *,
 
 __all__ = ["init", "mttkrp", "all_modes", "reset_counters", "mode_layout",
            "mode_sched_arrays", "place_sched", "mode_work", "mode_cap",
-           "as_flycoo",
+           "layout_work", "as_flycoo",
            "DISPATCH_COUNTS", "FoldFn"]

@@ -182,14 +182,26 @@ class ExecutionConfig:
                 f"{self.smem_budget_bytes} B of shared memory")
         return rows
 
-    def kappa_for(self, dim: int, nmodes: int) -> int:
-        """Partition count for a mode of size ``dim`` under this policy."""
+    def kappa_for(self, dim: int, nmodes: int, *, n_dev: int = 1) -> int:
+        """Partition count for a mode of size ``dim`` under this policy
+        (``nmodes`` sizes the ``"smem"`` row tile), rounded, as in the
+        reference, so that each of ``n_dev`` shards owns an equal,
+        contiguous run of partitions: ``kappa % n_dev == 0`` and ``kappa
+        <= dim``; a mode with fewer rows than shards raises."""
         if self.kappa_policy == "fixed":
-            return min(self.kappa, dim)
-        kappa = math.ceil(dim / self.resolve_rows_pp(nmodes))
-        floor = (2 * H100_SMS if self.min_partitions is None
-                 else self.min_partitions)
-        return min(max(kappa, floor), dim)
+            base = self.kappa
+        else:
+            floor = (2 * H100_SMS if self.min_partitions is None
+                     else self.min_partitions)
+            base = max(math.ceil(dim / self.resolve_rows_pp(nmodes)), floor)
+        if n_dev <= 1:
+            return min(base, dim)
+        if dim < n_dev:
+            raise ValueError(
+                f"mode of size {dim} cannot shard over {n_dev} devices "
+                "(fewer rows than devices)")
+        kappa = max(n_dev, math.ceil(base / n_dev) * n_dev)
+        return min(kappa, (dim // n_dev) * n_dev)
 
 
 __all__ = ["ExecutionConfig", "KAPPA_POLICIES", "SCHEDULES", "RESIDENCIES",

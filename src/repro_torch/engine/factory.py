@@ -26,8 +26,8 @@ kappa policy ``"smem"`` [``"vmem"``]; ``smem_budget_bytes``
 ``interpret``, and ``min_partitions`` is the port's partition floor
 (see :mod:`.config`). The port serves the single-device tiers, resident
 and streamed, with the degradation ladder's residency rung and the
-resume shape guard; a mesh (the distributed tier, ROADMAP Queue A item
-10) raises ``NotImplementedError``.
+resume shape guard, and the distributed tier: with a ``mesh`` the
+resident state is sharded over its data axis (:mod:`.dist`).
 """
 from __future__ import annotations
 
@@ -37,13 +37,12 @@ import itertools
 from repro_torch.kernels.mttkrp import SMEM_PER_BLOCK
 
 from .config import RESIDENCIES, SCHEDULES, ExecutionConfig
+from .dist import EXCHANGES, DistConfig
 
 # Searchable spec fields, in enumeration order (PlanSpace dimensions).
 SPACE_DIMS = ("backend", "schedule", "block_p", "rows_pp",
               "smem_budget_bytes", "dedup", "fuse_remap", "exchange",
               "residency", "chunk_nnz")
-
-EXCHANGES = ("permute", "all_gather")     # distributed remap exchanges
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +91,9 @@ class PlanSpec:
             chunk_nnz=self.chunk_nnz,
             device_budget_bytes=self.device_budget_bytes,
             stream_ring=self.stream_ring)
+
+    def to_dist_config(self, data_axis: str = "data") -> DistConfig:
+        return DistConfig(data_axis=data_axis, exchange=self.exchange)
 
     def canonical(self) -> "PlanSpec":
         """Collapse knob settings of identical meaning to one point: dedup
@@ -156,8 +158,8 @@ class PlanSpace:
 
 
 def make_engine(tensor, spec: PlanSpec | None = None, *,
-                start_mode: int = 0, cache=None, mesh=None, ladder=None,
-                resume=None):
+                start_mode: int = 0, cache=None, mesh=None,
+                data_axis: str = "data", ladder=None, resume=None):
     """Build an engine from one declarative ``spec``.
 
     ``tensor`` is a raw COO triple ``(indices, values, dims)`` or a
@@ -186,8 +188,14 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
     ``resume`` (a :class:`~repro_torch.resilience.Snapshot`) is checked
     against this problem before any state is built: one factor a mode
     with matching rows (the ALS entry points also match the content
-    fingerprint). ``mesh`` (the distributed tier, ROADMAP Queue A item
-    10) raises ``NotImplementedError``, with or without a ladder.
+    fingerprint).
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) returns the
+    resident state sharded over its ``data_axis`` (a ``DistState``, with
+    the spec's ``exchange``); a raw COO tensor is then planned with each
+    mode's kappa rounded to the shard count (``kappa_for(n_dev=)``). The
+    mesh tier is resident: ``residency="stream"`` with a mesh raises,
+    ``"auto"`` resolves to ``"full"``, and an OOM has no stream rung.
     """
     from repro_torch.core.flycoo import FlycooTensor
     from repro_torch.core.plancache import DEFAULT_CACHE
@@ -199,11 +207,18 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
     from .api import as_flycoo, init
     from .stream import resident_bytes, stream_init
 
+    from .dist import check_mesh, shard_state
+
     spec = (spec or PlanSpec()).canonical()
+    n_dev = 1
     if mesh is not None:
-        raise NotImplementedError(
-            "make_engine(mesh=...): the distributed tier is ROADMAP Queue A "
-            "item 10, not yet ported")
+        dist = spec.to_dist_config(data_axis)
+        check_mesh(mesh, dist)
+        if spec.residency == "stream":
+            raise ValueError(
+                "residency='stream' is a single-device tier; drop mesh "
+                "or use residency='full'")
+        n_dev = mesh.shape[data_axis]
     policy = resolve_policy(spec.ladder if ladder is None else ladder)
     if resume is not None:
         dims = (tensor.dims if isinstance(tensor, FlycooTensor)
@@ -219,23 +234,31 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
         cache = None
     config = spec.to_config()
     with span("factory.make_engine", backend=spec.backend,
-              schedule=spec.schedule, residency=spec.residency) as sp:
+              schedule=spec.schedule, residency=spec.residency,
+              sharded=mesh is not None) as sp:
+        if mesh is not None:
+            # per-mode kappa rounded to the shard count, so every shard
+            # owns an equal, contiguous run of partitions
+            tensor = as_flycoo(tensor, config, cache=cache, n_dev=n_dev)
         residency = spec.residency
         if residency == "auto":
             # the plans size the resident footprint: build them once
             # (through the cache) and hand the planned tensor to the tier
             tensor = as_flycoo(tensor, config, cache=cache)
             over = resident_bytes(tensor, config) > config.device_budget_bytes
-            residency = "stream" if over else "full"
+            residency = "stream" if over and mesh is None else "full"
         sp.set("resolved_residency", residency)
         if residency == "full":
             try:
                 cz = _chaos.active()
                 if cz is not None:
                     cz.on_resident_init()
-                return init(tensor, config, start_mode, cache=cache)
+                state = init(tensor, config, start_mode, cache=cache)
+                return state if mesh is None else shard_state(state, mesh,
+                                                              dist)
             except Exception as exc:
-                if policy is None or classify(exc) != "oom":
+                if policy is None or mesh is not None \
+                        or classify(exc) != "oom":
                     raise
                 record_degradation("oom", "full", "stream",
                                    site="factory.residency")

@@ -11,7 +11,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.engine.api import mode_sched_arrays, place_sched
+from repro_torch.engine.api import mode_sched_arrays, mode_work, place_sched
+from repro_torch.engine.backends import get_backend
 from repro_torch.engine.config import ExecutionConfig
 from repro_torch.engine.state import EngineState, ModeStatic
 
@@ -57,28 +58,36 @@ def model_params_from_numpy(tree, cfg, device="cuda"):
 
 def state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
                      dims: Sequence[int], statics: Sequence,
-                     config: ExecutionConfig | None = None) -> EngineState:
+                     config: ExecutionConfig | None = None,
+                     plans: Sequence | None = None) -> EngineState:
     """The port's ``EngineState`` from a reference state's leaves.
 
     ``val``/``idx``/``alpha`` are the S_max-padded layout, ``relabel`` the
     per-mode relabel tables, ``sched`` per mode the reference
     ``ModeSched`` fields ``(bpart, uidx, upos, nuniq)`` (the dedup tables
     ``None`` where absent), ``statics`` per mode the ``ModeStatic`` fields
-    in order. The block-start table is derived from ``bpart`` here, and
-    with the dedup tables the balanced kernels' work table; other kernels
-    derive theirs from ``pstart`` at each call (the reference's state
-    has no plan to build a rect table from).
+    in order. The block-start table is derived from ``bpart`` here. With
+    ``plans`` (the reference tensor's ``ModePlan`` list, which carries
+    ``part_nnz`` and the alive slots) and a backend whose kernels take a
+    work table, each mode's table is the one ``engine.init`` builds
+    (``engine.api.mode_work``), under either schedule; without them, the
+    dedup tables get the balanced kernels' full-range table and other
+    kernels derive theirs from ``pstart`` at each call.
     """
     config = config or ExecutionConfig()
     dev = config.torch_device
     statics = tuple(ModeStatic(*s) for s in statics)
+    takes_work = getattr(get_backend(config), "takes_work", False)
     tables = []
-    for s, st in zip(sched, statics):
+    for d, (s, st) in enumerate(zip(sched, statics)):
         bpart, *dedup = s
         dedup = None if dedup[0] is None else tuple(np.asarray(a)
                                                     for a in dedup)
+        work = (mode_work(plans[d]) if plans is not None and takes_work
+                else None)
         tables.append(place_sched(
-            mode_sched_arrays(np.asarray(bpart), st.kappa, dedup), dev))
+            mode_sched_arrays(np.asarray(bpart), st.kappa, dedup, work),
+            dev))
     return EngineState(
         val=_to(val, np.float32, dev), idx=_to(idx, np.int32, dev),
         alpha=_to(alpha, np.int32, dev),
@@ -87,5 +96,49 @@ def state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
         dims=tuple(int(d) for d in dims), statics=statics, config=config)
 
 
+def dist_state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
+                          dims: Sequence[int], statics: Sequence,
+                          lstatics: Sequence, schedule, plans: Sequence,
+                          mesh, dist=None,
+                          config: ExecutionConfig | None = None):
+    """The port's ``DistState`` on ``mesh`` from a reference
+    ``DistState``'s leaves, gathered to numpy.
+
+    ``val``/``idx``/``alpha`` are the global device-major layout,
+    ``relabel`` the per-mode relabel tables, ``sched`` per mode the
+    device-major ``(bpart, uidx, upos, nuniq)``, ``statics`` and
+    ``lstatics`` per mode the ``ModeStatic`` fields in order, ``schedule``
+    the reference's ``ExchangeSchedule`` (or its ``(n_dev, hops)``).
+    ``plans`` (the reference tensor's ``ModePlan`` list) give each
+    shard's real block count (``engine.dist._block_geometry`` of the
+    plan's ``block_part``), from which, with the alive slots of
+    ``alpha``, each shard's work table is built as ``shard_state`` builds
+    it (``engine.dist.assemble``)."""
+    from repro_torch.engine.dist import (DistConfig, ExchangeSchedule,
+                                         _block_geometry, assemble)
+
+    config = config or ExecutionConfig()
+    dist = dist or DistConfig()
+    statics = tuple(ModeStatic(*s) for s in statics)
+    lstatics = tuple(ModeStatic(*s) for s in lstatics)
+    n_dev, hops = schedule
+    schedule = ExchangeSchedule(
+        n_dev=int(n_dev), hops=tuple(tuple(int(c) for c in h)
+                                     for h in hops))
+    gsched = []
+    for s in sched:
+        bpart, uidx, upos, nuniq = (None if a is None else np.asarray(a)
+                                    for a in s)
+        gsched.append({"bpart": bpart, "uidx": uidx, "upos": upos,
+                       "nuniq": nuniq})
+    per_dev = [_block_geometry(st, np.asarray(p.block_part), int(n_dev))[1]
+               for st, p in zip(statics, plans)]
+    return assemble(
+        np.asarray(val), np.asarray(idx), np.asarray(alpha),
+        [np.asarray(r) for r in relabel], gsched, mode=mode, dims=dims,
+        statics=statics, lstatics=lstatics, blocks_per_dev=per_dev,
+        config=config, dist=dist, schedule=schedule, mesh=mesh)
+
+
 __all__ = ["factors_from_numpy", "model_params_from_numpy",
-           "state_from_numpy"]
+           "state_from_numpy", "dist_state_from_numpy"]

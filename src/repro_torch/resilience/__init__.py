@@ -6,8 +6,9 @@ injection, checkpoint/resume, the degradation ladder and the NaN guard.
     ``cp_als_stream`` write one every ``checkpoint_every`` sweeps;
     ``resume=True`` loads the newest intact one *for the same problem
     fingerprint* and replays the remaining sweeps, bit for bit the
-    uninterrupted run on the CPU. Reads the reference's v1 and sharded v2
-    blobs, writes v1.
+    uninterrupted run on the CPU. Reads and writes the reference's v1 and
+    sharded v2 blobs (v2: a distributed run, with the mesh's
+    fingerprint); a run killed on 4 shards resumes on 2 or 1.
 
 :mod:`~repro_torch.resilience.ladder`
     The rungs, as in the reference:
@@ -20,6 +21,10 @@ injection, checkpoint/resume, the degradation ladder and the NaN guard.
     OOM (resident place)    residency ``full -> stream``
     OOM (streamed chunk)    chunk budget halved + replan (cached)
     transient transfer      retry with seeded backoff
+    exchange failure        ``permute -> all_gather`` (distributed)
+    device lost             re-shard on the surviving mesh from the
+                            latest snapshot (distributed)
+    transient dist dispatch retry with seeded backoff
     sticky CUDA error       none: ``"fatal"``, the context is gone
     ======================  =======================================
 
@@ -37,16 +42,13 @@ injection, checkpoint/resume, the degradation ladder and the NaN guard.
 :mod:`~repro_torch.resilience.guard`
     The per-sweep NaN/Inf check behind the rollback.
 
-The distributed rungs (exchange fallback, mesh shrink, dist dispatch
-retries), ``on_dist_dispatch``, v2 writes and ``mesh_fingerprint`` come
-with the distributed tier (ROADMAP Queue A item 10).
 """
 from . import chaos, ladder
 from .chaos import (Chaos, ChaosCompileError, ChaosDeviceLost, ChaosError,
                     ChaosExchangeError, ChaosOOM, ChaosSpec, ChaosUploadError,
                     active, from_env, install, uninstall)
 from .snapshot import (Snapshot, SnapshotStore, as_store, factor_shards,
-                       fingerprint, payload_digest)
+                       fingerprint, mesh_fingerprint, payload_digest)
 from .ladder import (DEFAULT_POLICY, LadderPolicy, ambient, backoff_delay,
                      classify, install_ambient, next_backend,
                      record_degradation, record_retry, resolve_policy,
@@ -61,7 +63,7 @@ __all__ = [
     "ChaosExchangeError", "ChaosDeviceLost", "install", "uninstall",
     "active", "from_env",
     "Snapshot", "SnapshotStore", "as_store", "fingerprint",
-    "payload_digest", "factor_shards",
+    "payload_digest", "factor_shards", "mesh_fingerprint",
     "LadderPolicy", "DEFAULT_POLICY", "classify", "next_backend",
     "backoff_delay", "record_degradation", "record_retry",
     "resolve_policy", "ambient", "install_ambient", "uninstall_ambient",

@@ -45,11 +45,19 @@ fires it:
                      blob after it lands (answered by the checksum
                      quarantine and a cold rebuild)
 
-The distributed keys (``exchange_fail``, ``device_lost``,
-``device_lost_n``, ``dist_transient``, ``dist_transient_times``) parse as
-in the reference, but their hook belongs to the distributed tier (ROADMAP
-Queue A item 10): :func:`install` refuses a spec that sets them rather
-than leave them unfired.
+Distributed fault model (hook: ``on_dist_dispatch``, before every
+``engine.dist`` dispatch):
+
+  ``exchange_fail``  raise :class:`ChaosExchangeError` at the Nth dist
+                     dispatch that runs the permute exchange, once
+                     (answered by the ``permute -> all_gather`` rung)
+  ``device_lost``    raise :class:`ChaosDeviceLost` at the Nth dist
+                     dispatch, once; ``device_lost_n`` devices die
+                     (answered by re-sharding on the surviving mesh from
+                     the latest snapshot)
+  ``dist_transient`` fail the Nth dist dispatch for
+                     ``dist_transient_times`` attempts (answered by retry
+                     with backoff)
 """
 from __future__ import annotations
 
@@ -63,12 +71,9 @@ from repro_torch.obs.trace import span as _span
 __all__ = ["ChaosError", "ChaosUploadError", "ChaosOOM",
            "ChaosCompileError", "ChaosExchangeError", "ChaosDeviceLost",
            "ChaosSpec", "Chaos", "install", "uninstall", "active",
-           "from_env", "ENV_VAR", "DIST_KEYS"]
+           "from_env", "ENV_VAR"]
 
 ENV_VAR = "REPRO_CHAOS"
-
-#: ChaosSpec fields whose faults only the distributed tier can inject.
-DIST_KEYS = ("exchange_fail", "device_lost", "dist_transient")
 
 
 class ChaosError(RuntimeError):
@@ -138,6 +143,9 @@ class Chaos:
         self._upload_ordinal: dict = {}      # (mode, chunk) -> ordinal
         self._upload_attempts: dict = {}     # (mode, chunk) -> failed tries
         self._compute_calls = 0
+        self._dist_calls = 0                 # distinct dist dispatches
+        self._exchange_calls = 0             # ... of which run permute
+        self._dist_attempts = 0              # transient tries at target
         self._fired: set[str] = set()
 
     def _record(self, site: str, **attrs) -> None:
@@ -204,6 +212,55 @@ class Chaos:
             raise ChaosCompileError(
                 f"injected kernel build failure for backend {backend!r}")
 
+    def on_dist_dispatch(self, backend: str, *, exchange: str, n_dev: int,
+                         attempt: int = 0) -> None:
+        """Called before each distributed (``engine.dist``) dispatch.
+
+        Ordinals advance once per distinct dispatch (``attempt == 0``), so
+        a retried dispatch keeps its ordinal. Checks in the reference's
+        order: build (``compile_fail``, shared with ``on_dispatch``),
+        device loss, exchange failure, transient failure.
+        """
+        self.on_dispatch(backend)
+        if attempt == 0:
+            ordinal = self._dist_calls
+            self._dist_calls += 1
+            exchange_ordinal = self._exchange_calls
+            if exchange == "permute":
+                self._exchange_calls += 1
+        else:
+            ordinal = self._dist_calls - 1
+            exchange_ordinal = self._exchange_calls - 1
+        at = self.spec.device_lost
+        if at is not None and ordinal == at \
+                and "device_lost" not in self._fired:
+            lost = self.spec.device_lost_n
+            self._fired.add("device_lost")
+            self._record("device_lost", ordinal=ordinal, lost=lost,
+                         n_dev=n_dev)
+            raise ChaosDeviceLost(
+                f"injected loss of {lost} device(s) at dist dispatch "
+                f"{ordinal} (mesh had {n_dev})", lost=lost)
+        at = self.spec.exchange_fail
+        if at is not None and exchange == "permute" \
+                and exchange_ordinal == at \
+                and "exchange_fail" not in self._fired:
+            self._fired.add("exchange_fail")
+            self._record("exchange_fail", ordinal=exchange_ordinal)
+            raise ChaosExchangeError(
+                f"injected permute exchange failure at dist dispatch "
+                f"{exchange_ordinal}")
+        at = self.spec.dist_transient
+        if at is not None and ordinal == at \
+                and self._dist_attempts < self.spec.dist_transient_times:
+            self._dist_attempts += 1
+            self._fired.add("dist_transient")
+            self._record("dist_transient", ordinal=ordinal,
+                         attempt=attempt)
+            raise ChaosUploadError(
+                f"injected transient dist dispatch failure at ordinal "
+                f"{ordinal} (attempt {attempt})")
+
     def mangle_factors(self, sweep: int, factors):
         """Called after each ALS sweep; at the configured sweep (once)
         returns the factors with NaN in a clone of ``factors[0][0, 0]``
@@ -243,16 +300,9 @@ _ACTIVE: Chaos | None = None
 
 
 def install(spec: ChaosSpec | Chaos) -> Chaos:
-    """Install ``spec`` as the process-global injector; returns it.
-    Refuses a spec with distributed faults (ROADMAP Queue A item 10)."""
+    """Install ``spec`` as the process-global injector; returns it."""
     global _ACTIVE
-    live = spec if isinstance(spec, Chaos) else Chaos(spec)
-    dist = [k for k in DIST_KEYS if getattr(live.spec, k) is not None]
-    if dist:
-        raise NotImplementedError(
-            f"ChaosSpec {', '.join(dist)}: distributed faults need the "
-            "distributed tier, ROADMAP Queue A item 10, not yet ported")
-    _ACTIVE = live
+    _ACTIVE = spec if isinstance(spec, Chaos) else Chaos(spec)
     return _ACTIVE
 
 

@@ -14,6 +14,12 @@ span, every retry a ``resilience_retries`` label plus a
 ``resilience.retry`` span. A failure ``classify`` cannot name is
 ``"fatal"`` and is never stepped over.
 
+The distributed tier adds two rungs (``core.cpd.als_sweeps``): an
+exchange failure steps ``permute -> all_gather``, and a lost device
+re-shards the state on the surviving mesh from the latest snapshot; a
+transient dist dispatch retries with the same backoff
+(``engine.dist``).
+
 The ladder is off unless asked for: ``ladder=None`` with no ambient
 policy means no ladder. ``REPRO_LADDER=1`` (or ``key=value`` items naming
 :class:`LadderPolicy` fields) installs an ambient policy at import, which

@@ -21,11 +21,14 @@ snapshot (``factor{i}``, ``lam``, ``fits`` and a JSON ``meta``), the
 ``keep`` newest kept per fingerprint; the reference's format, so each
 package reads the other's blobs.
 
-The store reads both formats: v1 (one array a factor) and the sharded
-v2 a distributed sweep writes (``factor{i}_s{j}`` row shards, reassembled
-here on the host). It writes v1. Writing v2 (``save(mesh=...)``) and
-``mesh_fingerprint`` belong to the distributed tier, ROADMAP Queue A
-item 10.
+The store reads and writes both formats: v1 (one array a factor) and
+the sharded v2 a distributed sweep writes (``save(mesh=, dist=)``:
+``factor{i}_s{j}`` row shards, the saving mesh's
+:func:`mesh_fingerprint` and the ``DistConfig`` repr in the
+digest-covered meta; reassembled on the host at load). The problem
+fingerprint leaves the mesh out: at a sweep boundary ``(factors, lam)``
+do not depend on it, so a run killed on 4 shards resumes on 2 or 1,
+re-sharded onto the current mesh.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ import torch
 from repro_torch.obs.metrics import counter as _counter
 from repro_torch.obs.trace import span as _span
 
-__all__ = ["fingerprint", "payload_digest", "factor_shards", "Snapshot",
-           "SnapshotStore", "as_store"]
+__all__ = ["fingerprint", "payload_digest", "mesh_fingerprint",
+           "factor_shards", "Snapshot", "SnapshotStore", "as_store"]
 
 _FORMAT_VERSION = 1
 _SHARDED_VERSION = 2
@@ -93,10 +96,24 @@ def payload_digest(arrays: dict) -> str:
     return h.hexdigest()
 
 
+def mesh_fingerprint(mesh) -> dict:
+    """JSON-able identity of a :class:`~repro_torch.launch.mesh.Mesh`:
+    the reference's ``n_dev`` (mesh positions), ``axes`` (``{axis:
+    size}``) and ``platform`` (the devices' type, ``cuda`` or ``cpu``),
+    and ``distinct``, how many distinct devices hold the shards (several
+    shards may share a card)."""
+    devices = np.asarray(mesh.devices).reshape(-1)
+    return {"n_dev": int(devices.size),
+            "axes": {str(k): int(v) for k, v in dict(mesh.shape).items()},
+            "platform": str(getattr(devices[0], "type", "unknown")),
+            "distinct": len(set(devices))}
+
+
 def factor_shards(arr) -> list[tuple[int, np.ndarray]]:
-    """``(row_offset, host_shard)`` pairs covering ``arr`` once. A plain
-    array or tensor is one ``(0, full)`` entry; arrays sharded over a mesh
-    come with the distributed tier (ROADMAP Queue A item 10)."""
+    """``(row_offset, host_shard)`` pairs covering ``arr`` once. The
+    port's factors are whole tensors (replicated over the mesh, as the
+    reference's distributed sweep leaves them), so this is one ``(0,
+    full)`` entry."""
     return [(0, _host(arr))]
 
 
@@ -150,22 +167,34 @@ class SnapshotStore:
 
     def save(self, fp: str, sweep: int, factors, lam,
              fits: Sequence[float] = (), *, mesh=None, dist=None) -> str:
-        """Persist one completed-sweep state in the v1 format; returns the
-        blob's path. Factors and ``lam`` may be numpy arrays or tensors on
-        any device."""
-        if mesh is not None or dist is not None:
-            raise NotImplementedError(
-                "SnapshotStore.save(mesh=...): the sharded v2 format is "
-                "written by the distributed tier, ROADMAP Queue A item 10, "
-                "not yet ported")
+        """Persist one completed-sweep state; returns the blob's path.
+        Factors and ``lam`` may be numpy arrays or tensors on any device.
+        With ``mesh=`` the blob is the sharded v2 format (module
+        docstring), else v1."""
         with _span("resilience.snapshot_save", sweep=sweep) as sp:
             arrays: dict = {}
-            for i, f in enumerate(factors):
-                arrays[f"factor{i}"] = _host(f)
+            if mesh is not None:
+                shard_meta = []
+                for i, f in enumerate(factors):
+                    shards = factor_shards(f)
+                    shard_meta.append(
+                        {"rows": [r for r, _ in shards],
+                         "shape": [int(s) for s in tuple(f.shape)]})
+                    for j, (_, data) in enumerate(shards):
+                        arrays[f"factor{i}_s{j}"] = data
+            else:
+                for i, f in enumerate(factors):
+                    arrays[f"factor{i}"] = _host(f)
             arrays["lam"] = _host(lam)
             arrays["fits"] = np.asarray(list(fits), dtype=np.float64)
-            meta = {"version": _FORMAT_VERSION, "fingerprint": fp,
-                    "sweep": int(sweep), "n_factors": len(factors)}
+            meta = {"version": (_SHARDED_VERSION if mesh is not None
+                                else _FORMAT_VERSION),
+                    "fingerprint": fp, "sweep": int(sweep),
+                    "n_factors": len(factors)}
+            if mesh is not None:
+                meta["shards"] = shard_meta
+                meta["mesh"] = mesh_fingerprint(mesh)
+                meta["dist"] = repr(dist)
             arrays["meta"] = np.frombuffer(
                 json.dumps(meta).encode(), dtype=np.uint8)
             digest = payload_digest(arrays)

@@ -316,16 +316,18 @@ def test_make_engine_plans_like_engine_init_and_reports():
 
 
 @pytest.mark.parametrize("call,item", [
-    (dict(mesh=object()), "item 10"),
-    (dict(mesh=object(), ladder=True), "item 10"),
-    (dict(spec=dict(ladder=True), mesh=object()), "item 10"),
-    (dict(mesh=object(), resume=object()), "item 10")])
+    (dict(mesh=object()), "item 12.3"),
+    (dict(mesh=object(), ladder=True), "item 12.3"),
+    (dict(spec=dict(ladder=True), mesh=object()), "item 12.3"),
+    (dict(mesh=object(), resume=object()), "item 12.3")])
 def test_make_engine_refuses_what_is_not_ported(call, item):
-    """Each raises naming its ROADMAP item (the distributed tier); no
-    ladder and no resume steps over the refusal, and nothing else runs in
-    its place. The ladder and resume themselves are held in
+    """A mesh that is not the port's ``launch.mesh.Mesh`` (the reference's
+    ``ShardingCtx`` comes with ROADMAP item 12.3) raises ``TypeError``
+    naming its item; no ladder and no resume steps over the refusal, and
+    nothing else runs in its place. The distributed tier itself is held
+    in ``tests/test_torch_dist.py``, the ladder and resume in
     ``tests/test_torch_resilience.py``."""
     idx, val, dims = _coo(nnz=300)
     spec = _spec(backend="cuda_fused", **call.pop("spec", {}))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         make_engine((idx, val, dims), spec, cache=False, **call)

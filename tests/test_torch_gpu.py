@@ -1143,3 +1143,115 @@ def test_cp_als_resume_on_the_card(cuda, tmp_path, no_chaos):
                  checkpoint=tmp_path, resume=True).fits
     assert got[:2] == pytest.approx(full[:2], abs=1e-4)
     assert got == pytest.approx(full, abs=1e-4)
+
+
+# --------------------------------------------------------------------------
+# The distributed tier on the card (chip_smoke.py [14] at a small size):
+# shards on one card, or on as many as there are.
+# --------------------------------------------------------------------------
+def _dist_mesh(cuda, n):
+    from repro_torch.launch.mesh import make_mesh
+
+    have = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(n)] if have >= n
+            else [cuda] * n)
+    return make_mesh((n,), ("data",), devices=devs)
+
+
+def _dist_case(cuda, nmodes=3, schedule="compact", seed=21):
+    from repro_torch.core import build_sharded_flycoo
+
+    idx, val, dims, rng = _coo(nmodes, 3000, seed)
+    t = build_sharded_flycoo(idx, val, dims, n_dev=4, rows_pp=4, block_p=8,
+                             schedule=schedule)
+    facs = [torch.from_numpy(rng.standard_normal((d, 32))
+                             .astype(np.float32)).to(cuda) for d in dims]
+    return t, facs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,schedule,name", [
+    ("cuda_fused", "compact", "mttkrp_fused_gather_compact"),
+    ("cuda", "compact", "mttkrp_fused_compact"),
+    ("cuda_fused", "rect", "mttkrp_fused_gather"),
+    ("cuda", "rect", "mttkrp_fused")])
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_dist_matches_single_device_on_the_card(cuda, backend, schedule,
+                                                name, n_dev):
+    """Each mode on every shard's work table: one launch a shard a mode,
+    each mode within the tolerance of the single-device engine and the
+    oracle, the layout after each transition bitwise the one ``shard_state``
+    gives of the single-device engine's next layout, under both
+    exchanges."""
+    from repro_torch.engine import DistConfig, dist
+
+    t, facs = _dist_case(cuda, 3, schedule)
+    cfg = ExecutionConfig(backend=backend, schedule=schedule)
+    ti = torch.from_numpy(t.indices).to(cuda)
+    tv = torch.from_numpy(t.values).to(cuda)
+    for exchange in dist.EXCHANGES:
+        st = engine.init(t, cfg)
+        ds = dist.shard_state(st, _dist_mesh(cuda, n_dev),
+                              DistConfig(exchange=exchange))
+        for _ in range(3):
+            d = ds.mode
+            before = kmt.LAUNCHES[name]
+            out, ds = dist.dist_mttkrp(ds, facs)
+            assert kmt.LAUNCHES[name] == before + n_dev
+            want, st = engine.mttkrp(st, facs)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, want, **TOL)
+            torch.testing.assert_close(
+                out, mttkrp_ref(ti, tv, facs, d, t.dims[d]), **TOL)
+            nxt = dist.shard_state(st, ds.mesh, ds.dist)
+            for a, b in zip(ds.host_layout(), nxt.host_layout()):
+                assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_dist_rotation_reads_nothing_back_on_the_card(cuda, monkeypatch):
+    from repro_torch.engine import dist
+
+    t, facs = _dist_case(cuda, 4)
+    ds = dist.shard_state(engine.init(t, ExecutionConfig(
+        backend="cuda_fused")), _dist_mesh(cuda, 4))
+    dist.dist_all_modes(ds, facs)       # a warm-up rotation
+    calls = []
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    for name in ("cpu", "item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            counting(name, getattr(torch.Tensor, name)))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        counting("synchronize", torch.cuda.synchronize))
+    dist.dist_all_modes(ds, facs)
+    assert calls == []
+
+
+@pytest.mark.gpu
+def test_dist_cp_als_and_rungs_on_the_card(cuda, no_chaos):
+    """``cp_als`` over 4 shards against the single-device run, and the
+    exchange and device-loss rungs against the clean 4-shard run: fits
+    within 1e-4."""
+    from repro_torch.resilience import ChaosSpec, LadderPolicy, install
+
+    t, _ = _dist_case(cuda, 3)
+    rng = np.random.default_rng(4)
+    init = [rng.random((d, 8)).astype(np.float32) for d in t.dims]
+    cfg = ExecutionConfig(backend="cuda_fused")
+    one = cp_als(t, 8, iters=3, factors=init, config=cfg).fits
+    mesh = _dist_mesh(cuda, 4)
+    clean = cp_als(t, 8, iters=3, factors=init, config=cfg, mesh=mesh).fits
+    assert clean == pytest.approx(one, abs=1e-4)
+    policy = LadderPolicy(backoff_base_s=1e-4, backoff_cap_s=1e-3)
+    for spec in (ChaosSpec(exchange_fail=1),
+                 ChaosSpec(device_lost=1, device_lost_n=2)):
+        install(spec)
+        got = cp_als(t, 8, iters=3, factors=init, config=cfg, mesh=mesh,
+                     ladder=policy).fits
+        assert got == pytest.approx(clean, abs=1e-4)

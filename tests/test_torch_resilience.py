@@ -786,16 +786,32 @@ def test_resilience_report_flags_silent_faults():
 
 @pytest.mark.parametrize("case", ["cp_als", "chaos", "v2"])
 def test_distributed_parts_refuse_naming_item_10(case, tmp_path):
+    """Item 10 (the distributed tier) is ported, so none of its parts
+    refuses any more: ``cp_als`` refuses only a mesh that is not the
+    port's (naming item 12.3, the sharding context), a spec with
+    distributed faults installs, and ``save(mesh=)`` writes the v2
+    format. The tier itself is held in ``tests/test_torch_dist.py``."""
+    from repro_torch.launch.mesh import make_mesh
+
     t = _tensor()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        if case == "cp_als":
+    if case == "cp_als":
+        with pytest.raises(TypeError, match="item 12.3"):
             cp_als(t, 4, iters=1, config=_cfg(), mesh=object())
-        elif case == "chaos":
-            install(ChaosSpec(exchange_fail=0))
-        else:
-            SnapshotStore(str(tmp_path)).save("ab" * 32, 1, [np.ones(2)],
-                                              np.ones(1), mesh=object())
-    assert chaos.active() is None
+        assert chaos.active() is None
+    elif case == "chaos":
+        assert install(ChaosSpec(exchange_fail=0)) is chaos.active()
+    else:
+        mesh = make_mesh((2,), ("data",), devices=["cpu"] * 2)
+        path = SnapshotStore(str(tmp_path)).save(
+            "ab" * 32, 1, [np.ones((3, 2))], np.ones(2), mesh=mesh,
+            dist="d")
+        snap = rsnapshot.SnapshotStore(str(tmp_path)).load(path)
+        assert snap.mesh == {"n_dev": 2, "axes": {"data": 2},
+                             "platform": "cpu", "distinct": 1}
+        assert snap.dist == repr("d")
+        np.testing.assert_array_equal(snap.factors[0], np.ones((3, 2)))
+    assert not [p for p in (REPO / "src" / "repro_torch").rglob("*.py")
+                if "item 10" in p.read_text()]
 
 
 def test_no_refusal_names_item_9():
