@@ -85,6 +85,22 @@ times the kernels at each path's shapes.
        checks; [14e] the exchange and device-loss rungs, and
        ``--dist-child`` processes killed at sweep 3 on 4 shards and
        resumed on 2 and on 1
+  [15] the dense attention family and the CPD-factorized embedding (no
+       port kernel on this path: attention, MLP and the embedding's
+       spMTTKRP backward are PyTorch ops, as the reference's are ``jnp``
+       ops): [15a] tinyllama-1.1b, olmo-1b and qwen2.5-3b at full width
+       and depth (f32 params, random weights from a seed), each with the
+       bf16 prefill ``forward`` at B 4, S 4096 (timed, profiled into
+       matmul / softmax / other, peak memory), a float32 cross-check of
+       ``forward`` against ``Engine.prefill`` on a 4-layer copy over the
+       same parameter tensors, and ``Engine.generate`` serving 4 requests
+       of 16 + 32 tokens; [15b] the same for tinyllama-1.1b with
+       ``cpd_embedding=True`` (rank 64, 32000 -> 179 x 179 ids), then
+       ``cpd_embed``'s rows against ``dense_table()[tokens]``,
+       ``cpd_logits`` against ``x @ dense_table().T`` and, at the full
+       batch (16,384 tokens, D 2048), ``cpd_embed``'s three gradients
+       from its own backward against autograd through the naive lookup
+       and a float64 recomputation, timed beside the naive autograd
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -191,12 +207,25 @@ function on absolute inputs) and ``u = 2**-24``:
     on logits of size ~1, for the same reasons (sums over d = 4096 and
     d_ff = 12288, a softmax over at most 64 keys); a dropped carry or a
     wrong mask moves logits by ~1e-1. Greedy tokens must agree.
+  * [15a]/[15b] float32 cross-checks, the same limit and reasons (4
+    causal attention layers, d 2048, d_ff up to 11008, a softmax over at
+    most 64 keys through the causal KV cache).
+  * [15b] the CPD functions in float32 against float32 or float64, per
+    element ``sides * LAMBDA * terms * u * s``, ``s`` the same function
+    on absolute values in float64: the rows (a sum over R, one rounding
+    a product) ``terms = sqrt(R) + 2``; the head (sums over D then R
+    against R then D) ``sqrt(D) + sqrt(R) + 2``; dA / dB (a row's n
+    tokens, each term a sum over D) ``sqrt(n) + sqrt(D) + 3``; dC (a sum
+    over the T tokens) ``sqrt(T) + 2``. The gradient limit is held
+    against itself: a backward whose first token's cotangent is dropped
+    must fail it.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1600,7 +1629,8 @@ def xcheck(tag, model4, cfg4, prompt):
 def serve_check(tag, model, cfg, batch, g, kernel):
     """Serving at full depth, bf16: ``batch`` requests of 16 prompt + 32
     new tokens, greedy, twice (the first run is cold), then one decode
-    step under ``torch.profiler``."""
+    step under ``torch.profiler`` (the caches hold 49 positions: a causal
+    cache refuses a step past its end)."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.serving import Engine, ServeConfig
@@ -1610,7 +1640,7 @@ def serve_check(tag, model, cfg, batch, g, kernel):
                            device="cuda")
     serve = []
     for _ in range(2):
-        eng = Engine(model, cfg, ServeConfig(batch, 48), device="cuda")
+        eng = Engine(model, cfg, ServeConfig(batch, 49), device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1839,7 +1869,7 @@ def phase_rg(klru, report, reps):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import rglru, transformer
-    from repro_torch.models.common import apply_norm, tree_of
+    from repro_torch.models.common import apply_norm
 
     cfg = get_config(RG_ARCH)
     kinds = transformer.layer_kinds(cfg)
@@ -1917,12 +1947,7 @@ def phase_rg(klru, report, reps):
 
         # float32 cross-check at 4 layers, over the same parameter tensors.
         cfg4 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
-        model4 = transformer.Model(cfg4, {
-            "embed": model.embed, "ln_f": tree_of(model.ln_f),
-            "layers": [tree_of(m) for m in model.layers[:4]]})
-        if model4.embed.data_ptr() != model.embed.data_ptr():
-            raise AssertionError("[11] the 4-layer model copied its "
-                                 "parameters")
+        model4 = first_layers(model, cfg4)
         prompt = torch.randint(0, cfg.vocab, (RG_BATCH, RG_XCHECK_SEQ),
                                generator=g, device="cuda")
         xerr, xlogit = xcheck("[11]", model4, cfg4, prompt)
@@ -3488,6 +3513,272 @@ def phase_dist(kmt, t, factors, small, twitch, report, reps):
     return times, launches, err
 
 
+# --------------------------------------------------------------------------
+# [15] The dense attention family and the CPD-factorized embedding.
+# --------------------------------------------------------------------------
+DENSE_ARCHS = ("tinyllama-1.1b", "olmo-1b", "qwen2.5-3b")
+DENSE_BATCH, DENSE_SEQ = 4, 4096      # prefill_32k cut 8x in B and in S
+DENSE_XCHECK_SEQ = 64
+CPD_ARCH = "tinyllama-1.1b"
+
+
+def first_layers(model, cfg4):
+    """A model of ``cfg4.n_layers`` layers over the first layers'
+    parameter tensors of ``model`` (no copy)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_of
+
+    tree = tree_of(model)
+    tree["layers"] = [tree["layers"][str(i)] for i in range(cfg4.n_layers)]
+    small = transformer.Model(cfg4, tree)
+    if next(small.parameters()).data_ptr() != \
+            next(model.parameters()).data_ptr():
+        raise AssertionError("the 4-layer model copied its parameters")
+    return small
+
+
+def dense_prefill(tag, model, cfg, tokens, reps):
+    """The main path: one bf16 prefill ``forward``, checked (shape,
+    finite), then timed (median of ``reps`` CUDA-event runs) and profiled
+    (matmul / softmax / other device time)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.tensorized import split_dims
+
+    width = (math.prod(split_dims(cfg.vocab_padded)) if cfg.cpd_embedding
+             else cfg.vocab_padded)
+    out = {}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        logits = transformer.forward(model, cfg, tokens)
+        torch.cuda.synchronize()
+        out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if logits.shape != (*tokens.shape, width) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag} forward logits "
+                                 f"{tuple(logits.shape)} not finite or not "
+                                 f"{(*tokens.shape, width)}")
+        del logits
+        out["forward_ms"] = cuda_median_ms(
+            lambda: transformer.forward(model, cfg, tokens), reps)
+        out["forward_profile"] = device_breakdown(
+            lambda: transformer.forward(model, cfg, tokens), "softmax")
+    log(f"{tag} forward (B {tokens.shape[0]}, S {tokens.shape[1]}, bf16, "
+        f"logits width {width}): {out['forward_ms']:.1f} ms (median of "
+        f"{reps}), peak {out['prefill_peak_gib']:.2f} GiB")
+    log(f"{tag} forward profile: {breakdown_line(out['forward_profile'])}")
+    return out
+
+
+def dense_run(tag, cfg, reps, g):
+    """Init at full width and depth, the prefill, the float32 cross-check
+    on a 4-layer copy over the same tensors, and serving; returns the
+    model and its numbers."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import transformer
+
+    free_device_memory()
+    t0 = time.perf_counter()
+    model = transformer.init_model(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size()
+              for p in model.parameters()) / 2**30
+    log(f"{tag} {cfg.name}{' + CPD embedding' if cfg.cpd_embedding else ''}"
+        f": {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.hd} / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, norm {cfg.norm}, qkv_bias {cfg.qkv_bias}, tied "
+        f"{cfg.tie_embeddings}; {n_params:,} params ({gib:.2f} GiB f32; "
+        f"param_count() {cfg.param_count():,}) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_SEQ),
+                           generator=g, device="cuda")
+    out = {"params": n_params, "param_gib": gib, "layers": cfg.n_layers,
+           "batch": DENSE_BATCH, "seq": DENSE_SEQ,
+           **dense_prefill(tag, model, cfg, tokens, reps)}
+    del tokens
+    cfg4 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
+    prompt = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_XCHECK_SEQ),
+                           generator=g, device="cuda")
+    with torch.no_grad():
+        xerr, xlogit = xcheck(tag, first_layers(model, cfg4), cfg4, prompt)
+    out["xcheck_max_abs_diff"] = xerr
+    out["xcheck_max_abs_logit"] = xlogit
+    out.update(serve_check(tag, model, cfg, DENSE_BATCH, g, "softmax"))
+    return model, out
+
+
+def abs_limit(sides, terms, abs_sum):
+    """``sides * LAMBDA * terms * u * abs_sum``: the float32 summation
+    bound of the module docstring, ``terms`` the square roots and
+    roundings it counts."""
+    return sides * LAMBDA * terms * U * abs_sum
+
+
+def cpd_checks(model, cfg, g):
+    """[15b]'s checks of the CPD functions on the card, float32 (TF32
+    off): the rows against the dense table's, the head against the dense
+    table's product, and the three gradients of ``cpd_embed``'s own
+    backward at the full batch against autograd through the naive lookup
+    and a float64 recomputation, with the limit held against a backward
+    that drops one token."""
+    import torch
+    from repro_torch.tensorized import (cpd_embed, cpd_logits, dense_table,
+                                        split_dims)
+    from repro_torch.tensorized.cpd_embedding import _krp, _lookup
+
+    p = {k: getattr(model.embed_cpd, k).detach() for k in "ABC"}
+    v1, v2 = split_dims(cfg.vocab_padded)
+    rank, d = p["A"].shape[1], cfg.d_model
+    tok = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_SEQ), generator=g,
+                        device="cuda")
+    n_tok = tok.numel()
+    absp = {k: v.double().abs() for k, v in p.items()}
+    i1, i2 = tok // v2, tok % v2
+    out = {"v1": v1, "v2": v2, "rank": rank, "tokens": n_tok}
+
+    # rows: cpd_embed == dense_table()[tokens]
+    table = dense_table(p)
+    rows = cpd_embed(p, tok)
+    lim = abs_limit(2, math.sqrt(rank) + 2,
+                    (absp["A"][i1] * absp["B"][i2]) @ absp["C"].T)
+    out["rows_err"], share = close_to("[15b] cpd_embed rows vs "
+                                      "dense_table()[tokens]", rows,
+                                      table[tok], lim)
+    log(f"[15b] cpd_embed at B {DENSE_BATCH} x S {DENSE_SEQ} == "
+        f"dense_table()[tokens] (max err {out['rows_err']:.3e}, "
+        f"{share:.3f} of the limit)")
+    del rows, lim
+
+    # the head: cpd_logits(x)[..., :vocab] == (x @ dense_table().T)
+    x = torch.randn((DENSE_BATCH, 256, d), generator=g, device="cuda")
+    krp_abs = _krp(absp["A"], absp["B"])
+    got = cpd_logits(p, x)[..., :cfg.vocab]
+    want = (x @ table.T)[..., :cfg.vocab]
+    lim = abs_limit(2, math.sqrt(d) + math.sqrt(rank) + 2,
+                    (x.double().abs() @ absp["C"]) @ krp_abs[:cfg.vocab].T)
+    out["logits_err"], share = close_to("[15b] cpd_logits vs x @ "
+                                        "dense_table().T", got, want, lim)
+    log(f"[15b] cpd_logits (x {tuple(x.shape)}, {v1 * v2} ids) == x @ "
+        f"dense_table().T on the first {cfg.vocab} (max err "
+        f"{out['logits_err']:.3e}, {share:.3f} of the limit)")
+    del x, krp_abs, got, want, lim, table
+
+    # the spMTTKRP backward at the full batch
+    gy = torch.randn((DENSE_BATCH, DENSE_SEQ, d), generator=g,
+                     device="cuda")
+
+    def grads(fn, dtype=torch.float32, cot=gy):
+        leaves = {k: v.to(dtype, copy=True).requires_grad_(True)
+                  for k, v in p.items()}
+        fn(leaves).backward(cot.to(dtype))
+        return [leaves[k].grad for k in "ABC"]
+
+    def own(q):
+        return cpd_embed(q, tok)
+
+    def naive(q):
+        return _lookup(q["A"], q["B"], q["C"], tok)[0]
+
+    mine, auto = grads(own), grads(naive)
+    f64 = grads(naive, torch.float64)
+    ga = gy.double().abs()
+    gc_abs = (ga.reshape(n_tok, d) @ absp["C"])
+    a_abs, b_abs = absp["A"][i1].reshape(n_tok, rank), \
+        absp["B"][i2].reshape(n_tok, rank)
+    n1 = torch.bincount(i1.flatten(), minlength=v1).double()[:, None]
+    n2 = torch.bincount(i2.flatten(), minlength=v2).double()[:, None]
+    abs_sums = [
+        torch.zeros_like(absp["A"]).index_add_(0, i1.flatten(),
+                                               b_abs * gc_abs),
+        torch.zeros_like(absp["B"]).index_add_(0, i2.flatten(),
+                                               a_abs * gc_abs),
+        ga.reshape(n_tok, d).T @ (a_abs * b_abs)]
+    terms = [n1.sqrt() + math.sqrt(d) + 3, n2.sqrt() + math.sqrt(d) + 3,
+             math.sqrt(n_tok) + 2]
+    del gc_abs, a_abs, b_abs
+    out["grad_err"], out["grad_share"] = {}, {}
+    for k, m, a, w, s, t in zip("ABC", mine, auto, f64, abs_sums, terms):
+        e1, s1 = close_to(f"[15b] d{k} own backward vs float64", m, w,
+                          abs_limit(1, t, s))
+        e2, s2 = close_to(f"[15b] d{k} naive autograd vs float64", a, w,
+                          abs_limit(1, t, s))
+        e3, s3 = close_to(f"[15b] d{k} own backward vs naive autograd", m,
+                          a, abs_limit(2, t, s))
+        out["grad_err"][k] = {"vs_f64": e1, "naive_vs_f64": e2,
+                              "vs_naive": e3}
+        out["grad_share"][k] = max(s1, s2, s3)
+    dropped = gy.clone()
+    dropped[0, 0] = 0
+    bad = grads(own, cot=dropped)
+    if not any(((b.double() - w).abs() > abs_limit(1, t, s)).any()
+               for b, w, s, t in zip(bad, f64, abs_sums, terms)):
+        raise AssertionError("[15b] the gradient limit does not catch a "
+                             "backward that drops one token")
+    log(f"[15b] cpd_embed backward at {n_tok:,} tokens, D {d}, R {rank}: "
+        "dA, dB, dC == autograd through the naive lookup and == float64 "
+        "(shares of the limit " + ", ".join(
+            f"d{k} {v:.3f}" for k, v in out["grad_share"].items()) +
+        "); a backward with one token dropped fails it")
+    del mine, auto, f64, bad, abs_sums, dropped
+
+    def step(fn):
+        def run():
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in p.items()}
+            fn(leaves).backward(gy)
+        return run
+
+    out["fwd_bwd_ms"] = cuda_median_ms(step(own), 5)
+    out["naive_fwd_bwd_ms"] = cuda_median_ms(step(naive), 5)
+    log(f"[15b] cpd_embed forward + backward at {n_tok:,} tokens: "
+        f"{out['fwd_bwd_ms']:.3f} ms (autograd through the naive lookup "
+        f"{out['naive_fwd_bwd_ms']:.3f}; median of 5)")
+    return out
+
+
+def phase_dense(report, reps):
+    """[15] The dense attention family at full width and depth
+    (tinyllama-1.1b, olmo-1b, qwen2.5-3b; [15a]) and tinyllama-1.1b with
+    the CPD-factorized embedding ([15b])."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    dense = {}
+    for arch in DENSE_ARCHS:
+        model, dense[arch] = dense_run("[15a]", get_config(arch), reps, g)
+        del model
+    report["dense"] = dense
+
+    cfg = dataclasses.replace(get_config(CPD_ARCH), cpd_embedding=True)
+    model, cpd = dense_run("[15b]", cfg, reps, g)
+    cpd.update(cpd_checks(model, cfg, g))
+    del model
+    base = dense[CPD_ARCH]
+    emb = (cpd["v1"] + cpd["v2"] + cfg.d_model) * cpd["rank"]
+    table = cfg.vocab_padded * cfg.d_model
+    cpd.update(embedding_params=emb, dense_table_params=table)
+    log(f"[15b] embedding {emb:,} values ({cpd['v1']} + {cpd['v2']} + "
+        f"{cfg.d_model}) x {cpd['rank']} against {table:,} dense: "
+        f"{table / emb:.0f}x fewer; model {cpd['params']:,} params against "
+        f"{base['params']:,} (no untied head)")
+    log(f"[15b] beside the dense {CPD_ARCH}: prefill "
+        f"{cpd['forward_ms']:.1f} / {base['forward_ms']:.1f} ms, decode "
+        f"{cpd['serve'][1]['ms_per_step']:.2f} / "
+        f"{base['serve'][1]['ms_per_step']:.2f} ms a step, peak "
+        f"{cpd['prefill_peak_gib']:.2f} / "
+        f"{base['prefill_peak_gib']:.2f} GiB")
+    report["cpd_embedding"] = cpd
+    free_device_memory()
+    log(f"[15] passed in {time.perf_counter() - t0:.1f} s")
+
+
 def kernels_record(per_kernel, launches, errs):
     """The ``kernels`` JSON line: ``per_kernel`` maps each kernel to its
     per-mode timing rows and a note of the tensor they were timed at."""
@@ -3625,6 +3916,7 @@ def main(argv=None) -> int:
     times14, launches14, err14 = phase_dist(kmt, t, factors, coo8, twitch,
                                             report, args.reps)
     del coo8, twitch
+    phase_dense(report, args.reps)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [

@@ -12,10 +12,15 @@ nothing of it (nor ``jax``):
              and run reports
   resilience/  checkpoint/resume, the degradation ladder, seeded chaos
              and the NaN guard
-  models/    RWKV-6 (``wkv6`` in ``time_mix``) and RecurrentGemma
-             (``lru_scan`` in ``apply_rglru``, local attention, MLP):
+  models/    the dense attention family (causal GQA attention, MLP),
+             RWKV-6 (``wkv6`` in ``time_mix``) and RecurrentGemma
+             (``lru_scan`` in ``apply_rglru``, local attention):
              ``forward``, ``decode_step``
-  configs/   ``rwkv6-3b``, ``recurrentgemma-9b`` and ``smoke`` configs
+  tensorized/  the CPD-factorized embedding (``cpd_embed``, whose
+             backward is the spMTTKRP of the token batch; ``cpd_logits``)
+  configs/   ``tinyllama-1.1b``, ``olmo-1b``, ``qwen2.5-3b``,
+             ``rwkv6-3b``, ``recurrentgemma-9b``, ``smoke`` configs and
+             the reference's input shapes
   serving/   the batched ``Engine`` (prefill + decode)
   launch/    ``python -m repro_torch.launch.serve``
   interop    numpy state in, port state out (the tests' bridge)

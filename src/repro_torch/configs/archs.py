@@ -1,32 +1,38 @@
 """Registry of the ported architectures, and ``smoke`` configs.
 
 The reference registers ten architectures; the port has the ones whose
-block kinds it runs. ``smoke()`` returns a reduced same-family config for
-CPU tests, by the reference's rules.
+block kinds it runs: the dense attention family (tinyllama-1.1b,
+olmo-1b, qwen2.5-3b), recurrentgemma-9b and rwkv6-3b. ``smoke()``
+returns a reduced same-family config for CPU tests, by the reference's
+rules.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from ..models.common import ModelConfig
+from .olmo_1b import CONFIG as OLMO_1B
+from .qwen2_5_3b import CONFIG as QWEN2_5_3B
 from .recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
 from .rwkv6_3b import CONFIG as RWKV6_3B
+from .tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [RECURRENTGEMMA_9B, RWKV6_3B]}
+    c.name: c for c in [OLMO_1B, QWEN2_5_3B, TINYLLAMA_1_1B,
+                        RECURRENTGEMMA_9B, RWKV6_3B]}
 
-#: The reference's other architectures: their block kinds (global
-#: attention, MoE, encoder-decoder) are ROADMAP Queue A item 12.
-NOT_PORTED = ("command-r-plus-104b", "olmo-1b", "olmoe-1b-7b",
-              "paligemma-3b", "qwen2.5-3b", "qwen3-moe-235b-a22b",
-              "tinyllama-1.1b", "whisper-large-v3")
+#: The reference's other architectures: their block kinds and features
+#: (MoE, the parallel block, prefix attention, encoder-decoder) are
+#: ROADMAP Queue A item 12.4b.
+NOT_PORTED = ("command-r-plus-104b", "olmoe-1b-7b", "paligemma-3b",
+              "qwen3-moe-235b-a22b", "whisper-large-v3")
 
 
 def get_config(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue A item 12); the port "
-            f"has {sorted(ARCHS)}")
+            f"{name} is not ported yet (ROADMAP Queue A item 12.4b); the "
+            f"port has {sorted(ARCHS)}")
     return ARCHS[name]
 
 

@@ -35,7 +35,8 @@ def model_params_from_numpy(tree, cfg, device="cuda"):
     """The port's ``Model`` from the reference's ``init_model`` pytree
     with numpy leaves: each stage's stacked blocks
     (``tree["stage{i}"]["b{j}"][name][c]``) are unstacked into the layers
-    in order, every other leaf is copied as it is (dtype kept)."""
+    in order, every other leaf is copied as it is (dtype kept): ``embed``
+    and ``head``, or a CPD model's ``embed_cpd/{A,B,C}``."""
     from repro_torch.models.common import device_of
     from repro_torch.models.transformer import Model
 

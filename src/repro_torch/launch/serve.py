@@ -1,15 +1,18 @@
 """Batched serving from the command line: random weights from
 ``--seed``, random prompts, ``Engine.generate``, tokens per second.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 4 --prompt-len 16 --max-new 32            # on the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --smoke --device cpu                              # small, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch recurrentgemma-9b                          # on the card
+      --arch olmo-1b                                    # on the card
 
-``--max-len`` sizes the attention layers' KV caches (a local layer keeps
-at most its window); it must hold the prompt and the new tokens.
+``--arch`` is any of ``configs.ARCHS``: tinyllama-1.1b, olmo-1b,
+qwen2.5-3b, recurrentgemma-9b, rwkv6-3b. ``--max-len`` sizes the
+attention layers' KV caches (a local layer keeps at most its window); a
+causal layer's must hold the prompt and the new tokens, or the engine
+refuses the request.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Models: config, the RWKV-6 block, the RG-LRU block, local attention
-and the MLP, assembly (the ``rwkv``, ``rec`` and ``local`` block kinds)."""
+"""Models: config, attention (causal and local) and the MLP, the RWKV-6
+block, the RG-LRU block, assembly (the ``attn``, ``rwkv``, ``rec`` and
+``local`` block kinds, a dense or CPD-factorized embedding)."""
 from .common import ModelConfig
 from .transformer import (Model, apply_block, decode_step, forward,
                           init_cache, init_model)

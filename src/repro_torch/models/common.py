@@ -87,6 +87,53 @@ class ModelConfig:
             out.append((pat[:rem], 1))
         return out
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's formula (for
+        reporting; the CPD embedding is counted as the dense table)."""
+        d, hd = self.d_model, self.hd
+        attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd \
+            + self.n_heads * hd * d
+        if self.qkv_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * hd
+        gated = self.act in ("swiglu", "geglu")
+        mlp = d * self.d_ff * (3 if gated else 2)
+        if self.n_experts:
+            mlp = self.n_experts * mlp + d * self.n_experts  # + router
+        rec = 0
+        if "rec" in self.block_pattern:
+            w = self.lru_width or d
+            # in/out proj + gates + conv
+            rec = 2 * d * w + 2 * w * w // 1 + 3 * w + self.conv_width * w
+        counts = {"attn": attn + mlp, "local": attn + mlp,
+                  "rec": rec + mlp, "moe": attn + mlp,
+                  "rwkv": 0, "enc": attn + mlp, "dec": 2 * attn + mlp}
+        if self.kind == "ssm":
+            # rwkv6: time-mix (r,k,v,g,w,o = 6 d^2 approx + loras) + channel
+            # mix
+            tm = 5 * d * d + d * d + 7 * 32 * d * 2
+            cm = 2 * d * self.d_ff
+            total = self.n_layers * (tm + cm)
+        else:
+            total = 0
+            for pat, rep in self.stages():
+                for kind in pat:
+                    total += counts[kind] * rep
+            if self.n_enc_layers:
+                total += self.n_enc_layers * (attn + mlp)
+        emb = self.vocab_padded * d
+        total += emb if self.tie_embeddings else 2 * emb
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        gated = self.act in ("swiglu", "geglu")
+        dense_mlp = d * self.d_ff * (3 if gated else 2)
+        saved = (self.n_experts - self.top_k) * dense_mlp * self.n_layers
+        return self.param_count() - saved
+
 
 def device_of(device) -> torch.device:
     """``torch.device(device)``; raises for a CUDA device where torch sees

@@ -21,8 +21,8 @@ import torch.nn.functional as F
 from .common import ModelConfig, dense_init
 
 _NEG = -1e30
-_KV_QUANT = "kv_quant (the int8 KV cache) is ROADMAP Queue A item 12.4"
-_CROSS = ("cross-attention decode (whisper) is ROADMAP Queue A item 12.4")
+_KV_QUANT = "kv_quant (the int8 KV cache) is ROADMAP Queue A item 12.4b"
+_CROSS = ("cross-attention decode (whisper) is ROADMAP Queue A item 12.4b")
 
 
 def gelu(x):
@@ -131,7 +131,7 @@ def attention_full(p, xq, cfg: ModelConfig, *, mask: str = "causal",
     ``mask="window"`` with more keys than window + chunk, each chunk
     touches only the (window + chunk) band of keys it can see. (The
     reference's ``xkv``, cross-attention for whisper, is ROADMAP Queue A
-    item 12.4.)"""
+    item 12.4b.)"""
     b, sq, _ = xq.shape
     check_q_len(sq, q_chunk)
     skv = sq
@@ -174,7 +174,9 @@ def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
                      cross: bool = False):
     """One-token decode. cache: {"k", "v": (B, Smax, KV, hd), "len": int}.
     Writes the new key and value at ``len`` (modulo Smax for a windowed
-    layer: a ring buffer) into copies; returns (out, new cache)."""
+    layer: a ring buffer) into copies; returns (out, new cache). A full
+    causal cache raises (the reference clamps the write to its last
+    slot)."""
     if cross:
         raise NotImplementedError(_CROSS)
     if "k_scale" in cache:
@@ -185,6 +187,9 @@ def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
     dt = cfg.cdtype
     pos = cache["len"]
     smax = cache["k"].shape[1]
+    if mask != "window" and pos >= smax:
+        raise ValueError(f"attention_decode: the causal KV cache holds "
+                         f"{smax} positions and is full (position {pos})")
     posv = torch.full((b, 1), pos, device=xq.device)
 
     q = _proj(xq, p.wq, dt)

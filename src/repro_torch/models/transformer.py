@@ -2,29 +2,36 @@
 step) and the one-token ``decode_step`` over a per-layer cache, for the
 block kinds
 
+  attn   pre-norm GQA causal attention + MLP (tinyllama, olmo, qwen2.5)
   rwkv   RWKV-6 time-mix + channel-mix (rwkv6-3b)
   rec    RG-LRU recurrent block + MLP (griffin: recurrentgemma-9b)
   local  sliding-window attention + MLP (griffin attention layers)
 
+and either a dense embedding table or the CPD-factorized one
+(``cfg.cpd_embedding``: ``tensorized.cpd_embed`` for the lookup, whose
+backward is the spMTTKRP of the token batch, and ``cpd_logits`` for the
+tied head).
+
 The reference stacks the layers of a stage and drives them with one
 ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in a loop,
-in the same order (``ModelConfig.stages``). Other block kinds and the
-CPD-factorized embedding raise ``NotImplementedError`` naming their
-ROADMAP item; the reference's ``shard(...)`` hints are dropped (one
-device).
+in the same order (``ModelConfig.stages``). Other block kinds and model
+features raise ``NotImplementedError`` naming their ROADMAP item; the
+reference's ``shard(...)`` hints are dropped (one device).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..tensorized import (cpd_embed, cpd_logits, dense_table,
+                          init_cpd_embedding)
 from . import layers, rglru, rwkv
 from .common import (ModelConfig, Params, apply_norm, dense_init, device_of,
                      init_norm, param)
 
-_NOT_PORTED = "ROADMAP Queue A item 12 (LM side: the other block kinds)"
+_NOT_PORTED = "ROADMAP Queue A item 12.4b (LM side: the other families)"
 #: Block kinds the port runs.
-PORTED_KINDS = ("rwkv", "rec", "local")
+PORTED_KINDS = ("attn", "rwkv", "rec", "local")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -34,10 +41,6 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.cpd_embedding:
-        raise NotImplementedError(
-            "cpd_embedding is ROADMAP Queue A item 11 (CPD-factorized "
-            "embedding)")
     other = sorted(set(layer_kinds(cfg)) - set(PORTED_KINDS))
     if other or cfg.n_enc_layers:
         raise NotImplementedError(
@@ -45,18 +48,29 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.parallel_block:
         raise NotImplementedError(f"parallel_block (command-r) is "
                                   f"{_NOT_PORTED}")
+    if cfg.kind == "vlm":
+        raise NotImplementedError(f"prefix attention and image embeddings "
+                                  f"(paligemma) are {_NOT_PORTED}")
+    if cfg.rope_theta == 0:
+        raise NotImplementedError(f"sinusoidal positions (whisper) are "
+                                  f"{_NOT_PORTED}")
 
 
 class Model(nn.Module):
     """The parameters of a model, under the reference's keys, with the
-    layers unstacked: ``embed``, ``layers[i]`` (the reference's
-    ``stage*/b*`` slice of layer i), ``ln_f`` and ``head``."""
+    layers unstacked: ``embed`` (or, with ``cfg.cpd_embedding``,
+    ``embed_cpd`` holding ``A``, ``B``, ``C``), ``layers[i]`` (the
+    reference's ``stage*/b*`` slice of layer i), ``ln_f`` and ``head``
+    (absent when the head is tied or CPD)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
-        self.embed = param(tree["embed"])
+        if cfg.cpd_embedding:
+            self.embed_cpd = Params(tree["embed_cpd"])
+        else:
+            self.embed = param(tree["embed"])
         self.layers = nn.ModuleList(Params(b) for b in tree["layers"])
         self.ln_f = Params(tree["ln_f"])
         if "head" in tree:
@@ -89,6 +103,13 @@ def init_block(cfg: ModelConfig, kind: str, generator) -> dict:
             "mlp": layers.init_mlp(cfg, generator)}
 
 
+def _mask_kind(kind: str) -> str:
+    """A ``local`` layer attends within its window, an ``attn`` layer
+    causally (the reference's ``_attn_mask_kind`` for the ported
+    kinds)."""
+    return "window" if kind == "local" else "causal"
+
+
 def apply_block(params, x, cfg: ModelConfig, kind: str):
     _check_kind(kind)
     use_rope = cfg.rope_theta > 0
@@ -102,7 +123,7 @@ def apply_block(params, x, cfg: ModelConfig, kind: str):
         return x + layers.apply_mlp(params.mlp,
                                     apply_norm(params.ln2, x, cfg), cfg)
     h = apply_norm(params.ln1, x, cfg)
-    x = x + layers.attention_full(params.attn, h, cfg, mask="window",
+    x = x + layers.attention_full(params.attn, h, cfg, mask=_mask_kind(kind),
                                   use_rope=use_rope)
     h = apply_norm(params.ln2, x, cfg)
     return x + layers.apply_mlp(params.mlp, h, cfg)
@@ -127,7 +148,8 @@ def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
         return x, rec_cache
     h = apply_norm(params.ln1, x, cfg)
     o, new_cache = layers.attention_decode(params.attn, h, cache, cfg,
-                                           mask="window", use_rope=use_rope)
+                                           mask=_mask_kind(kind),
+                                           use_rope=use_rope)
     x = x + o
     h = apply_norm(params.ln2, x, cfg)
     return x + layers.apply_mlp(params.mlp, h, cfg), new_cache
@@ -143,7 +165,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
     if max_len is None:
         raise ValueError(f"a {kind!r} layer's KV cache needs max_len")
     return layers.make_attn_cache(cfg, batch, max_len, device,
-                                  windowed=True)
+                                  windowed=(kind == "local"))
 
 
 # --------------------------------------------------------------------------
@@ -155,12 +177,16 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     _check_ported(cfg)
     gen = torch.Generator(device=device_of(device)).manual_seed(seed)
     d = cfg.d_model
-    tree = {"embed": dense_init((cfg.vocab_padded, d), cfg.pdtype, 0.02,
-                                generator=gen),
-            "layers": [init_block(cfg, kind, gen)
-                       for kind in layer_kinds(cfg)],
-            "ln_f": init_norm(cfg, gen.device)}
-    if not cfg.tie_embeddings:
+    if cfg.cpd_embedding:  # the paper's technique as the embedding layer
+        tree = {"embed_cpd": init_cpd_embedding(
+            cfg.vocab_padded, d, cfg.cpd_rank or 64, cfg.pdtype,
+            generator=gen)}
+    else:
+        tree = {"embed": dense_init((cfg.vocab_padded, d), cfg.pdtype, 0.02,
+                                    generator=gen)}
+    tree["layers"] = [init_block(cfg, kind, gen) for kind in layer_kinds(cfg)]
+    tree["ln_f"] = init_norm(cfg, gen.device)
+    if not cfg.tie_embeddings and not cfg.cpd_embedding:
         tree["head"] = dense_init((d, cfg.vocab_padded), cfg.pdtype,
                                   generator=gen)
     return Model(cfg, tree)
@@ -168,26 +194,39 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
 
 def embed_lookup(params, ids, cfg: ModelConfig):
     """Token embeddings in the compute dtype (rows gathered, then cast:
-    the same values as casting the table first)."""
+    the same values as casting the table first). The CPD lookup runs in
+    the parameters' dtype and is cast after it; its backward is the
+    spMTTKRP of the token batch."""
+    if cfg.cpd_embedding:
+        return cpd_embed(params.embed_cpd, ids).to(cfg.cdtype)
     return params.embed[ids].to(cfg.cdtype)
 
 
 def head_matrix(params, cfg: ModelConfig):
+    """(D, V) head in the compute dtype. Under the CPD embedding this
+    materialises the dense table (``_logits`` does not)."""
+    if cfg.cpd_embedding:
+        return dense_table(params.embed_cpd).to(cfg.cdtype).T
     if cfg.tie_embeddings:
         return params.embed.to(cfg.cdtype).T
     return params.head.to(cfg.cdtype)
 
 
 def _logits(params, x, cfg: ModelConfig):
-    return apply_norm(params.ln_f, x, cfg) @ head_matrix(params, cfg)
+    """Logits over ``vocab_padded`` ids, or over the CPD's V1 * V2 ids."""
+    x = apply_norm(params.ln_f, x, cfg)
+    if cfg.cpd_embedding:  # tied CPD head, no dense table materialised
+        return cpd_logits(params.embed_cpd, x)
+    return x @ head_matrix(params, cfg)
 
 
 def forward(params, cfg: ModelConfig, tokens):
     """Teacher-forced forward (the prefill step): tokens (B, S) -> logits
-    (B, S, Vp) in the compute dtype. Runs ``wkv6`` once per ``rwkv`` layer
-    and ``lru_scan`` once per ``rec`` layer. A length that the attention
-    layers' query chunks cannot take is refused before any work."""
-    if "local" in layer_kinds(cfg):
+    (B, S, Vp) in the compute dtype (Vp = V1 * V2 under the CPD
+    embedding). Runs ``wkv6`` once per ``rwkv`` layer and ``lru_scan``
+    once per ``rec`` layer. A length that the attention layers' query
+    chunks cannot take is refused before any work."""
+    if {"attn", "local"} & set(layer_kinds(cfg)):
         layers.check_q_len(tokens.shape[1])
     x = embed_lookup(params, tokens, cfg)
     for layer, kind in zip(params.layers, layer_kinds(cfg)):
@@ -198,8 +237,9 @@ def forward(params, cfg: ModelConfig, tokens):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
                device="cuda") -> list[dict]:
     """One cache per layer (the reference stacks them per stage).
-    ``max_len`` sizes the attention layers' KV caches (a windowed layer
-    keeps at most ``window`` positions); recurrent states need none."""
+    ``max_len`` sizes the attention layers' KV caches (an ``attn`` layer
+    keeps ``max_len`` positions, a ``local`` one at most ``window``);
+    recurrent states need none."""
     dev = device_of(device)
     return [init_block_cache(cfg, kind, batch, max_len, dev)
             for kind in layer_kinds(cfg)]

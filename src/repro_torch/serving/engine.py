@@ -4,7 +4,9 @@ Prefill teacher-forces the prompt through the same one-token
 ``decode_step`` as decoding, as the reference does, so one code path
 fills every cache. Decoding is greedy, or sampled at a temperature from
 an explicit ``torch.Generator``; a row stops (emits 0) after it emitted
-``eos_id``.
+``eos_id``. A request that would run past a causal layer's KV cache
+(``max_len`` positions) is refused before any work; the reference's
+cache write clamps to its last slot instead.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Optional
 import torch
 
 from ..models.common import ModelConfig, device_of
-from ..models.transformer import decode_step, init_cache
+from ..models.transformer import decode_step, init_cache, layer_kinds
 
 
 @dataclasses.dataclass
@@ -29,18 +31,32 @@ class Engine:
     def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig,
                  device="cuda"):
         self.device = device_of(device)
-        if params.embed.device != self.device:
-            raise ValueError(f"params are on {params.embed.device}, the "
-                             f"engine on {self.device}")
+        where = next(params.parameters()).device
+        if where != self.device:
+            raise ValueError(f"params are on {where}, the engine on "
+                             f"{self.device}")
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
         self.cache = init_cache(cfg, scfg.batch, scfg.max_len,
                                 device=self.device)
 
+    def _check_fits(self, n: int) -> None:
+        """Refuse ``n`` more positions where a causal layer's KV cache
+        cannot hold them (windowed and recurrent caches never fill)."""
+        for c, kind in zip(self.cache, layer_kinds(self.cfg)):
+            if kind == "attn":
+                if c["len"] + n > c["k"].shape[1]:
+                    raise ValueError(
+                        f"Engine: {n} more positions after {c['len']} do "
+                        f"not fit the causal KV cache of max_len "
+                        f"{c['k'].shape[1]}")
+                return
+
     @torch.no_grad()
     def prefill(self, prompt: torch.Tensor) -> torch.Tensor:
         """prompt: (B, P) int. Returns logits of the last position."""
+        self._check_fits(prompt.shape[1])
         prompt = prompt.to(self.device)
         logits = None
         for t in range(prompt.shape[1]):
@@ -58,7 +74,10 @@ class Engine:
     @torch.no_grad()
     def generate(self, prompt: torch.Tensor, max_new: int,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Greedy/temperature decode; returns (B, max_new) int64 tokens."""
+        """Greedy/temperature decode; returns (B, max_new) int64 tokens.
+        The prompt and the ``max_new`` steps take ``P + max_new`` cache
+        positions."""
+        self._check_fits(prompt.shape[1] + max_new)
         if generator is None and self.scfg.temperature > 0.0:
             generator = torch.Generator(device=self.device).manual_seed(0)
         logits = self.prefill(prompt)

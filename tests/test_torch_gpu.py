@@ -12,7 +12,9 @@ streamed mode against the resident engine and the oracle, host layouts
 bitwise, one host wait a mode, ``cp_als_stream``, the event timeline),
 and resilience on the card (``classify`` on a real
 ``torch.cuda.OutOfMemoryError``, the backend rung of ``cp_als``, the
-stream's budget halving and upload retry, a resume).
+stream's budget halving and upload retry, a resume), and the
+CPD-factorized embedding (forward, its spMTTKRP backward, the CPD head)
+and the dense attention family on the card against the CPU.
 Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
@@ -1255,3 +1257,113 @@ def test_dist_cp_als_and_rungs_on_the_card(cuda, no_chaos):
         got = cp_als(t, 8, iters=3, factors=init, config=cfg, mesh=mesh,
                      ladder=policy).fits
         assert got == pytest.approx(clean, abs=1e-4)
+
+
+# --------------------------------------------------------------------------
+# The CPD-factorized embedding and the dense attention family on the card.
+# --------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab,d,rank,hot", [
+    (512, 128, 16, False), (512, 128, 16, True), (32000, 256, 64, False)])
+def test_cpd_embed_and_its_backward_on_the_card(cuda, vocab, d, rank, hot):
+    """``cpd_embed``, its three gradients (``index_add_`` on the card:
+    atomics, another sum order) and ``cpd_logits`` on the card against
+    the CPU from the same factors, float32 with TF32 off."""
+    from repro_torch.tensorized import (cpd_embed, cpd_logits,
+                                        init_cpd_embedding)
+
+    params = init_cpd_embedding(vocab, d, rank,
+                                generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(vocab + hot)
+    ids = rng.choice(rng.integers(0, vocab, 5), (4, 64)) if hot else \
+        rng.integers(0, vocab, (4, 64))
+    tok = torch.from_numpy(ids)
+    g = torch.from_numpy(rng.standard_normal((4, 64, d)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 8, d)).astype(np.float32))
+
+    def run(dev):
+        leaves = {k: v.to(dev, copy=True).requires_grad_(True)
+                  for k, v in params.items()}
+        out = cpd_embed(leaves, tok.to(dev))
+        out.backward(g.to(dev))
+        with torch.no_grad():
+            logits = cpd_logits(leaves, x.to(dev))
+        return [t.cpu() for t in (out, leaves["A"].grad, leaves["B"].grad,
+                                  leaves["C"].grad, logits)]
+
+    want = run("cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = run(cuda)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,cpd", [
+    ("tinyllama-1.1b", False), ("olmo-1b", False), ("qwen2.5-3b", False),
+    ("tinyllama-1.1b", True)])
+def test_dense_forward_on_the_card_matches_the_cpu(cuda, arch, cpd):
+    """float32 (TF32 off) ``forward`` of a dense smoke config (with the
+    CPD embedding for tinyllama) on the card against the CPU on the same
+    weights, at S 1024 (two query chunks, the causal mask across them)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(smoke(arch), compute_dtype="float32",
+                              cpd_embedding=cpd, cpd_rank=16 if cpd else 0)
+    model = transformer.init_model(cfg, 0, device="cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 1024),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = transformer.forward(model, cfg, tok)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = model.to(cuda)
+        with torch.no_grad():
+            got = transformer.forward(model, cfg, tok.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cpd_tinyllama_engine_on_the_card_by_default(cuda):
+    """A CPD tinyllama (smoke width) on the default device: ``Engine``
+    reads its device from the factors, ``Engine.prefill`` through the
+    causal KV cache agrees with ``forward`` at the last position, and a
+    request past the cache is refused before any work."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = dataclasses.replace(smoke("tinyllama-1.1b"), compute_dtype="float32",
+                              cpd_embedding=True, cpd_rank=16)
+    model = transformer.init_model(cfg, 0)
+    assert model.embed_cpd.A.is_cuda
+    tok = torch.randint(0, cfg.vocab, (2, 40), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = transformer.forward(model, cfg, tok)[:, -1]
+            eng = Engine(model, cfg, ServeConfig(2, 48))
+            got = eng.prefill(tok)[:, -1]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="max_len 48"):
+        eng.generate(tok[:, :1], 8)

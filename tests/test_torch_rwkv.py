@@ -345,10 +345,10 @@ def test_unported_paths_name_their_roadmap_item():
     cfg = configs.smoke(ARCH)
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         transformer.init_model(
-            dataclasses.replace(cfg, block_pattern=("rwkv", "attn")),
+            dataclasses.replace(cfg, block_pattern=("rwkv", "moe")),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        transformer.init_model(dataclasses.replace(cfg, cpd_embedding=True),
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        transformer.init_model(dataclasses.replace(cfg, kind="vlm"),
                                device="cpu")
 
 
