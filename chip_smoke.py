@@ -101,6 +101,26 @@ times the kernels at each path's shapes.
        batch (16,384 tokens, D 2048), ``cpd_embed``'s three gradients
        from its own backward against autograd through the naive lookup
        and a float64 recomputation, timed beside the naive autograd
+  [16] training on the card (``training.make_train_step``: AdamW, the
+       chunked loss, ``remat="full"`` recompute, bf16 compute over f32
+       masters), each model's steps timed (host clock around synchronised
+       steps), tokens/s and peak memory: [16a] tinyllama-1.1b at full
+       width and depth, ``train_4k``'s S 4096 with the batch cut from 256
+       to 4, 4 steps, and a float32 4-layer copy (TF32 off) stepped on
+       the card and on the CPU from the same state; [16b] the same with
+       the CPD embedding (rank 64), its factor gradients at the last
+       batch's cotangent held to float64 as in [15b], and 15 steps of the
+       smoke CPD config whose loss must fall; [16c] rwkv6-3b at full width
+       and depth, B 2, 3 steps (32 ``wkv6`` forward + 32 recompute + 32
+       ``wkv6_bwd`` launches a step), then ``wkv6_bwd`` at layer 0's
+       prefill shape (BH 160, T 4096) against the plain backward in
+       float64, timed; [16d] recurrentgemma-9b at full width on 6 layers
+       (two cycles of rec, rec, local: at full depth its 9.4B f32
+       parameters and gradients alone take 75 GB), B 2, 3 steps, then
+       ``lru_scan_bwd`` at (4, 4096, 4096) the same way; [16e]
+       ``TrainController`` preempted at step 2 of 4 and resumed from its
+       checkpoint against an uninterrupted run, a checkpoint's save and
+       load timed
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -218,7 +238,30 @@ function on absolute inputs) and ``u = 2**-24``:
     tokens, each term a sum over D) ``sqrt(n) + sqrt(D) + 3``; dC (a sum
     over the T tokens) ``sqrt(T) + 2``. The gradient limit is held
     against itself: a backward whose first token's cotangent is dropped
-    must fail it.
+    must fail it. [16b] holds the same gradients, at the cotangent that a
+    training step's backward brings to the embedding, to the same limit.
+  * ``wkv6_bwd`` against the plain backward computed in float64, every
+    output: with ``A`` the same backward on ``|r|, |k|, w, |v|, |u|,
+    |dy|`` (float64), which bounds every partial sum of the linear
+    recurrences, per element ``LAMBDA * (2 sqrt(T) + sqrt(K) + 4) * u *
+    A``: the state and its gradient each carry a random walk of ~2
+    sqrt(T) roundings, a readout sums K terms, the bonus terms add ~4
+    roundings. ``lru_scan_bwd`` likewise, ``LAMBDA * (2 sqrt(T - t) + 3)
+    * u * A_t``. Each limit is held against itself: the kernel run with
+    the carry dropped at step T / 2 (w, or a, zeroed there) must fail it.
+  * [16a] the float32 4-layer step, card against CPU (TF32 off): each
+    gradient leaf (the first moment after one step, (1 - b1) g) within
+    ``GRAD_RTOL`` = 1e-3 of that leaf's largest element, the losses
+    within 1e-4 relative. The two differ by float32 sums in another
+    order (over d 2048, d_ff 5632, the 32000-way softmax; ~1e-6 of a
+    leaf); the limit is held against a step whose layer-1 gradients are
+    dropped.
+  * [16e] the resumed run against the uninterrupted one: parameters
+    within 2 lr a step after the resume (Adam's first steps move an
+    element by ~lr g / (|g| + eps), whose sign flips where g is
+    run-to-run noise around 0: the embedding's backward accumulates with
+    atomics on the card, so the card is not run-to-run bitwise), the
+    last loss within 1e-3 relative; a checkpoint loads back bitwise.
 """
 from __future__ import annotations
 
@@ -1453,6 +1496,9 @@ def phase_autotune(coo, cache, report):
 # --------------------------------------------------------------------------
 WKV_SHAPES = ((2, 16, 8, 8), (4, 32, 16, 32), (1, 64, 64, 64),
               (160, 256, 64, 64), (161, 4097, 64, 64))
+# the backward kernel's (K = V = 64 only): ragged chunks, the model's rows
+# (T >= 2: the dropped-carry variant zeroes w at step T / 2 >= 1)
+WKV_BWD_SHAPES = ((3, 37, 64, 64), (160, 256, 64, 64))
 RWKV_ARCH = "rwkv6-3b"
 RWKV_BATCH, RWKV_SEQ = 4, 4096        # prefill_32k cut 8x in B and in S
 WB_LORA_STD = 0.15                     # wb_lora is zero at init
@@ -1515,6 +1561,16 @@ def phase_wkv6(kw6):
         log(f"[2c] wkv6 (BH, T, K, V) = {shape} == plain (max err "
             f"{err:.3e}, {share:.3f} of the limit); u = 0, w_(t-1) and "
             "one-K-slice variants fail it")
+    for i, shape in enumerate(WKV_BWD_SHAPES):
+        args = wkv_case(*shape, seed=100 + i)
+        dy = torch.randn(args[3].shape, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(i))
+        err, share = wkv_bwd_check(kw6, args, dy, "[2c]")
+        torch.cuda.synchronize()
+        log(f"[2c] wkv6_bwd (BH, T, K, V) = {shape} == float64 plain (max "
+            f"err {err:.3e}, {share:.3f} of the limit); a carry dropped at "
+            "T / 2 fails it")
 
 
 def wkv_bound(args):
@@ -1857,6 +1913,18 @@ def phase_lru(klru):
         log(f"[2d] lru_scan (B, T, D) = {shape} {str(dt)[6:]} == plain (max "
             f"err {err:.3e}, {share:.3f} of the limit); a_(t-1) and "
             "dropped-carry variants fail it")
+    for i, shape in enumerate(LRU_SHAPES + LRU_MORE[:1]):
+        a, x = lru_case(*shape, seed=50 + i, dtype=torch.float32)
+        with torch.no_grad():
+            h = klru.lru_scan(a, x)
+        dh = torch.randn(a.shape, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(i))
+        err, share = lru_bwd_check(klru, a, h, dh, "[2d]")
+        torch.cuda.synchronize()
+        log(f"[2d] lru_scan_bwd (B, T, D) = {shape} == float64 plain (max "
+            f"err {err:.3e}, {share:.3f} of the limit); a dropped carry "
+            "fails it")
 
 
 def phase_rg(klru, report, reps):
@@ -3669,6 +3737,45 @@ def cpd_checks(model, cfg, g):
     # the spMTTKRP backward at the full batch
     gy = torch.randn((DENSE_BATCH, DENSE_SEQ, d), generator=g,
                      device="cuda")
+    out["grad_err"], out["grad_share"] = cpd_grad_check("[15b]", p, tok, gy)
+
+    def step(fn):
+        def run():
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in p.items()}
+            fn(leaves).backward(gy)
+        return run
+
+    def own(q):
+        return cpd_embed(q, tok)
+
+    def naive(q):
+        return _lookup(q["A"], q["B"], q["C"], tok)[0]
+
+    out["fwd_bwd_ms"] = cuda_median_ms(step(own), 5)
+    out["naive_fwd_bwd_ms"] = cuda_median_ms(step(naive), 5)
+    log(f"[15b] cpd_embed forward + backward at {n_tok:,} tokens: "
+        f"{out['fwd_bwd_ms']:.3f} ms (autograd through the naive lookup "
+        f"{out['naive_fwd_bwd_ms']:.3f}; median of 5)")
+    return out
+
+
+def cpd_grad_check(tag, p, tok, gy):
+    """``cpd_embed``'s three gradients (its own backward, the spMTTKRP of
+    the token batch ``tok`` with the cotangent ``gy``) against autograd
+    through the naive lookup and a float64 recomputation, float32 (TF32
+    off), with the limit held against a backward that drops the first
+    token's cotangent; returns the errors and the largest shares of the
+    limit."""
+    import torch
+    from repro_torch.tensorized import cpd_embed
+    from repro_torch.tensorized.cpd_embedding import _lookup
+
+    v1, v2 = p["A"].shape[0], p["B"].shape[0]
+    rank, d = p["A"].shape[1], p["C"].shape[0]
+    n_tok = tok.numel()
+    absp = {k: v.double().abs() for k, v in p.items()}
+    i1, i2 = tok // v2, tok % v2
 
     def grads(fn, dtype=torch.float32, cot=gy):
         leaves = {k: v.to(dtype, copy=True).requires_grad_(True)
@@ -3699,44 +3806,29 @@ def cpd_checks(model, cfg, g):
     terms = [n1.sqrt() + math.sqrt(d) + 3, n2.sqrt() + math.sqrt(d) + 3,
              math.sqrt(n_tok) + 2]
     del gc_abs, a_abs, b_abs
-    out["grad_err"], out["grad_share"] = {}, {}
+    errs, shares = {}, {}
     for k, m, a, w, s, t in zip("ABC", mine, auto, f64, abs_sums, terms):
-        e1, s1 = close_to(f"[15b] d{k} own backward vs float64", m, w,
+        e1, s1 = close_to(f"{tag} d{k} own backward vs float64", m, w,
                           abs_limit(1, t, s))
-        e2, s2 = close_to(f"[15b] d{k} naive autograd vs float64", a, w,
+        e2, s2 = close_to(f"{tag} d{k} naive autograd vs float64", a, w,
                           abs_limit(1, t, s))
-        e3, s3 = close_to(f"[15b] d{k} own backward vs naive autograd", m,
+        e3, s3 = close_to(f"{tag} d{k} own backward vs naive autograd", m,
                           a, abs_limit(2, t, s))
-        out["grad_err"][k] = {"vs_f64": e1, "naive_vs_f64": e2,
-                              "vs_naive": e3}
-        out["grad_share"][k] = max(s1, s2, s3)
+        errs[k] = {"vs_f64": e1, "naive_vs_f64": e2, "vs_naive": e3}
+        shares[k] = max(s1, s2, s3)
     dropped = gy.clone()
-    dropped[0, 0] = 0
+    dropped.view(-1, d)[0] = 0
     bad = grads(own, cot=dropped)
     if not any(((b.double() - w).abs() > abs_limit(1, t, s)).any()
                for b, w, s, t in zip(bad, f64, abs_sums, terms)):
-        raise AssertionError("[15b] the gradient limit does not catch a "
+        raise AssertionError(f"{tag} the gradient limit does not catch a "
                              "backward that drops one token")
-    log(f"[15b] cpd_embed backward at {n_tok:,} tokens, D {d}, R {rank}: "
+    log(f"{tag} cpd_embed backward at {n_tok:,} tokens, D {d}, R {rank}: "
         "dA, dB, dC == autograd through the naive lookup and == float64 "
         "(shares of the limit " + ", ".join(
-            f"d{k} {v:.3f}" for k, v in out["grad_share"].items()) +
+            f"d{k} {v:.3f}" for k, v in shares.items()) +
         "); a backward with one token dropped fails it")
-    del mine, auto, f64, bad, abs_sums, dropped
-
-    def step(fn):
-        def run():
-            leaves = {k: v.clone().requires_grad_(True)
-                      for k, v in p.items()}
-            fn(leaves).backward(gy)
-        return run
-
-    out["fwd_bwd_ms"] = cuda_median_ms(step(own), 5)
-    out["naive_fwd_bwd_ms"] = cuda_median_ms(step(naive), 5)
-    log(f"[15b] cpd_embed forward + backward at {n_tok:,} tokens: "
-        f"{out['fwd_bwd_ms']:.3f} ms (autograd through the naive lookup "
-        f"{out['naive_fwd_bwd_ms']:.3f}; median of 5)")
-    return out
+    return errs, shares
 
 
 def phase_dense(report, reps):
@@ -3777,6 +3869,571 @@ def phase_dense(report, reps):
     report["cpd_embedding"] = cpd
     free_device_memory()
     log(f"[15] passed in {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# [16] Training on the card.
+# --------------------------------------------------------------------------
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 4096       # train_4k, the batch cut 256 -> 4
+TRAIN_STEPS = 4
+GRAD_LAYERS, GRAD_SEQ = 4, 256         # [16a]'s float32 card-vs-CPU step
+GRAD_RTOL = 1e-3                       # of each leaf's largest gradient
+CPD_SMOKE_STEPS = 15
+RWKV_TRAIN_BATCH, RWKV_TRAIN_STEPS = 2, 3
+RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_STEPS = 6, 2, 3
+CTRL_LAYERS, CTRL_BATCH, CTRL_SEQ = 2, 2, 1024
+CTRL_STEPS, CTRL_FAIL = 4, 2
+SOURCES["wkv6_bwd"] = CSRC + "wkv6_bwd.cu"
+SOURCES["lru_scan_bwd"] = CSRC + "lru_scan.cu"
+# no TPU kernel: the function whose jax-autodiff gradient they compute
+REPLACES["wkv6_bwd"] = ("src/repro/models/rwkv.py:89 (no TPU kernel: the "
+                        "gradient of time_mix's chunked jnp algebra, by jax "
+                        "autodiff)")
+REPLACES["lru_scan_bwd"] = ("src/repro/models/rglru.py:73 (no TPU kernel: "
+                            "the gradient of apply_rglru's associative "
+                            "scan, by jax autodiff)")
+
+
+def train_ocfg(steps):
+    """``launch.train``'s optimizer: AdamW, lr 3e-4, one warm-up step."""
+    from repro_torch.training import OptimizerConfig
+
+    return OptimizerConfig(total_steps=steps, warmup_steps=1)
+
+
+def train_run(tag, cfg, batch, seq, steps, prepare=None):
+    """The main path: ``init_state`` on the card from seed 0 (``prepare``
+    may edit its params), then ``steps`` of ``make_train_step`` on
+    ``SyntheticLM`` batches, each timed on the host clock around a
+    synchronised step, the kernels' launch counts zeroed just before and
+    read just after. Returns the state and its numbers."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import lru_scan as klru
+    from repro_torch.kernels import wkv6 as kw6
+    from repro_torch.training import SyntheticLM, init_state, make_train_step
+    from repro_torch.training.tree import leaves
+
+    free_device_memory()
+    ocfg = train_ocfg(steps)
+    t0 = time.perf_counter()
+    state = init_state(cfg, ocfg, 0, device="cuda")
+    if prepare is not None:
+        prepare(state)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in leaves(state["params"]))
+    log(f"{tag} {cfg.name}{' + CPD embedding' if cfg.cpd_embedding else ''}"
+        f": {cfg.n_layers} layers, d {cfg.d_model}, remat {cfg.remat}, "
+        f"{n_params:,} params (f32 params, grads, m, v "
+        f"{16 * n_params / 1e9:.1f} GB) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = SyntheticLM(cfg, batch, seq, seed=0, device="cuda")
+    step = make_train_step(cfg, ocfg)
+    out = {"params": n_params, "batch": batch, "seq": seq, "steps": steps,
+           "step_ms": [], "losses": [], "grad_norms": []}
+    torch.cuda.reset_peak_memory_stats()
+    kw6.reset_launch_counts()
+    klru.reset_launch_counts()
+    for _ in range(steps):
+        b = data.next()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t1))
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out["launches"] = {**kw6.LAUNCHES, **klru.LAUNCHES}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        raise AssertionError(f"{tag} non-finite loss or grad norm: "
+                             f"{out['losses']}, {out['grad_norms']}")
+    out["steady_step_ms"] = statistics.median(out["step_ms"][1:])
+    out["tokens_per_s"] = batch * seq / (out["steady_step_ms"] / 1e3)
+    log(f"{tag} {steps} steps at B {batch}, S {seq}: step ms "
+        + ", ".join(f"{x:.1f}" for x in out["step_ms"]) +
+        f" (median after the first {out['steady_step_ms']:.1f}, "
+        f"{out['tokens_per_s']:,.0f} tokens/s), peak "
+        f"{out['peak_gib']:.2f} GiB, losses "
+        + ", ".join(f"{x:.4f}" for x in out["losses"]))
+    return state, out
+
+
+def first_layers_params(params, n):
+    """The stage-layout params of a one-block-pattern model cut to its
+    first ``n`` layers (the tensors shared)."""
+    from repro_torch.training.tree import tree_map
+
+    return {k: tree_map(lambda leaf: leaf[:n], v) if k.startswith("stage")
+            else v for k, v in params.items()}
+
+
+def _tree_copy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_copy(v, device) for v in tree]
+    return tree.detach().to(device, copy=True)
+
+
+def grad_leaf_check(tag, got, want):
+    """Per leaf ``max |got - want| <= GRAD_RTOL * max |want|`` (float32
+    gradients of one step, card against CPU); returns the largest share
+    of a leaf's limit, or raises naming the leaf."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        lim = GRAD_RTOL * float(w.abs().max()) + 1e-30
+        err = float((g.cpu() - w).abs().max())
+        if not err <= lim:
+            raise AssertionError(f"{tag} gradient leaf {i} "
+                                 f"{tuple(w.shape)} off by {err:.3e} "
+                                 f"(limit {lim:.3e})")
+        worst = max(worst, err / lim)
+    return worst
+
+
+def train_grad_check(tag, cfg, state):
+    """A float32 copy (TF32 off) of the first ``GRAD_LAYERS`` layers takes
+    one step on the card and on the CPU from the same state: every
+    gradient leaf (recovered from the first moment, m = (1 - b1) g after
+    one step) within ``GRAD_RTOL`` of the leaf's largest, the losses
+    within 1e-4; the check must fail when one layer's gradient is
+    dropped."""
+    import dataclasses
+
+    import torch
+    from repro_torch.training import (SyntheticLM, make_train_step,
+                                      optimizer)
+    from repro_torch.training.tree import leaves, tree_map
+
+    cfg4 = dataclasses.replace(cfg, n_layers=GRAD_LAYERS,
+                               compute_dtype="float32")
+    ocfg = train_ocfg(1)
+    batch = SyntheticLM(cfg4, 1, GRAD_SEQ, seed=1, device="cpu").next()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        params = _tree_copy(first_layers_params(state["params"],
+                                                GRAD_LAYERS), dev)
+        st = {"params": params, "opt": optimizer.init(params, ocfg),
+              "step": torch.zeros((), dtype=torch.int32)}
+        new, m = make_train_step(cfg4, ocfg)(
+            st, {k: v.to(dev) for k, v in batch.items()})
+        outs[dev] = (float(m["loss"]), new["opt"]["m"])
+    (lc, got), (lw, want) = outs["cuda"], outs["cpu"]
+    if abs(lc - lw) > 1e-4 * abs(lw):
+        raise AssertionError(f"{tag} float32 loss {lc} on the card, {lw} on "
+                             "the CPU")
+    share = grad_leaf_check(tag, leaves(got), leaves(want))
+    tree_map(lambda leaf: leaf[1].zero_(), got["stage0"])   # layer 1's
+    try:
+        grad_leaf_check(tag, leaves(got), leaves(want))
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"{tag} the gradient check does not catch a "
+                             "step that drops one layer's gradient")
+    log(f"{tag} float32 step of {GRAD_LAYERS} layers (B 1, S {GRAD_SEQ}, "
+        f"TF32 off) on the card == on the CPU: {len(leaves(want))} "
+        f"gradient leaves (max {share:.3f} of the limit {GRAD_RTOL} x the "
+        f"leaf's largest), loss {lc:.6f} / {lw:.6f}; dropping layer 1's "
+        "gradients fails it")
+    return {"grad_share": share, "loss_card": lc, "loss_cpu": lw}
+
+
+def embed_cotangent(cfg, state, batch):
+    """The cotangent that reaches the CPD embedding's output in one
+    backward of the loss at ``batch`` (f32, the factors' dtype)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.training import make_loss_fn
+    from repro_torch.training.tree import leaves, unflatten
+
+    seen = []
+    embed = transformer.cpd_embed
+
+    def hooked(p, ids):
+        out = embed(p, ids)
+        out.register_hook(seen.append)
+        return out
+
+    req = [x.detach().requires_grad_(True) for x in leaves(state["params"])]
+    transformer.cpd_embed = hooked
+    try:
+        loss = make_loss_fn(cfg)(transformer.unstack_layers(
+            cfg, unflatten(state["params"], req)), batch)
+        torch.autograd.grad(loss, req)
+    finally:
+        transformer.cpd_embed = embed
+    return seen[0]
+
+
+def train_cpd(tag, cfg):
+    """[16b]: the CPD tinyllama's steps, its factor gradients at the last
+    training batch against float64, and a loss-decrease run at the smoke
+    config on the card (the reference's
+    ``test_cpd_embedding_inside_model_trains``)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import smoke
+    from repro_torch.training import (OptimizerConfig, SyntheticLM,
+                                      init_state, make_train_step)
+
+    state, out = train_run(tag, cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda")
+    data.set_state({"step": TRAIN_STEPS - 1})
+    batch = data.next()
+    gy = embed_cotangent(cfg, state, batch)
+    p = {k: v.detach() for k, v in state["params"]["embed_cpd"].items()}
+    del state
+    free_device_memory()
+    out["grad_err"], out["grad_share"] = cpd_grad_check(
+        tag, p, batch["tokens"], gy)
+    del gy, p
+
+    scfg = dataclasses.replace(smoke(CPD_ARCH), cpd_embedding=True,
+                               cpd_rank=16)
+    ocfg = OptimizerConfig(lr=3e-3, warmup_steps=2, total_steps=20)
+    st = init_state(scfg, ocfg, 0, device="cuda")
+    step = make_train_step(scfg, ocfg)
+    sdata = SyntheticLM(scfg, batch=4, seq=32, seed=0, device="cuda")
+    losses = []
+    for _ in range(CPD_SMOKE_STEPS):
+        st, m = step(st, sdata.next())
+        losses.append(float(m["loss"]))
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f"{tag} smoke CPD loss did not decrease: "
+                             f"{losses}")
+    out["smoke_losses"] = losses
+    log(f"{tag} smoke CPD (rank 16) {CPD_SMOKE_STEPS} steps on the card: "
+        f"mean loss of the first 3 {first:.4f} -> last 3 {last:.4f}")
+    return out
+
+
+def wkv_bwd_limit(kw6, args, dy, sides=1):
+    """Per-element limit of the float32 WKV backward against float64: the
+    same backward on ``|r|, |k|, w, |v|, |u|, |dy|`` (float64), ``A``,
+    bounds every partial sum; the state and its gradient each carry a
+    random walk of ~2 sqrt(T) roundings, a readout sums K terms, and the
+    bonus terms add ~4 roundings: ``sides * LAMBDA * (2 sqrt(T) +
+    sqrt(K) + 4) * u * A``."""
+    t, kd = args[0].shape[1], args[0].shape[2]
+    absd = [x.double().abs() for x in (*args, dy)]
+    absd[2] = args[2].double()
+    return [sides * LAMBDA * (2 * math.sqrt(t) + math.sqrt(kd) + 4) * U * a
+            for a in kw6.wkv6_backward_plain(*absd)]
+
+
+def wkv_bwd_check(kw6, args, dy, tag):
+    """The backward kernel against the float64 plain backward within the
+    limit, every output; the limit held against a run whose walks drop
+    their carry at step T / 2 (w zeroed there). Returns (max error, its
+    share of the limit)."""
+    names = ("dr", "dk", "dw", "dv", "du")
+    want = kw6.wkv6_backward_plain(*(x.double() for x in (*args, dy)))
+    lims = wkv_bwd_limit(kw6, args, dy)
+    got = kw6.wkv6_backward(*args, dy)
+    err = share = 0.0
+    for n, g, w, lim in zip(names, got, want, lims):
+        e, s = close_to(f"{tag} wkv6_bwd {n}", g, w, lim)
+        err, share = max(err, e), max(share, s)
+    w_drop = args[2].clone()
+    w_drop[:, args[2].shape[1] // 2] = 0
+    bad = kw6.wkv6_backward(args[0], args[1], w_drop, *args[3:], dy)
+    if not any(((b.double() - w).abs() > lim).any()
+               for b, w, lim in zip(bad, want, lims)):
+        raise AssertionError(f"{tag} wkv6_bwd: the limit does not catch a "
+                             "backward that drops its carry at one step")
+    return err, share
+
+
+def wkv_bwd_bound(args):
+    """``(bytes, flops)`` the WKV backward must move and do: r, k, w, v, u
+    and dy read once, dr, dk, dw, dv and du written once; 14 flops an
+    element of S a step (the state recomputed 3, its gradient updated 3,
+    four products summed 8)."""
+    bh, t, kd = args[0].shape
+    vd = args[3].shape[-1]
+    return 4 * (bh * t * (4 * kd + 5 * vd) + 2 * bh * kd), \
+        14 * kd * vd * t * bh
+
+
+def bwd_record(name, rec, per):
+    """A backward kernel's entry of the ``kernels`` JSON line."""
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None, "per": per}
+
+
+def kernel_timing(fn, plain, nbytes, flops, reps):
+    """CUDA-event ms of the kernel (mean of ``reps``) and of its plain
+    version (one), beside the bound."""
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / F32_FLOP_PER_S
+    return {"ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, 1),
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def layer0_input(cfg, state, batch, seq, seed):
+    """Layer 0's normed input at a (batch, seq) draw of ``SyntheticLM``,
+    and the draw's tokens."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.common import apply_norm
+    from repro_torch.training import SyntheticLM
+
+    view = transformer.unstack_layers(cfg, state["params"])
+    tok = SyntheticLM(cfg, batch, seq, seed=seed,
+                      device="cuda").next()["tokens"]
+    with torch.no_grad():
+        x0 = apply_norm(view.layers[0].ln1,
+                        transformer.embed_lookup(view, tok, cfg), cfg)
+    return view.layers[0], x0
+
+
+def train_rwkv(tag, kw6, reps):
+    """[16c]: rwkv6-3b at full width and depth (``wb_lora`` drawn non-zero
+    as in [10]), then ``wkv6_bwd`` at layer 0's prefill shape (B 4, S
+    4096: BH 160) against the plain backward, timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv
+
+    cfg = get_config(RWKV_ARCH)
+
+    def prepare(state):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        for w in state["params"]["stage0"]["b0"]["wb_lora"]:
+            w.normal_(0.0, WB_LORA_STD, generator=g)
+
+    state, out = train_run(tag, cfg, RWKV_TRAIN_BATCH, TRAIN_SEQ,
+                           RWKV_TRAIN_STEPS, prepare)
+    want = {"wkv6": 2 * cfg.n_layers * RWKV_TRAIN_STEPS,
+            "wkv6_bwd": cfg.n_layers * RWKV_TRAIN_STEPS}
+    got = {k: out["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag} launches {got}, expected {want} "
+                             "(forward, recompute and backward a layer)")
+    log(f"{tag} launches over {RWKV_TRAIN_STEPS} steps: wkv6 "
+        f"{got['wkv6']} (forward + recompute), wkv6_bwd {got['wkv6_bwd']}")
+    layer, x0 = layer0_input(cfg, state, RWKV_BATCH, RWKV_SEQ, 2)
+    del state
+    free_device_memory()
+    with torch.no_grad():
+        args = rwkv.wkv_inputs(layer, x0, cfg)[:5]
+    del layer, x0
+    dy = torch.randn(args[3].shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3))
+    err, share = wkv_bwd_check(kw6, args, dy, tag)
+    rec = kernel_timing(lambda: kw6.wkv6_backward(*args, dy),
+                        lambda: kw6.wkv6_backward_plain(*args, dy),
+                        *wkv_bwd_bound(args), reps)
+    rec.update(max_abs_err=err, launches=got["wkv6_bwd"])
+    log(f"{tag} wkv6_bwd at layer 0 (BH {args[0].shape[0]}, T "
+        f"{args[0].shape[1]}, 64, 64) == float64 plain (max err {err:.3e}, "
+        f"{share:.3f} of the limit); a carry dropped at T / 2 fails it: "
+        f"{rec['ms']:.3f} ms a launch (plain {rec['plain_ms']:.1f}, bound "
+        f"{rec['bound_ms']:.4f} by {rec['bound_by']})")
+    out["wkv6_bwd"] = rec
+    del args, dy
+    free_device_memory()
+    return out
+
+
+def lru_bwd_check(klru, a, h, dh, tag):
+    """The backward kernel against the float64 plain backward within
+    ``LAMBDA * (2 sqrt(T - t) + 3) * u * A`` (``A`` the same on ``|a|,
+    |h|, |dh|``: the reverse scan's state carries a random walk of ~2
+    sqrt(T - t) roundings, da one more); the limit held against a run
+    that drops the carry at step T / 2 (a zeroed there)."""
+    import torch
+
+    t = a.shape[1]
+    want = klru.lru_scan_backward_plain(a.double(), h.double(), dh.double())
+    steps = (t - torch.arange(t, device=a.device, dtype=torch.float64))
+    scale = LAMBDA * (2 * steps.sqrt() + 3)[None, :, None] * U
+    lims = [scale * x for x in klru.lru_scan_backward_plain(
+        a.double().abs(), h.double().abs(), dh.double().abs())]
+    got = klru.lru_scan_backward(a, h, dh)
+    err = share = 0.0
+    for n, g, w, lim in zip(("da", "dx"), got, want, lims):
+        e, s = close_to(f"{tag} lru_scan_bwd {n}", g, w, lim)
+        err, share = max(err, e), max(share, s)
+    a_drop = a.clone()
+    a_drop[:, t // 2] = 0
+    bad = klru.lru_scan_backward(a_drop, h, dh)
+    if not any(((b.double() - w).abs() > lim).any()
+               for b, w, lim in zip(bad, want, lims)):
+        raise AssertionError(f"{tag} lru_scan_bwd: the limit does not "
+                             "catch a backward that drops one carry")
+    return err, share
+
+
+def train_rg(tag, klru, reps):
+    """[16d]: recurrentgemma-9b at full width, depth cut to
+    ``RG_TRAIN_LAYERS`` (two cycles of rec, rec, local), then
+    ``lru_scan_bwd`` at layer 0's prefill shape (4, 4096, 4096) against
+    the plain backward, timed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+
+    cfg = dataclasses.replace(get_config(RG_ARCH), n_layers=RG_TRAIN_LAYERS)
+    state, out = train_run(tag, cfg, RG_TRAIN_BATCH, TRAIN_SEQ,
+                           RG_TRAIN_STEPS)
+    n_rec = sum(kind == "rec" for pat, rep in cfg.stages()
+                for _ in range(rep) for kind in pat)
+    want = {"lru_scan": 2 * n_rec * RG_TRAIN_STEPS,
+            "lru_scan_bwd": n_rec * RG_TRAIN_STEPS}
+    got = {k: out["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag} launches {got}, expected {want}")
+    log(f"{tag} launches over {RG_TRAIN_STEPS} steps: lru_scan "
+        f"{got['lru_scan']} (forward + recompute), lru_scan_bwd "
+        f"{got['lru_scan_bwd']}")
+    layer, x0 = layer0_input(cfg, state, RG_BATCH, RG_SEQ, 2)
+    del state
+    free_device_memory()
+    with torch.no_grad():
+        a, b, _ = rglru.scan_inputs(layer.rec, x0, cfg)
+        h = klru.lru_scan(a, b)
+    del layer, x0, b
+    dh = torch.randn(a.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(4))
+    err, share = lru_bwd_check(klru, a, h, dh, tag)
+    n = a.numel()
+    rec = kernel_timing(lambda: klru.lru_scan_backward(a, h, dh),
+                        lambda: klru.lru_scan_backward_plain(a, h, dh),
+                        20 * n, 3 * n, reps)
+    rec.update(max_abs_err=err, launches=got["lru_scan_bwd"])
+    log(f"{tag} lru_scan_bwd at layer 0 {tuple(a.shape)} == float64 plain "
+        f"(max err {err:.3e}, {share:.3f} of the limit); a dropped carry "
+        f"fails it: {rec['ms']:.3f} ms a launch (plain "
+        f"{rec['plain_ms']:.1f}, bound {rec['bound_ms']:.4f} by "
+        f"{rec['bound_by']})")
+    out["lru_scan_bwd"] = rec
+    del a, h, dh
+    free_device_memory()
+    return out
+
+
+def train_controller(tag):
+    """[16e]: ``TrainController`` on the card (tinyllama-1.1b at full
+    width, ``CTRL_LAYERS`` layers): preempted at step ``CTRL_FAIL`` of
+    ``CTRL_STEPS`` and resumed from its checkpoint by a fresh controller,
+    against an uninterrupted run (not bitwise on the card: the
+    embedding's backward accumulates with atomics); then one checkpoint
+    saved and loaded, timed."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training import (CheckpointManager, ControllerConfig,
+                                      SyntheticLM, TrainController)
+    from repro_torch.training.tree import leaves
+
+    free_device_memory()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CTRL_LAYERS)
+    ocfg = train_ocfg(CTRL_STEPS)
+
+    def controller(d):
+        ctrl = ControllerConfig(ckpt_dir=d, ckpt_every=CTRL_FAIL, keep=2,
+                                async_save=False)
+        return TrainController(cfg, ocfg, ctrl, SyntheticLM(
+            cfg, CTRL_BATCH, CTRL_SEQ, seed=0, device="cuda"),
+            device="cuda")
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clean, cm = controller(os.path.join(tmp, "clean")).run(CTRL_STEPS)
+        tc = controller(os.path.join(tmp, "pre"))
+        try:
+            tc.run(CTRL_STEPS, fail_at=CTRL_FAIL)
+        except InterruptedError:
+            pass
+        else:
+            raise AssertionError(f"{tag} the preemption did not fire")
+        del tc
+        tc2 = controller(os.path.join(tmp, "pre"))
+        if int(tc2.state["step"]) != CTRL_FAIL or tc2.data.step != CTRL_FAIL:
+            raise AssertionError(f"{tag} resumed at step "
+                                 f"{int(tc2.state['step'])}, data "
+                                 f"{tc2.data.step}, not {CTRL_FAIL}")
+        resumed, rm = tc2.run(CTRL_STEPS)
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            leaves(resumed["params"]), leaves(clean["params"])))
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            leaves(resumed), leaves(clean)))
+        lim = 2 * ocfg.lr * (CTRL_STEPS - CTRL_FAIL)
+        if not diff <= lim or abs(float(rm["loss"]) - float(cm["loss"])) \
+                > 1e-3 * abs(float(cm["loss"])):
+            raise AssertionError(f"{tag} resumed run off the clean one: "
+                                 f"params {diff:.3e} (limit {lim:.1e}), "
+                                 f"loss {float(rm['loss'])} / "
+                                 f"{float(cm['loss'])}")
+        mgr = CheckpointManager(os.path.join(tmp, "timed"), keep=1,
+                                async_save=False)
+        t0 = time.perf_counter()
+        mgr.save(resumed, tc2.data.get_state())
+        out["save_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back, _ = mgr.restore_latest(like=clean)
+        torch.cuda.synchronize()
+        out["load_ms"] = 1e3 * (time.perf_counter() - t0)
+        nbytes = sum(x.numel() * x.element_size() for x in leaves(resumed))
+        if not all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                     leaves(resumed))):
+            raise AssertionError(f"{tag} a checkpoint did not load back "
+                                 "bitwise")
+    out.update(params_max_diff=diff, bitwise=bitwise, state_bytes=nbytes,
+               loss_clean=float(cm["loss"]), loss_resumed=float(rm["loss"]))
+    log(f"{tag} TrainController ({cfg.name}, {CTRL_LAYERS} layers, B "
+        f"{CTRL_BATCH}, S {CTRL_SEQ}): preempted at step {CTRL_FAIL} of "
+        f"{CTRL_STEPS}, resumed from its checkpoint: params within "
+        f"{diff:.3e} of an uninterrupted run (limit {lim:.1e}; bitwise "
+        f"{bitwise}), loss {out['loss_resumed']:.6f} / "
+        f"{out['loss_clean']:.6f}; a checkpoint of {nbytes / 1e9:.2f} GB "
+        f"saved in {out['save_ms']:.0f} ms, loaded in "
+        f"{out['load_ms']:.0f} ms")
+    return out
+
+
+def phase_train(kw6, klru, report, reps):
+    """[16] Training on the card: tinyllama-1.1b ([16a]) and its CPD
+    variant ([16b]) at full width and depth, rwkv6-3b at full width and
+    depth ([16c]), recurrentgemma-9b at full width on 6 layers ([16d]),
+    the controller ([16e]). Returns the two backward kernels' records."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = get_config(TRAIN_ARCH)
+    state, out["tinyllama"] = train_run("[16a]", cfg, TRAIN_BATCH,
+                                        TRAIN_SEQ, TRAIN_STEPS)
+    out["tinyllama"].update(train_grad_check("[16a]", cfg, state))
+    del state
+    out["cpd"] = train_cpd("[16b]", dataclasses.replace(
+        cfg, cpd_embedding=True))
+    out["rwkv"] = train_rwkv("[16c]", kw6, reps)
+    out["rg"] = train_rg("[16d]", klru, reps)
+    out["controller"] = train_controller("[16e]")
+    report["train"] = out
+    free_device_memory()
+    log(f"[16] passed in {time.perf_counter() - t0:.1f} s")
+    return out["rwkv"]["wkv6_bwd"], out["rg"]["lru_scan_bwd"]
 
 
 def kernels_record(per_kernel, launches, errs):
@@ -3917,10 +4574,24 @@ def main(argv=None) -> int:
                                             report, args.reps)
     del coo8, twitch
     phase_dense(report, args.reps)
+    wbwd, lbwd = phase_train(kw6, klru, report, args.reps)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [
-        wkv6_record(wkv), lru_scan_record(lru)]
+        wkv6_record(wkv), lru_scan_record(lru),
+        bwd_record("wkv6_bwd", wbwd,
+                   f"one launch at layer 0's shape of the {RWKV_ARCH} "
+                   f"prefill (B {RWKV_BATCH}, S {RWKV_SEQ}); launches: "
+                   f"[16c]'s {RWKV_TRAIN_STEPS} train steps at B "
+                   f"{RWKV_TRAIN_BATCH}, one a layer a step; library_ms "
+                   "null: no single PyTorch call computes a WKV backward"),
+        bwd_record("lru_scan_bwd", lbwd,
+                   f"one launch at layer 0's shape of the {RG_ARCH} "
+                   f"prefill (B {RG_BATCH}, S {RG_SEQ}); launches: [16d]'s "
+                   f"{RG_TRAIN_STEPS} train steps on {RG_TRAIN_LAYERS} "
+                   "layers, one a rec layer a step; library_ms null: no "
+                   "single PyTorch call computes a linear recurrence's "
+                   "backward")]
     dist_record(kernels, times14, launches14, err14)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

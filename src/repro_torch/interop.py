@@ -57,6 +57,56 @@ def model_params_from_numpy(tree, cfg, device="cuda"):
     return Model(cfg, {**rest, "layers": layers})
 
 
+def train_state_from_numpy(params_tree, opt_tree, step, cfg, device="cuda"):
+    """The port's train state (``training.init_state``'s layout) from a
+    reference train state's ``params`` and ``opt`` trees with numpy
+    leaves and its ``step``: every leaf under a ``stage{i}`` key (stacked
+    over the stage's cycles) becomes the list of its slices, as
+    ``model_params_from_numpy`` unstacks the layers; AdamW's ``m``/``v``
+    follow the params, and Adafactor's factored ``r``/``c`` of a stacked
+    leaf of rank >= 3 are unstacked alike (a stacked rank-2 leaf's ``c``
+    spans its layers and stays as it is, as does its ``r``). ``cfg``,
+    where given, must have one stage for each ``stage{i}`` of the tree
+    (``None`` takes any tree, e.g. an optimizer test's)."""
+    from repro_torch.models.common import device_of
+
+    dev = device_of(device)
+    if cfg is not None:
+        have = sorted(k for k in params_tree if k.startswith("stage"))
+        want = sorted(f"stage{i}" for i in range(len(cfg.stages())))
+        if have != want:
+            raise ValueError(f"train_state_from_numpy: the tree has stages "
+                             f"{have}, {cfg.name} has {want}")
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(dev)  # a copy
+
+    def conv(node, stacked=False):
+        if isinstance(node, dict):
+            return {k: conv(v, stacked or k.startswith("stage"))
+                    for k, v in node.items()}
+        a = np.asarray(node)
+        return [tensor(x) for x in a] if stacked else tensor(a)
+
+    def factored(f, p, stacked=False):
+        if isinstance(p, dict):
+            return {k: factored(f[k], p[k], stacked or k.startswith("stage"))
+                    for k in p}
+        if stacked and np.asarray(p).ndim >= 3:
+            return {k: [tensor(x) for x in np.asarray(v)]
+                    for k, v in f.items()}
+        return {k: tensor(v) for k, v in f.items()}
+
+    opt = {"step": torch.tensor(int(np.asarray(opt_tree["step"])),
+                                dtype=torch.int32)}
+    if "f" in opt_tree:
+        opt["f"] = factored(opt_tree["f"], params_tree)
+    else:
+        opt["m"], opt["v"] = conv(opt_tree["m"]), conv(opt_tree["v"])
+    return {"params": conv(params_tree), "opt": opt,
+            "step": torch.tensor(int(np.asarray(step)), dtype=torch.int32)}
+
+
 def state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
                      dims: Sequence[int], statics: Sequence,
                      config: ExecutionConfig | None = None,
@@ -142,4 +192,5 @@ def dist_state_from_numpy(val, idx, alpha, relabel, sched, *, mode: int,
 
 
 __all__ = ["factors_from_numpy", "model_params_from_numpy",
-           "state_from_numpy", "dist_state_from_numpy"]
+           "train_state_from_numpy", "state_from_numpy",
+           "dist_state_from_numpy"]

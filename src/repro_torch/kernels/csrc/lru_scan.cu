@@ -94,7 +94,70 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The backward, a reverse scan over t (no TPU counterpart: the JAX package
+// trains the RG-LRU through lax.associative_scan). With G_t = dL/dh_t:
+//
+//   G_t = dh_t + a_{t+1} G_{t+1},   G_{T-1} = dh_{T-1}
+//   dx_t = G_t,                     da_t = G_t h_{t-1}  (h_{-1} = 0)
+//
+// One thread a channel, as in the forward, walking t down from T - 1 with
+// G and a_{t+1} in registers; a chunk of kSteps steps (dh_t, a_t, h_{t-1})
+// is loaded into registers before its FMAs run. Bound: bytes, read a, h and
+// dh and write da and dx once, 20 B T D: 1.34 GB at (4, 4096, 4096), 0.40 ms.
+__global__ void __launch_bounds__(kThreads)
+    lru_scan_bwd_kernel(const float* __restrict__ a,
+                        const float* __restrict__ h,
+                        const float* __restrict__ dh,
+                        float* __restrict__ da, float* __restrict__ dx, int T,
+                        int D) {
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  if (d >= D) return;
+  const long long stride = D;
+  const long long base = static_cast<long long>(blockIdx.y) * T * D + d;
+  float g = 0.f, a_next = 0.f;
+  for (int hi = T; hi > 0; hi -= kSteps) {
+    const int n = min(kSteps, hi);
+    float ra[kSteps], rd[kSteps], rh[kSteps];
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      if (i < n) {
+        const long long off = base + (hi - 1 - i) * stride;
+        ra[i] = __ldcs(a + off);
+        rd[i] = __ldcs(dh + off);
+        rh[i] = hi - 1 - i > 0 ? __ldcs(h + off - stride) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      if (i < n) {
+        const long long off = base + (hi - 1 - i) * stride;
+        g = fmaf(a_next, g, rd[i]);
+        __stcs(dx + off, g);
+        __stcs(da + off, g * rh[i]);
+        a_next = ra[i];
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// The backward's entry point: a, h, dh, da, dx are contiguous float32
+// (B, T, D) arrays on the current device (h the forward's output), with
+// the forward's limits. Returns the cudaError_t of the launch.
+extern "C" int lru_scan_bwd_launch(const void* a, const void* h,
+                                   const void* dh, void* da, void* dx, int B,
+                                   int T, int D, void* stream) {
+  if (B < 1 || B > 65535 || T < 1 || D < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((D + kThreads - 1) / kThreads, B);
+  lru_scan_bwd_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(h),
+      static_cast<const float*>(dh), static_cast<float*>(da),
+      static_cast<float*>(dx), T, D);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Plain C entry point (loaded with ctypes). Every pointer is a contiguous
 // float32 (B, T, D) array on the current device; 1 <= B <= 65535 (grid.y),

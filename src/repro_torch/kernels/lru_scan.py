@@ -15,12 +15,23 @@ version serves CPU tensors only, and is what ``chip_smoke.py`` holds the
 kernel against on the card. ``LAUNCHES["lru_scan"]`` counts kernel
 launches; the wrapper adds one where it launches the kernel and nowhere
 else.
+
+Gradients go through :class:`LRUScanFn`, whose backward is a reverse
+linear scan, the kernel ``lru_scan_bwd_launch`` in the same source (the
+JAX package trains the RG-LRU through ``lax.associative_scan`` and has no
+backward Pallas kernel); with ``G_t = dL/dh_t``::
+
+    G_t = dh_t + a_{t+1} G_{t+1},   dx_t = G_t,   da_t = G_t h_{t-1}
+
+:func:`lru_scan_backward_plain` computes the same step by step and serves
+CPU tensors; on a CUDA tensor the backward launches the kernel
+(``LAUNCHES["lru_scan_bwd"]``) or raises.
 """
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"lru_scan": 0}
+LAUNCHES = {"lru_scan": 0, "lru_scan_bwd": 0}
 #: Steps the kernel reads into one register buffer (``kSteps`` in
 #: ``csrc/lru_scan.cu``): a carry dropped at a multiple of it is the
 #: kernel's likeliest fault.
@@ -61,19 +72,29 @@ def lru_scan_plain(a, x):
     return lru_scan_steps(a.to(torch.float32), x.to(torch.float32))
 
 
+def lru_scan_backward_plain(a, h, dh):
+    """Plain version of the backward: ``(da, dx)`` in the dtype of the
+    inputs, the reverse scan step by step (``h`` the forward's output)."""
+    b, t, d = _shapes(a, h)
+    _shapes(a, dh)
+    g = torch.zeros((b, d), dtype=a.dtype, device=a.device)
+    da, dx = torch.empty_like(a), torch.empty_like(a)
+    for i in reversed(range(t)):
+        g = dh[:, i] + (a[:, i + 1] * g if i + 1 < t else 0)
+        dx[:, i] = g
+        da[:, i] = g * h[:, i - 1] if i else 0
+    return da, dx
+
+
 # --------------------------------------------------------------------------
 # CUDA launch.
 # --------------------------------------------------------------------------
-def _launch(a, x):
-    """Check both arguments, then launch ``csrc/lru_scan.cu``; raises on a
-    shape, type, layout or device the kernel does not take, before any
-    launch."""
-    b, t, d = _shapes(a, x)
+def _check(b, t, d, device, named):
+    """Raise on a shape, type, layout or device the kernels do not take."""
     if not 1 <= b <= _MAX_ROWS or t < 1 or d < 1:
         raise ValueError(f"lru_scan kernel takes 1 <= B <= {_MAX_ROWS}, "
                          f"T >= 1 and D >= 1; got {(b, t, d)}")
-    device = a.device
-    for name, v in (("a", a), ("x", x)):
+    for name, v in named:
         if v.device != device:
             raise ValueError(f"lru_scan: {name} is on {v.device}, a on "
                              f"{device}")
@@ -82,11 +103,17 @@ def _launch(a, x):
                             "kernel takes float32")
         if not v.is_contiguous():
             raise ValueError(f"lru_scan: {name} must be contiguous")
-        if v.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("lru_scan: the CUDA kernel has no backward; "
-                               "call it under torch.no_grad()")
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {device}")
+
+
+def _launch(a, x):
+    """Check both arguments, then launch ``csrc/lru_scan.cu``; raises on a
+    shape, type, layout or device the kernel does not take, before any
+    launch."""
+    b, t, d = _shapes(a, x)
+    device = a.device
+    _check(b, t, d, device, (("a", a), ("x", x)))
     from repro_torch.kernels import build
 
     h = torch.empty((b, t, d), dtype=torch.float32, device=device)
@@ -99,15 +126,64 @@ def _launch(a, x):
     return h
 
 
+def _launch_bwd(a, h, dh):
+    """Check every argument, then launch the backward kernel; raises
+    before any launch on what it does not take."""
+    b, t, d = _shapes(a, h)
+    _shapes(a, dh)
+    device = a.device
+    _check(b, t, d, device, (("a", a), ("h", h), ("dh", dh)))
+    from repro_torch.kernels import build
+
+    da, dx = torch.empty_like(a), torch.empty_like(a)
+    err = build.load("lru_scan").lru_scan_bwd_launch(
+        a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+        dx.data_ptr(), b, t, d,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"lru_scan backward launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES["lru_scan_bwd"] += 1
+    return da, dx
+
+
+def lru_scan_backward(a, h, dh):
+    """``(da, dx)`` f32: the CUDA kernel for tensors on a card (``dh`` cast
+    to f32 and made contiguous first), the plain version on the CPU."""
+    if a.device.type == "cpu":
+        return lru_scan_backward_plain(a, h, dh.to(a.dtype))
+    return _launch_bwd(a, h, dh.to(torch.float32).contiguous())
+
+
+class LRUScanFn(torch.autograd.Function):
+    """``h = lru_scan(a, x)`` with the backward kernel: the forward keeps
+    ``a`` and its output ``h``."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        h = (lru_scan_plain(a, x) if a.device.type == "cpu"
+             else _launch(a, x))
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        return lru_scan_backward(*ctx.saved_tensors, dh)
+
+
 def lru_scan(a, x):
     """``h (B, T, D)`` f32 of the recurrence: the CUDA kernel for tensors
     on a card (inputs cast to f32 first), the plain version for tensors on
-    the CPU."""
+    the CPU; where autograd records, through :class:`LRUScanFn`."""
+    f32 = torch.float32
+    a, x = a.to(f32).contiguous(), x.to(f32).contiguous()
+    if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad):
+        return LRUScanFn.apply(a, x)
     if a.device.type == "cpu" and x.device.type == "cpu":
         return lru_scan_plain(a, x)
-    f32 = torch.float32
-    return _launch(a.to(f32).contiguous(), x.to(f32).contiguous())
+    return _launch(a, x)
 
 
-__all__ = ["lru_scan", "lru_scan_plain", "lru_scan_steps", "LAUNCHES",
-           "STEPS", "reset_launch_counts"]
+__all__ = ["lru_scan", "lru_scan_plain", "lru_scan_steps",
+           "lru_scan_backward", "lru_scan_backward_plain", "LRUScanFn",
+           "LAUNCHES", "STEPS", "reset_launch_counts"]

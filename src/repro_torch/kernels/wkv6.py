@@ -25,18 +25,41 @@ On a CUDA tensor :func:`wkv6` launches the kernel or raises; the plain
 version serves CPU tensors only, and is what ``chip_smoke.py`` holds the
 kernel against on the card. ``LAUNCHES["wkv6"]`` counts kernel launches;
 the wrapper adds one where it launches the kernel and nowhere else.
+
+Gradients go through :class:`WKV6Fn`, whose backward is the port's own
+kernel ``csrc/wkv6_bwd.cu`` (the JAX package trains RWKV-6 through its
+chunked ``jnp`` algebra and has no backward Pallas kernel); with ``G_t =
+dL/dS_t``, ``G_{T-1} = 0``, ``G_{t-1} = diag(w_t) G_t + r_t dy_t^T``::
+
+    dr_t = S_{t-1} dy_t + (u o k_t)(v_t . dy_t)
+    dk_t = G_t v_t + (u o r_t)(v_t . dy_t)
+    dv_t = G_t^T k_t + (r_t . (u o k_t)) dy_t
+    dw_t[i] = sum_j S_{t-1}[i, j] G_t[i, j]
+    du = sum_t (r_t o k_t)(v_t . dy_t)
+
+:func:`wkv6_backward_plain` computes the same step by step, and serves
+CPU tensors; on a CUDA tensor the backward launches the kernel
+(``LAUNCHES["wkv6_bwd"]``) or raises, at K = V = 64 only.
 """
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"wkv6": 0}
+LAUNCHES = {"wkv6": 0, "wkv6_bwd": 0}
 #: Key and value widths the kernel is compiled for (``csrc/wkv6.cu``).
 KERNEL_DIMS = (8, 16, 32, 64)
 _MAX_ROWS = 65535   # grid.y limit: one row of CTAs per bh
 #: Slices the kernel cuts a column's K into (``kGroups`` in
 #: ``csrc/wkv6.cu``), at most K / 4: see :func:`kernel_groups`.
 GROUPS = 8
+#: The backward kernel's key and value width (``kDim`` in
+#: ``csrc/wkv6_bwd.cu``), the steps between the states it saves
+#: (``kChunk``), the column tiles of a row (``kTiles``) and its CTA size
+#: (``kThreads``): the wrapper sizes the kernel's scratch from them.
+BWD_DIM = 64
+BWD_CHUNK = 16
+BWD_TILES = 4
+BWD_THREADS = 256
 
 
 def reset_launch_counts() -> None:
@@ -179,9 +202,6 @@ def _launch(r, k, w, v, u):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"wkv6: {name} must be contiguous and 16-byte "
                              "aligned")
-        if x.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("wkv6: the CUDA kernel has no backward; call "
-                               "it under torch.no_grad()")
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {device}")
     from repro_torch.kernels import build
@@ -197,16 +217,147 @@ def _launch(r, k, w, v, u):
     return y
 
 
+# --------------------------------------------------------------------------
+# Backward.
+# --------------------------------------------------------------------------
+def wkv6_backward_plain(r, k, w, v, u, dy):
+    """Plain version of the backward: ``(dr, dk, dw, dv, du)`` in the dtype
+    of the inputs, step by step. A forward walk keeps the state at the
+    start of every ``BWD_CHUNK`` steps, as the kernel does; the backward
+    walk recomputes a chunk's states from there and walks its steps down
+    with ``G`` (module docstring). Products are written out as
+    multiply-and-sum."""
+    chunk = BWD_CHUNK
+    bh, t, kd, vd = _shapes(r, k, w, v, u)
+    if tuple(dy.shape) != (bh, t, vd):
+        raise ValueError(f"wkv6 backward: dy has shape {tuple(dy.shape)}, "
+                         f"expected {(bh, t, vd)}")
+    dt, dev = r.dtype, r.device
+    s = torch.zeros((bh, kd, vd), dtype=dt, device=dev)
+    starts = []
+    for i in range(t):
+        if i % chunk == 0:
+            starts.append(s)
+        s = w[:, i, :, None] * s + k[:, i, :, None] * v[:, i, None, :]
+    vdy = (v * dy).sum(-1)                                  # (BH, T)
+    b = (r * (u[:, None] * k)).sum(-1)                      # (BH, T)
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    dv = torch.empty_like(v)
+    g = torch.zeros((bh, kd, vd), dtype=dt, device=dev)
+    for c in reversed(range(len(starts))):
+        lo, hi = c * chunk, min(t, (c + 1) * chunk)
+        hist, s = [], starts[c]
+        for i in range(lo, hi):
+            hist.append(s)
+            s = w[:, i, :, None] * s + k[:, i, :, None] * v[:, i, None, :]
+        for i in reversed(range(lo, hi)):
+            sp = hist[i - lo]
+            bonus = vdy[:, i, None]
+            dr[:, i] = (sp * dy[:, i, None, :]).sum(-1) + u * k[:, i] * bonus
+            dk[:, i] = (g * v[:, i, None, :]).sum(-1) + u * r[:, i] * bonus
+            dv[:, i] = (g * k[:, i, :, None]).sum(1) + b[:, i, None] * dy[:, i]
+            dw[:, i] = (sp * g).sum(-1)
+            g = w[:, i, :, None] * g + r[:, i, :, None] * dy[:, i, None, :]
+    du = (r * k * vdy[..., None]).sum(1)
+    return dr, dk, dw, dv, du
+
+
+def _check_bwd_shape(kd: int, vd: int) -> None:
+    if kd != BWD_DIM or vd != BWD_DIM:
+        raise ValueError(f"the wkv6 backward kernel takes K = V = "
+                         f"{BWD_DIM}; got K={kd}, V={vd}")
+
+
+def _launch_bwd(r, k, w, v, u, dy):
+    """Check every argument, then launch ``csrc/wkv6_bwd.cu``; raises on a
+    shape, type, layout or device the kernel does not take, before any
+    launch."""
+    bh, t, kd, vd = _shapes(r, k, w, v, u)
+    _check_bwd_shape(kd, vd)
+    if tuple(dy.shape) != (bh, t, vd):
+        raise ValueError(f"wkv6 backward: dy has shape {tuple(dy.shape)}, "
+                         f"expected {(bh, t, vd)}")
+    if not 1 <= bh <= _MAX_ROWS:
+        raise ValueError(f"the wkv6 backward kernel takes 1 <= BH <= "
+                         f"{_MAX_ROWS}; got BH={bh}")
+    device = r.device
+    for name, x in (("r", r), ("k", k), ("w", w), ("v", v), ("u", u),
+                    ("dy", dy)):
+        if x.device != device:
+            raise ValueError(f"wkv6 backward: {name} is on {x.device}, r on "
+                             f"{device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"wkv6 backward: {name} has dtype {x.dtype}, "
+                            "the kernel takes float32")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"wkv6 backward: {name} must be contiguous and "
+                             "16-byte aligned")
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {device}")
+    from repro_torch.kernels import build
+
+    f32 = torch.float32
+    n_chunks = -(-t // BWD_CHUNK)
+    states = torch.empty((bh * BWD_TILES * n_chunks * BWD_THREADS * 4,),
+                         dtype=f32, device=device)
+    part = torch.empty((3 * BWD_TILES * bh * t * kd,), dtype=f32,
+                       device=device)
+    dr, dk, dw, dv = (torch.empty((bh, t, kd), dtype=f32, device=device)
+                      for _ in range(4))
+    du = torch.empty((bh, kd), dtype=f32, device=device)
+    err = build.load("wkv6_bwd").wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), w.data_ptr(), v.data_ptr(), u.data_ptr(),
+        dy.data_ptr(), states.data_ptr(), part.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dw.data_ptr(), dv.data_ptr(), du.data_ptr(), bh, t,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wkv6 backward launch failed: cudaError {err}")
+    LAUNCHES["wkv6_bwd"] += 1
+    return dr, dk, dw, dv, du
+
+
+def wkv6_backward(r, k, w, v, u, dy):
+    """``(dr, dk, dw, dv, du)`` f32: the CUDA kernel for tensors on a card
+    (``dy`` cast to f32 and made contiguous first), the plain version for
+    tensors on the CPU."""
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, w, v, u, dy.to(r.dtype))
+    return _launch_bwd(r, k, w, v, u, dy.to(torch.float32).contiguous())
+
+
+class WKV6Fn(torch.autograd.Function):
+    """``y = wkv6(r, k, w, v, u)`` with the backward kernel: the forward
+    keeps its five f32 inputs for the backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, w, v, u):
+        ctx.save_for_backward(r, k, w, v, u)
+        if r.device.type == "cpu":
+            return wkv6_plain(r, k, w, v, u)
+        return _launch(r, k, w, v, u)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return wkv6_backward(*ctx.saved_tensors, dy)
+
+
 def wkv6(r, k, w, v, u):
     """``y (BH, T, V)`` f32 of the WKV recurrence: the CUDA kernel for
     tensors on a card (inputs cast to f32 first), the plain version for
-    tensors on the CPU."""
-    if r.device.type == "cpu":
-        return wkv6_plain(r, k, w, v, u)
+    tensors on the CPU. Where autograd records, through :class:`WKV6Fn`
+    (on a card, K = V = 64 only: refused before any launch otherwise)."""
     f32 = torch.float32
-    return _launch(*(x.to(f32).contiguous() for x in (r, k, w, v, u)))
+    args = [x.to(f32).contiguous() for x in (r, k, w, v, u)]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        if r.device.type != "cpu":
+            _check_bwd_shape(r.shape[-1], v.shape[-1])
+        return WKV6Fn.apply(*args)
+    if r.device.type == "cpu":
+        return wkv6_plain(*args)
+    return _launch(*args)
 
 
 __all__ = ["wkv6", "wkv6_plain", "wkv6_scan", "wkv6_grouped",
+           "wkv6_backward", "wkv6_backward_plain", "WKV6Fn",
            "kernel_groups", "slices", "LAUNCHES", "KERNEL_DIMS", "GROUPS",
-           "reset_launch_counts"]
+           "BWD_DIM", "reset_launch_counts"]

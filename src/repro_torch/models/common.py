@@ -149,8 +149,31 @@ def device_of(device) -> torch.device:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """An inference parameter (training waits for a later slice)."""
+    """A parameter of a served model (training runs on a :class:`Node`
+    tree of the same tensors, ``training.train_loop``)."""
     return nn.Parameter(t, requires_grad=False)
+
+
+class Node(dict):
+    """A dict whose keys read as attributes: a parameter tree that the
+    model functions take in place of a :class:`Params` module (the train
+    step hands them trees of tensors that require grad)."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+
+def as_node(tree):
+    """``tree`` with every nested dict a :class:`Node` (the tensors
+    shared, lists kept as lists)."""
+    if isinstance(tree, dict):
+        return Node({k: as_node(v) for k, v in tree.items()})
+    if isinstance(tree, list):
+        return [as_node(v) for v in tree]
+    return tree
 
 
 class Params(nn.Module):
@@ -216,5 +239,5 @@ def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
     return xf.to(x.dtype)
 
 
-__all__ = ["ModelConfig", "Params", "apply_norm", "dense_init", "device_of",
-           "init_norm", "param", "tree_of"]
+__all__ = ["ModelConfig", "Node", "Params", "apply_norm", "as_node",
+           "dense_init", "device_of", "init_norm", "param", "tree_of"]

@@ -4,7 +4,9 @@ prefill + decode), MLP and RoPE: the branches of the reference's
 
 The prefill attention loops over query chunks in Python, as the
 reference's does, and for a sliding window touches only the (window +
-chunk) band of keys a chunk can see. Decode keeps a windowed layer's
+chunk) band of keys a chunk can see. Where autograd records, each chunk
+is recomputed in backward (the reference's ``jax.checkpoint`` of a
+chunk), so that one chunk's f32 logits are live at a time. Decode keeps a windowed layer's
 keys and values in a ring buffer. The int8 KV cache (``kv_quant``) and
 cross-attention decode raise ``NotImplementedError`` naming their ROADMAP
 item; the reference's ``shard(...)`` hints and ``set_cost_mode`` (an XLA
@@ -17,6 +19,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, dense_init
 
@@ -151,21 +155,37 @@ def attention_full(p, xq, cfg: ModelConfig, *, mask: str = "causal",
     cq = min(q_chunk, sq)
     band = cfg.window + cq
     banded = mask == "window" and skv > band
-    o = torch.empty((b, sq, h, hd), dtype=cfg.cdtype, device=dev)
-    for lo in range(0, sq, cq):
-        qc = q[:, :, lo:lo + cq]
-        if banded:
-            start = min(max(lo + q_offset - cfg.window, 0), skv - band)
-            kc, vc = k[:, :, start:start + band], v[:, :, start:start + band]
-            k_pos = start + torch.arange(band, device=dev)
-        else:
-            kc, vc, k_pos = k, v, kv_pos_all
+
+    def chunk(qc, kc, vc, q_lo, k_lo):
+        """One query chunk against its keys (absolute positions from
+        ``q_lo`` and ``k_lo``): (B, cq, H, hd)."""
         logits = (qc @ kc.transpose(2, 3)).float() * scale   # (B, H, cq, s)
-        m = _mask(mask, q_offset + lo + torch.arange(cq, device=dev), k_pos,
-                  cfg.window, prefix_len)
+        m = _mask(mask, q_lo + torch.arange(cq, device=dev),
+                  k_lo + torch.arange(kc.shape[2], device=dev), cfg.window,
+                  prefix_len)
         logits = torch.where(m, logits, _NEG)
         probs = torch.softmax(logits, dim=-1).to(cfg.cdtype)
-        o[:, lo:lo + cq] = (probs @ vc).transpose(1, 2)
+        return (probs @ vc).transpose(1, 2)
+
+    def keys(lo):
+        if not banded:
+            return k, v, 0
+        start = min(max(lo + q_offset - cfg.window, 0), skv - band)
+        return k[:, :, start:start + band], v[:, :, start:start + band], start
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        outs = []
+        for lo in range(0, sq, cq):
+            kc, vc, k_lo = keys(lo)
+            outs.append(checkpoint(chunk, q[:, :, lo:lo + cq], kc, vc,
+                                   q_offset + lo, k_lo, use_reentrant=False))
+        o = torch.cat(outs, dim=1)
+    else:
+        o = torch.empty((b, sq, h, hd), dtype=cfg.cdtype, device=dev)
+        for lo in range(0, sq, cq):
+            kc, vc, k_lo = keys(lo)
+            o[:, lo:lo + cq] = chunk(q[:, :, lo:lo + cq], kc, vc,
+                                     q_offset + lo, k_lo)
     return o.flatten(2) @ p.wo.to(cfg.cdtype).flatten(0, 1)
 
 

@@ -14,20 +14,30 @@ tied head).
 
 The reference stacks the layers of a stage and drives them with one
 ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in a loop,
-in the same order (``ModelConfig.stages``). Other block kinds and model
-features raise ``NotImplementedError`` naming their ROADMAP item; the
-reference's ``shard(...)`` hints are dropped (one device).
+in the same order (``ModelConfig.stages``). Where autograd records, each
+cycle of a stage's pattern (the reference's scan body) is recomputed in
+backward as ``cfg.remat`` says, like the reference's ``_remat``. The
+model functions take a ``Model`` or a ``Node`` tree of the same keys
+(:func:`unstack_layers`: the train step's trees of tensors that require
+grad); :func:`stack_layers` gives a model's tree the reference's
+stage layout. Other block kinds and model features raise
+``NotImplementedError`` naming their ROADMAP item; the reference's
+``shard(...)`` hints are dropped (one device).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..tensorized import (cpd_embed, cpd_logits, dense_table,
                           init_cpd_embedding)
 from . import layers, rglru, rwkv
-from .common import (ModelConfig, Params, apply_norm, dense_init, device_of,
-                     init_norm, param)
+from .common import (ModelConfig, Node, Params, apply_norm, as_node,
+                     dense_init, device_of, init_norm, param)
 
 _NOT_PORTED = "ROADMAP Queue A item 12.4b (LM side: the other families)"
 #: Block kinds the port runs.
@@ -220,18 +230,102 @@ def _logits(params, x, cfg: ModelConfig):
     return x @ head_matrix(params, cfg)
 
 
-def forward(params, cfg: ModelConfig, tokens):
+# Matrix products without batch dimensions (the reference's
+# ``dots_with_no_batch_dims_saveable``): what ``remat="dots"`` saves.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in backward as ``cfg.remat`` says: ``"full"``
+    saves only its inputs, ``"dots"`` also the outputs of its matrix
+    products (``aten.mm``; batched products, attention's, recompute),
+    ``"none"`` everything. Only where autograd records."""
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat must be full, dots or none; got "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _cycle(x, cfg: ModelConfig, kinds, *cycle_layers):
+    for layer, kind in zip(cycle_layers, kinds):
+        x = apply_block(layer, x, cfg, kind)
+    return x
+
+
+def forward(params, cfg: ModelConfig, tokens, return_hidden: bool = False):
     """Teacher-forced forward (the prefill step): tokens (B, S) -> logits
     (B, S, Vp) in the compute dtype (Vp = V1 * V2 under the CPD
-    embedding). Runs ``wkv6`` once per ``rwkv`` layer and ``lru_scan``
-    once per ``rec`` layer. A length that the attention layers' query
-    chunks cannot take is refused before any work."""
+    embedding), or with ``return_hidden`` the final normed hidden state
+    (B, S, D) (the chunked loss owns the head). Runs ``wkv6`` once per
+    ``rwkv`` layer and ``lru_scan`` once per ``rec`` layer. A length that
+    the attention layers' query chunks cannot take is refused before any
+    work."""
     if {"attn", "local"} & set(layer_kinds(cfg)):
         layers.check_q_len(tokens.shape[1])
     x = embed_lookup(params, tokens, cfg)
-    for layer, kind in zip(params.layers, layer_kinds(cfg)):
-        x = apply_block(layer, x, cfg, kind)
+    run = _remat(_cycle, cfg)
+    i = 0
+    for pat, rep in cfg.stages():
+        for _ in range(rep):
+            x = run(x, cfg, pat, *params.layers[i:i + len(pat)])
+            i += len(pat)
+    if return_hidden:
+        return apply_norm(params.ln_f, x, cfg)
     return _logits(params, x, cfg)
+
+
+def _zip(trees):
+    """Same-keyed trees -> one tree whose leaves are lists."""
+    first = trees[0]
+    return {k: (_zip([t[k] for t in trees]) if isinstance(first[k], dict)
+                else [t[k] for t in trees]) for k in first}
+
+
+def _pick(tree, c):
+    return {k: (_pick(v, c) if isinstance(v, dict) else v[c])
+            for k, v in tree.items()}
+
+
+def stack_layers(cfg: ModelConfig, tree: dict) -> dict:
+    """A model's tree (``tree_of(model)``: ``layers`` in order) in the
+    reference's stage layout, ``stage{i}/b{j}/...``, each leaf the list of
+    that block's tensors over the stage's cycles (the reference's leading
+    scan axis, unstacked). The tensors are shared, not copied."""
+    layer_list = tree["layers"]
+    if isinstance(layer_list, dict):                 # a ModuleList's tree
+        layer_list = [layer_list[str(i)] for i in range(len(layer_list))]
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    i = 0
+    for s, (pat, rep) in enumerate(cfg.stages()):
+        n = len(pat)
+        out[f"stage{s}"] = {f"b{j}": _zip([layer_list[i + c * n + j]
+                                           for c in range(rep)])
+                            for j in range(n)}
+        i += rep * n
+    return out
+
+
+def unstack_layers(cfg: ModelConfig, tree: dict) -> Node:
+    """The inverse of :func:`stack_layers`: a :class:`Node` with
+    ``layers`` in order, which the model functions take in place of a
+    ``Model`` (the tensors are shared, not copied)."""
+    out = as_node({k: v for k, v in tree.items()
+                   if not k.startswith("stage")})
+    out["layers"] = [as_node(_pick(tree[f"stage{s}"][f"b{j}"], c))
+                     for s, (pat, rep) in enumerate(cfg.stages())
+                     for c in range(rep) for j in range(len(pat))]
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
@@ -257,4 +351,5 @@ def decode_step(params, cache, cfg: ModelConfig, token):
 
 __all__ = ["Model", "apply_block", "apply_block_decode", "decode_step",
            "embed_lookup", "forward", "head_matrix", "init_block",
-           "init_cache", "init_model", "layer_kinds"]
+           "init_cache", "init_model", "layer_kinds", "stack_layers",
+           "unstack_layers"]

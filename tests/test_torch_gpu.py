@@ -14,7 +14,9 @@ and resilience on the card (``classify`` on a real
 ``torch.cuda.OutOfMemoryError``, the backend rung of ``cp_als``, the
 stream's budget halving and upload retry, a resume), and the
 CPD-factorized embedding (forward, its spMTTKRP backward, the CPD head)
-and the dense attention family on the card against the CPU.
+and the dense attention family on the card against the CPU, and training
+(the ``wkv6`` and ``lru_scan`` backward kernels against their plain
+versions in float64, a train step on the card against the CPU's).
 Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
@@ -39,7 +41,11 @@ kernel's multiply-add fused into one rounding; the state stays below
 ``forward`` on the card against the CPU rtol = atol = 1e-3 (matmul sums
 over d = 128 in another order through 38 layers, on logits of size ~1;
 a dropped carry or a wrong mask moves them by ~1e-1), and against
-``Engine.prefill`` on the card rtol = atol = 1e-4.
+``Engine.prefill`` on the card rtol = atol = 1e-4. The backward kernels
+against their plain versions computed in float64: ``wkv6_bwd`` rtol =
+atol = 1e-4 (float32 sums over up to 513 steps of states of size ~10-100,
+the plain version's sums exact to float64), ``lru_scan_bwd`` rtol = atol =
+1e-5 (one FMA a step, gradients below ~30).
 """
 import numpy as np
 import pytest
@@ -753,10 +759,48 @@ def test_wkv6_refuses_what_it_does_not_take(cuda):
         kw6.wkv6(*_wkv_args(2, 8, 12, 16, 0, cuda))
     with pytest.raises(ValueError, match="K and V in"):
         kw6.wkv6(*_wkv_args(2, 8, 16, 128, 0, cuda))
-    r, k, w, v, u = _wkv_args(2, 8, 16, 16, 0, cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        kw6.wkv6(r.requires_grad_(), k, w, v, u)
     assert kw6.LAUNCHES["wkv6"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t", [(2, 16), (3, 37), (1, 1), (40, 513),
+                                  (161, 300)])
+def test_wkv6_backward_kernel_matches_plain(cuda, bh, t):
+    """``wkv6`` where autograd records: ``WKV6Fn`` launches the forward
+    and the backward kernel once each; dr, dk, dw, dv, du against
+    ``wkv6_backward_plain`` in float64 on the card (T not a multiple of
+    the kernel's 16-step chunk included)."""
+    args = _wkv_args(bh, t, 64, 64, bh + t, cuda)
+    dy = torch.randn((bh, t, 64), generator=torch.Generator().manual_seed(
+        t)).to(cuda)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = dict(kw6.LAUNCHES)
+    kw6.wkv6(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert kw6.LAUNCHES["wkv6"] == before["wkv6"] + 1
+    assert kw6.LAUNCHES["wkv6_bwd"] == before["wkv6_bwd"] + 1
+    want = kw6.wkv6_backward_plain(*(a.double() for a in (*args, dy)))
+    for a, w in zip(leaves, want):
+        torch.testing.assert_close(a.grad.double(), w, rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wkv6_backward_refuses_what_it_does_not_take(cuda):
+    """The backward kernel takes K = V = 64 only: a forward that would need
+    it elsewhere is refused before any launch, and so is the backward
+    itself on a shape or device it does not take."""
+    before = dict(kw6.LAUNCHES)
+    r, k, w, v, u = _wkv_args(2, 8, 16, 16, 0, cuda)
+    with pytest.raises(ValueError, match="K = V = 64"):
+        kw6.wkv6(r.requires_grad_(), k, w, v, u)
+    r, k, w, v, u = _wkv_args(2, 8, 64, 64, 0, cuda)
+    dy = torch.zeros_like(v)
+    with pytest.raises(ValueError, match="dy has shape"):
+        kw6.wkv6_backward(r, k, w, v, u, dy[:, :4])
+    with pytest.raises(ValueError, match="dy is on cpu"):
+        kw6._launch_bwd(r, k, w, v, u, dy.cpu())
+    assert kw6.LAUNCHES == before
 
 
 @pytest.mark.gpu
@@ -855,9 +899,44 @@ def test_lru_scan_refuses_what_it_does_not_take(cuda):
         klru.lru_scan(*_lru_args(65536, 1, 1, 0, cuda))
     with pytest.raises(ValueError, match="x is on cpu"):
         klru.lru_scan(a, x.cpu())
-    with pytest.raises(RuntimeError, match="no backward"):
-        klru.lru_scan(a.clone().requires_grad_(), x)
     assert klru.LAUNCHES["lru_scan"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d", [
+    (1, 32, 8), (2, 33, 130), (3, 1000, 4100), (4, 256, 4096)])
+def test_lru_scan_backward_kernel_matches_plain(cuda, b, t, d):
+    """``lru_scan`` where autograd records: ``LRUScanFn`` launches the
+    forward and the reverse-scan kernel once each; da and dx against
+    ``lru_scan_backward_plain`` in float64 on the card (T and D no
+    multiple of the 32-step buffer or the 128-channel CTA included)."""
+    a, x = _lru_args(b, t, d, b + t + d, cuda)
+    dh = torch.randn((b, t, d), generator=torch.Generator().manual_seed(
+        t)).to(cuda)
+    la, lx = a.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    before = dict(klru.LAUNCHES)
+    h = klru.lru_scan(la, lx)
+    h.backward(dh)
+    torch.cuda.synchronize()
+    assert klru.LAUNCHES["lru_scan"] == before["lru_scan"] + 1
+    assert klru.LAUNCHES["lru_scan_bwd"] == before["lru_scan_bwd"] + 1
+    wa, wx = klru.lru_scan_backward_plain(a.double(), h.detach().double(),
+                                          dh.double())
+    torch.testing.assert_close(la.grad.double(), wa, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lx.grad.double(), wx, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_lru_scan_backward_refuses_what_it_does_not_take(cuda):
+    before = dict(klru.LAUNCHES)
+    a, x = _lru_args(2, 8, 16, 0, cuda)
+    with pytest.raises(ValueError, match="of one shape"):
+        klru.lru_scan_backward(a, x, x[:, :4])
+    with pytest.raises(ValueError, match="dh is on cpu"):
+        klru._launch_bwd(a, x, x.cpu())
+    with pytest.raises(ValueError, match="B <= 65535"):
+        klru._launch_bwd(*(_lru_args(65536, 1, 1, 0, cuda)[0],) * 3)
+    assert klru.LAUNCHES == before
 
 
 @pytest.mark.gpu
@@ -1367,3 +1446,54 @@ def test_cpd_tinyllama_engine_on_the_card_by_default(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="max_len 48"):
         eng.generate(tok[:, :1], 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
+                                  "tinyllama-1.1b"])
+def test_train_step_on_the_card(cuda, arch):
+    """One float32 (TF32 off) train step of a smoke config on the card
+    against the same step on the CPU from the same state: the backward
+    kernels launch once a recurrent layer, the forward kernels twice
+    (``remat="full"``: the forward, then its recompute); losses rtol
+    1e-4, updated parameters within 2 lr (Adam's first step flips where
+    a gradient is float32 noise around 0) and within 1e-5 where the
+    gradient is >= 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+    from repro_torch.training import (OptimizerConfig, SyntheticLM,
+                                      init_state, make_train_step)
+    from repro_torch.training.tree import leaves
+
+    cfg = dataclasses.replace(smoke(arch), compute_dtype="float32",
+                              remat="full")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    cpu = init_state(cfg, ocfg, 0, device="cpu")
+    card = init_state(cfg, ocfg, 0, device="cuda")
+    for a, b in zip(leaves(card["params"]), leaves(cpu["params"])):
+        a.copy_(b)
+    batch = SyntheticLM(cfg, 2, 64, device="cpu").next()
+    kinds = transformer.layer_kinds(cfg)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kw6.reset_launch_counts()
+        klru.reset_launch_counts()
+        got, gm = make_train_step(cfg, ocfg)(
+            card, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert kw6.LAUNCHES == {"wkv6": 2 * kinds.count("rwkv"),
+                            "wkv6_bwd": kinds.count("rwkv")}
+    assert klru.LAUNCHES == {"lru_scan": 2 * kinds.count("rec"),
+                             "lru_scan_bwd": kinds.count("rec")}
+    want, wm = make_train_step(cfg, ocfg)(cpu, batch)
+    assert float(gm["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-4)
+    for a, b, m in zip(leaves(got["params"]), leaves(want["params"]),
+                       leaves(want["opt"]["m"])):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 2e-3
+        assert float(torch.where(m.abs() >= 1e-5, d, 0).max()) <= 1e-5

@@ -147,8 +147,10 @@ def test_lru_scan_launch_refuses_before_launching():
         klru._launch(*args(dtype=np.float64))
     with pytest.raises(ValueError, match="contiguous"):
         klru._launch(a.transpose(1, 2).contiguous().transpose(1, 2), x)
-    with pytest.raises(RuntimeError, match="no backward"):
-        klru._launch(a.requires_grad_(), x)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        klru._launch_bwd(a, x, x)
+    with pytest.raises(ValueError, match="of one shape"):
+        klru._launch_bwd(a, x, x[:, :4])
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         klru._launch(*args())
     with pytest.raises(ValueError, match="of one shape"):
