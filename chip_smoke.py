@@ -112,12 +112,15 @@ times the kernels at each path's shapes.
        batch's cotangent held to float64 as in [15b], and 15 steps of the
        smoke CPD config whose loss must fall; [16c] rwkv6-3b at full width
        and depth, B 2, 3 steps (32 ``wkv6`` forward + 32 recompute + 32
-       ``wkv6_bwd`` launches a step), then ``wkv6_bwd`` at layer 0's
-       prefill shape (BH 160, T 4096) against the plain backward in
-       float64, timed; [16d] recurrentgemma-9b at full width on 6 layers
-       (two cycles of rec, rec, local: at full depth its 9.4B f32
-       parameters and gradients alone take 75 GB), B 2, 3 steps, then
-       ``lru_scan_bwd`` at (4, 4096, 4096) the same way; [16e]
+       ``wkv6_bwd`` launches a step) and one more step under
+       ``torch.profiler`` (device ms in ``wkv6_bwd``, ``wkv6``, matrix
+       products and the rest), then ``wkv6_bwd`` at layer 0's prefill
+       shape (BH 160, T 4096) and at the training step's own (B 2: BH 80)
+       against the plain backward in float64, timed; [16d]
+       recurrentgemma-9b at full width on 6 layers (two cycles of rec,
+       rec, local: at full depth its 9.4B f32 parameters and gradients
+       alone take 75 GB), B 2, 3 steps, then ``lru_scan_bwd`` at (4,
+       4096, 4096) the same way; [16e]
        ``TrainController`` preempted at step 2 of 4 and resumed from its
        checkpoint against an uninterrupted run, a checkpoint's save and
        load timed
@@ -1585,9 +1588,10 @@ def wkv_bound(args):
 
 def device_breakdown(fn, kernel="wkv6"):
     """Device time of one call of ``fn`` by kernel class, from
-    ``torch.profiler``: ms in ``kernel`` (the port's kernel on the path),
-    in matrix products (cuBLAS, CUTLASS and nvjet kernels) and in all
-    other kernels, the number of
+    ``torch.profiler``: ms in ``kernel`` (the port's kernel on the path;
+    or a tuple of names, each kernel counted under the first it
+    contains), in matrix products (cuBLAS, CUTLASS and nvjet kernels) and
+    in all other kernels, the number of
     kernels, the host's wall ms (call + synchronize) and the device's
     busy share of it; ``None`` for the device numbers if the profiler
     saw no device time (then they are not measured)."""
@@ -1602,16 +1606,17 @@ def device_breakdown(fn, kernel="wkv6"):
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    ms = {kernel: 0.0, "matmul": 0.0, "other": 0.0}
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    ms = {**{k: 0.0 for k in names}, "matmul": 0.0, "other": 0.0}
     top, n = [], 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         t = e.device_time_total / 1e3
         name = e.key.lower()
-        kind = (kernel if kernel in name else "matmul"
-                if any(w in name for w in ("gemm", "xmma", "nvjet",
-                                           "cutlass")) else "other")
+        kind = next((k for k in names if k in name), None) or (
+            "matmul" if any(w in name for w in ("gemm", "xmma", "nvjet",
+                                                "cutlass")) else "other")
         ms[kind] += t
         n += e.count
         top.append((t, e.count, e.key[:90]))
@@ -3902,12 +3907,14 @@ def train_ocfg(steps):
     return OptimizerConfig(total_steps=steps, warmup_steps=1)
 
 
-def train_run(tag, cfg, batch, seq, steps, prepare=None):
+def train_run(tag, cfg, batch, seq, steps, prepare=None, profile=None):
     """The main path: ``init_state`` on the card from seed 0 (``prepare``
     may edit its params), then ``steps`` of ``make_train_step`` on
     ``SyntheticLM`` batches, each timed on the host clock around a
     synchronised step, the kernels' launch counts zeroed just before and
-    read just after. Returns the state and its numbers."""
+    read just after; given ``profile`` (kernel names for
+    :func:`device_breakdown`), one more step under ``torch.profiler``.
+    Returns the state and its numbers."""
     import statistics
 
     import torch
@@ -3958,6 +3965,17 @@ def train_run(tag, cfg, batch, seq, steps, prepare=None):
         f"{out['tokens_per_s']:,.0f} tokens/s), peak "
         f"{out['peak_gib']:.2f} GiB, losses "
         + ", ".join(f"{x:.4f}" for x in out["losses"]))
+    if profile is not None:
+        b = data.next()
+        held = {}
+
+        def one():
+            held["state"], _ = step(state, b)
+
+        out["profile"] = device_breakdown(one, profile)
+        state = held.pop("state")
+        log(f"{tag} one more step under torch.profiler: "
+            + breakdown_line(out["profile"]))
     return state, out
 
 
@@ -4162,12 +4180,18 @@ def wkv_bwd_bound(args):
 
 
 def bwd_record(name, rec, per):
-    """A backward kernel's entry of the ``kernels`` JSON line."""
-    return {"name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": rec["launches"],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None, "per": per}
+    """A backward kernel's entry of the ``kernels`` JSON line (with the
+    same numbers at a second shape under ``train_step``, where timed)."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "shape")
+    out = {"name": name, "route": "cuda", "source": SOURCES[name],
+           "replaces": REPLACES[name], "launches": rec["launches"],
+           "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+           "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+           "bound_by": rec["bound_by"], "library_ms": None, "per": per}
+    if "train_step" in rec:
+        out["train_step"] = {k: rec["train_step"][k] for k in keys}
+    return out
 
 
 def kernel_timing(fn, plain, nbytes, flops, reps):
@@ -4200,8 +4224,9 @@ def layer0_input(cfg, state, batch, seq, seed):
 
 def train_rwkv(tag, kw6, reps):
     """[16c]: rwkv6-3b at full width and depth (``wb_lora`` drawn non-zero
-    as in [10]), then ``wkv6_bwd`` at layer 0's prefill shape (B 4, S
-    4096: BH 160) against the plain backward, timed."""
+    as in [10]) and a profiled step, then ``wkv6_bwd`` at layer 0's
+    prefill shape (B 4, S 4096: BH 160) and at its training shape (B 2:
+    BH 80) against the plain backward, timed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import rwkv
@@ -4214,7 +4239,8 @@ def train_rwkv(tag, kw6, reps):
             w.normal_(0.0, WB_LORA_STD, generator=g)
 
     state, out = train_run(tag, cfg, RWKV_TRAIN_BATCH, TRAIN_SEQ,
-                           RWKV_TRAIN_STEPS, prepare)
+                           RWKV_TRAIN_STEPS, prepare,
+                           profile=("wkv6_bwd", "wkv6"))
     want = {"wkv6": 2 * cfg.n_layers * RWKV_TRAIN_STEPS,
             "wkv6_bwd": cfg.n_layers * RWKV_TRAIN_STEPS}
     got = {k: out["launches"][k] for k in want}
@@ -4224,25 +4250,33 @@ def train_rwkv(tag, kw6, reps):
     log(f"{tag} launches over {RWKV_TRAIN_STEPS} steps: wkv6 "
         f"{got['wkv6']} (forward + recompute), wkv6_bwd {got['wkv6_bwd']}")
     layer, x0 = layer0_input(cfg, state, RWKV_BATCH, RWKV_SEQ, 2)
+    _, x0_train = layer0_input(cfg, state, RWKV_TRAIN_BATCH, TRAIN_SEQ, 4)
     del state
     free_device_memory()
     with torch.no_grad():
-        args = rwkv.wkv_inputs(layer, x0, cfg)[:5]
-    del layer, x0
-    dy = torch.randn(args[3].shape, device="cuda",
-                     generator=torch.Generator(device="cuda").manual_seed(3))
-    err, share = wkv_bwd_check(kw6, args, dy, tag)
-    rec = kernel_timing(lambda: kw6.wkv6_backward(*args, dy),
-                        lambda: kw6.wkv6_backward_plain(*args, dy),
-                        *wkv_bwd_bound(args), reps)
-    rec.update(max_abs_err=err, launches=got["wkv6_bwd"])
-    log(f"{tag} wkv6_bwd at layer 0 (BH {args[0].shape[0]}, T "
-        f"{args[0].shape[1]}, 64, 64) == float64 plain (max err {err:.3e}, "
-        f"{share:.3f} of the limit); a carry dropped at T / 2 fails it: "
-        f"{rec['ms']:.3f} ms a launch (plain {rec['plain_ms']:.1f}, bound "
-        f"{rec['bound_ms']:.4f} by {rec['bound_by']})")
-    out["wkv6_bwd"] = rec
-    del args, dy
+        cases = [rwkv.wkv_inputs(layer, x, cfg)[:5] for x in (x0, x0_train)]
+    del layer, x0, x0_train
+    recs = []
+    for i, args in enumerate(cases):
+        dy = torch.randn(args[3].shape, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(3 + i))
+        err, share = wkv_bwd_check(kw6, args, dy, tag)
+        rec = kernel_timing(lambda: kw6.wkv6_backward(*args, dy),
+                            lambda: kw6.wkv6_backward_plain(*args, dy),
+                            *wkv_bwd_bound(args), reps)
+        rec.update(max_abs_err=err, launches=got["wkv6_bwd"],
+                   shape=list(args[0].shape) + [args[3].shape[-1]])
+        log(f"{tag} wkv6_bwd at layer 0 (BH {args[0].shape[0]}, T "
+            f"{args[0].shape[1]}, 64, 64) == float64 plain (max err "
+            f"{err:.3e}, {share:.3f} of the limit); a carry dropped at T / "
+            f"2 fails it: {rec['ms']:.3f} ms a launch (plain "
+            f"{rec['plain_ms']:.1f}, bound {rec['bound_ms']:.4f} by "
+            f"{rec['bound_by']})")
+        recs.append(rec)
+        del dy
+    out["wkv6_bwd"] = {**recs[0], "train_step": recs[1]}
+    del cases
     free_device_memory()
     return out
 
@@ -4581,7 +4615,9 @@ def main(argv=None) -> int:
         wkv6_record(wkv), lru_scan_record(lru),
         bwd_record("wkv6_bwd", wbwd,
                    f"one launch at layer 0's shape of the {RWKV_ARCH} "
-                   f"prefill (B {RWKV_BATCH}, S {RWKV_SEQ}); launches: "
+                   f"prefill (B {RWKV_BATCH}, S {RWKV_SEQ}: BH 160); "
+                   "train_step: the same at a training step's shape (B "
+                   f"{RWKV_TRAIN_BATCH}, S {TRAIN_SEQ}: BH 80); launches: "
                    f"[16c]'s {RWKV_TRAIN_STEPS} train steps at B "
                    f"{RWKV_TRAIN_BATCH}, one a layer a step; library_ms "
                    "null: no single PyTorch call computes a WKV backward"),

@@ -46,7 +46,7 @@ SIGNATURES = {
         "wkv6_launch": (_I, [_VP] * 6 + [_I] * 4 + [_VP]),
     },
     "wkv6_bwd": {
-        "wkv6_bwd_launch": (_I, [_VP] * 13 + [_I] * 2 + [_VP]),
+        "wkv6_bwd_launch": (_I, [_VP] * 12 + [_I] * 2 + [_VP]),
     },
     "lru_scan": {
         "lru_scan_launch": (_I, [_VP] * 3 + [_I] * 3 + [_VP]),

@@ -16,65 +16,174 @@
 // all f32. K = V = 64 only (the model's head width).
 //
 // No TPU kernel to replace: the JAX package trains these blocks through
-// jnp algebra (src/repro/models/rwkv.py), its Pallas `wkv6` serves
-// inference only. This kernel is the port's own, the backward of
-// WKV6Fn in kernels/wkv6.py.
+// jnp algebra and jax autodiff (src/repro/models/rwkv.py:89), its Pallas
+// `wkv6` serves inference only. This kernel is the port's own, the
+// backward of WKV6Fn in kernels/wkv6.py.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): bytes, with the
-// operations close behind. The function must read r, k, w, v and dy once
-// and write dr, dk, dw and dv once: 9 x 4 BH T 64 B, 1.51 GB at the
-// rwkv6-3b prefill shape (BH 160, T 4096), 0.45 ms; it does ~12 f32
-// operations an element of S a step (the state and its gradient updated,
-// four products summed), 3.2e10 at that shape, 0.48 ms.
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): operations, with the
+// bytes close behind. The function must read r, k, w, v and dy once and
+// write dr, dk, dw and dv once: 4 BH T (4 K + 5 V) B, 1.51 GB at the
+// rwkv6-3b prefill shape (BH 160, T 4096), 0.451 ms, and 0.225 ms at the
+// training step's BH 80. It does 14 f32 flops an element of S a step (the
+// state recomputed 3, its gradient updated 3, four products summed 8),
+// 3.76e10 at BH 160, 0.561 ms, and 0.280 ms at BH 80 (chip_smoke.py's
+// wkv_bwd_bound counts the same).
 //
-// Design (simple first: a scan over t on CUDA cores, two kernels):
-//   * dw needs S_{t-1} while G is walked backward in time. The main kernel
-//     walks t forward once, keeping S in registers and saving it to a
-//     scratch buffer at the start of every chunk of kChunk steps; then it
-//     walks the chunks backward, recomputes each chunk's kChunk states
-//     from its saved start into registers, and walks the chunk's steps
-//     backward with G in registers;
-//   * one CTA per (bh, tile of kTile columns of V), 256 threads; a
-//     thread owns kRows consecutive rows i of one column j of S and of G
-//     (a half-warp's 16 lanes share the rows and hold the tile's 16
-//     columns);
-//   * the sums over j (dr, dk, dw) are reduce-scatters over the half-warp
-//     (each lane keeps a share of the values, half of them each way); the
-//     tile's partial sums go to a scratch buffer, one slice a tile; the
-//     sums over i (dv) meet in shared memory and are added in warp order
-//     at the chunk's end, written complete (a CTA holds every row);
-//   * a second kernel, one CTA a row, adds the kTiles partial sums in
-//     tile order, the bonus terms and b_t dy_t, and sums du over t in a
-//     fixed order (a warp's steps in order, then the warps in order).
-// Every sum is taken in a fixed order: the result does not depend on
-// scheduling. The scratch (the saved states, BH T / kChunk 4096 floats,
-// and the partial sums, 3 kTiles BH T 64 floats) is allocated by the
-// wrapper. Its traffic, ~4 GB at the prefill shape, is what a later
-// version should remove.
+// Design (a scan over t on CUDA cores, one kernel):
+//   * the rows i of S are cut into kSlices slices of kRows; one CTA owns a
+//     slice of one bh with all 64 columns, and the kSlices CTAs of a bh
+//     form a thread-block cluster. dr, dk and dw (sums over j) are then
+//     sums inside the CTA; only dv (a sum over i) crosses CTAs, through
+//     distributed shared memory;
+//   * a warp owns 2 kLaneRows rows; lane (rl, cl) = (lane / 16, lane %
+//     16) owns the kLaneRows x 4 block of rows kLaneRows rl, ... and
+//     columns 4 cl .. 4 cl + 3 of S and of G, so each step's r, w, k
+//     vector is one address a quarter-warp (a broadcast) and each v, dy
+//     float4 feeds 4 kLaneRows elements. At 2 rows a lane, 4 warps a CTA
+//     (16 rows, 4 CTAs a bh), a bh has 16 warps: the scan is bound by
+//     each warp's chain of dependent steps, not by the card's issue rate,
+//     so more warps a bh (each with less to do a step) run it faster;
+//   * a forward walk saves S at the start of every chunk of kChunk steps
+//     to a scratch buffer (BH ceil(T / kChunk) 4096 floats); the backward
+//     walks the chunks down. A chunk's r, w, k, v, dy and its saved state
+//     are staged in shared memory with cp.async, two buffers, the next
+//     chunk's loads in flight while one is walked; steps past T load
+//     zeros, which leave G at 0 and write nothing;
+//   * a chunk is walked in sub-chunks of kSub steps, the last first: from
+//     the chunk's state a lane walks up to the sub-chunk and recomputes
+//     its kSub states into registers (H, 4 kLaneRows floats a step); then
+//     it walks the kSub steps down with G in registers. H is read from
+//     registers, not shared memory, so the backward step's loads are the
+//     step's five input vectors;
+//   * the bonus terms of dk and dv ride in G' = G + diag(u o r_t) dy_t^T
+//     (dk_t = G'_t v_t, dv_t = G'^T_t k_t), one FMA an element; dr's and
+//     du's need v_t . dy_t, computed once a step of the chunk and added in
+//     the chunk's epilogue. v . dy and du are summed in double: du sums T
+//     terms that cancel (at T 4096 float32 sums miss the float64 result
+//     by ~3e-4 on values of ~1), and the work is 68 products a step;
+//   * the sums over j (dr, dk, dw: 3 kLaneRows a lane a step) stay in
+//     registers for the sub-chunk's kSub steps and meet in one
+//     reduce-scatter across the 16 lanes that share the rows (shuffles xor
+//     8, 4, 2, 1; half of the values each way, so 4 levels of latency a
+//     sub-chunk, not a step), written to shared memory and stored at the
+//     chunk's end in 16-byte stores; the sums over i meet across the two
+//     row halves of a warp (xor 16) each step, then each warp writes its
+//     partial dv of the sub-chunk to a ring of three shared buffers; after
+//     a cluster barrier each CTA reads its quarter of the columns from the
+//     cluster's kSlices x kWarps partials and stores the sum. The barrier
+//     is split (arrive after a sub-chunk's writes, wait one sub-chunk
+//     later), so no CTA waits on the others while it has work.
+// Every sum is taken in a fixed order, with no atomics: two launches on
+// the same inputs give the same bits.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kDim = 64;                  // K = V
-constexpr int kTile = 16;                 // columns of V a CTA owns
-constexpr int kTiles = kDim / kTile;      // CTAs a row
-constexpr int kRows = 4;                  // rows of S a thread owns
-constexpr int kThreads = (kDim / kRows) * kTile;   // 256
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 16;                // steps between saved states
-constexpr unsigned kFull = 0xffffffffu;
+// The launch shape, from the variants measured by
+// experiments/torch_wkv6_bwd_variants.py, which replaces these lines.
+constexpr int kLaneRows = 2;  // rows of S (and G) a lane owns, 4 columns
+constexpr int kWarps = 4;     // warps a CTA, 2 kLaneRows rows of S each
+constexpr int kChunk = 16;    // steps between saved states, staged a buffer
+constexpr int kSub = 8;       // steps whose states a lane keeps in registers
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+constexpr int kDim = 64;                   // K = V
+constexpr int kRows = 2 * kLaneRows * kWarps;   // rows of S a CTA owns
+constexpr int kSlices = kDim / kRows;      // CTAs of a bh: one cluster
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSubs = kChunk / kSub;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert((kLaneRows == 4 || kLaneRows == 2) && kDim % kRows == 0 &&
+                  kSlices <= 8 && kChunk % kSub == 0 && kChunk % 4 == 0 &&
+                  3 * kLaneRows * kSub % 16 == 0 &&
+                  (kThreads % kChunk == 0 || kChunk % kThreads == 0),
+              "shape");
+
+// Shared memory, in floats. A staging buffer holds a chunk's r, w, k
+// (kChunk x kRows each), v, dy (kChunk x kDim each) and saved state (the
+// CTA's kThreads x 4 kLaneRows floats, each lane's float4s row-major); then
+// come
+// the two buffers, the chunk's row sums (dr, dk, dw: 3 x kChunk x kRows),
+// the ring of dv partials (3 x kWarps x kSub x kDim), v . dy a step and
+// du's partial sums (doubles: two floats each).
+constexpr int kR = 0;
+constexpr int kW = kChunk * kRows;
+constexpr int kK = 2 * kChunk * kRows;
+constexpr int kV = 3 * kChunk * kRows;
+constexpr int kY = kV + kChunk * kDim;
+constexpr int kS = kY + kChunk * kDim;
+constexpr int kBuf = kS + kRows * kDim;
+constexpr int kOut = 2 * kBuf;
+constexpr int kDvp = kOut + 3 * kChunk * kRows;
+constexpr int kVdy = kDvp + 3 * kWarps * kSub * kDim;
+constexpr int kDu = kVdy + 2 * kChunk;
+constexpr int kBytes = 4 * (kDu + 8 * kThreads);
+
+// PTX helpers: cp.async with zero fill, the cluster barrier, and a read of
+// another CTA's shared memory.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
 }
 
-// Reduce-scatter of a[0, M) over the 16 lanes of a half-warp (offsets
-// O, O / 2, ..., 1): while more than one value is live, each lane sends
-// half of them to its partner and adds the partner's half to the half it
-// keeps (the upper half where the lane's bit O is set); then the one
-// value left is summed across the remaining lanes. Afterwards a[0] holds
-// the full sum of value index sum over halving levels of (bit O set ? M /
-// 2 : 0), and each sum is taken in one order on every lane that holds it.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float2 ld_cluster2(const float* smem,
+                                              unsigned rank) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(s), "r"(rank));
+  float2 x;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(x.x), "=f"(x.y) : "r"(remote) : "memory");
+  return x;
+}
+
+__device__ __forceinline__ float at(const float4& q, int e) {
+  return e == 0 ? q.x : e == 1 ? q.y : e == 2 ? q.z : q.w;
+}
+
+// A lane's kLaneRows consecutive values of a row-indexed vector, in one
+// load.
+struct Rows {
+  float v[kLaneRows];
+};
+
+__device__ __forceinline__ Rows ld_rows(const float* p) {
+  Rows out;
+  if constexpr (kLaneRows == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    out.v[0] = q.x, out.v[1] = q.y, out.v[2] = q.z, out.v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    out.v[0] = q.x, out.v[1] = q.y;
+  }
+  return out;
+}
+
+// Reduce-scatter of a[0, M) over the lanes xor O, O / 2, ..., 1: while
+// more than one value is live, each lane sends half of them to its
+// partner and adds the partner's half to the half it keeps (the upper
+// half where the lane's bit O is set); then the one value left is summed
+// across the remaining lanes. Afterwards a[0] holds the full sum of value
+// index sum over halving levels of (bit O set ? M / 2 : 0), and every
+// lane that holds a sum holds the same bits.
 template <int M, int O, int N>
 __device__ __forceinline__ void scatter_sum(float (&a)[N], int lane) {
   if constexpr (O > 0) {
@@ -94,174 +203,324 @@ __device__ __forceinline__ void scatter_sum(float (&a)[N], int lane) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kSlices, 1, 1) __launch_bounds__(kThreads)
     wkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
                     const float* __restrict__ w, const float* __restrict__ v,
-                    const float* __restrict__ dy,
-                    float4* __restrict__ states, float* __restrict__ part,
-                    float* __restrict__ dv, int BH, int T) {
-  __shared__ float dvs[kChunk][kWarps][kTile];
-  const int jt = blockIdx.x;
+                    const float* __restrict__ u,
+                    const float* __restrict__ dy, float* __restrict__ states,
+                    float* __restrict__ dr, float* __restrict__ dk,
+                    float* __restrict__ dw, float* __restrict__ dv,
+                    float* __restrict__ du, int T) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
+  const int q = blockIdx.x;                 // the slice: the cluster rank
   const long long bh = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int jl = lane & 15;
-  const int i0 = (warp * 2 + (lane >> 4)) * kRows;
-  const int j = jt * kTile + jl;
+  const int row0 = q * kRows;
+  // The lane's first row in the slice, and its first column.
+  const int i0 = 2 * kLaneRows * wp + kLaneRows * (lane >> 4);
+  const int j0 = 4 * (lane & 15);
   const int nc = (T + kChunk - 1) / kChunk;
-  const long long row = bh * T * kDim;             // (bh, 0, 0)
-  float4* st = states + (bh * kTiles + jt) * nc * kThreads + tid;
-  const long long slice = static_cast<long long>(BH) * T * kDim;
-  // partial sums of this tile: q = 0 dr, 1 dk, 2 dw
-  float* pdr = part + (0 * kTiles + jt) * slice + row;
-  float* pdk = part + (1 * kTiles + jt) * slice + row;
-  float* pdw = part + (2 * kTiles + jt) * slice + row;
+  const long long base = bh * T * kDim;
+  const float *rb = r + base, *kb = k + base, *wb = w + base,
+              *vb = v + base, *yb = dy + base;
+  float* st = states + (bh * kSlices + q) * nc * (kRows * kDim);
+
+  // Stage chunk c into buffer `slot` (r, dy and the saved state only for
+  // the backward walk), 16 bytes a copy, zeros past T.
+  auto load = [&](int c, int slot, bool bwd) {
+    float* buf = smem + slot * kBuf;
+    const int t0 = c * kChunk;
+    constexpr int kRowQuads = kChunk * kRows / 4, kColQuads = kChunk * 16;
+#pragma unroll
+    for (int x = tid; x < kRowQuads; x += kThreads) {
+      const int t = t0 + x / (kRows / 4);
+      const long long src = static_cast<long long>(min(t, T - 1)) * kDim +
+                            row0 + 4 * (x % (kRows / 4));
+      if (bwd) cp_async16(buf + kR + 4 * x, rb + src, t < T);
+      cp_async16(buf + kW + 4 * x, wb + src, t < T);
+      cp_async16(buf + kK + 4 * x, kb + src, t < T);
+    }
+#pragma unroll
+    for (int x = tid; x < kColQuads; x += kThreads) {
+      const int t = t0 + x / 16;
+      const long long src =
+          static_cast<long long>(min(t, T - 1)) * kDim + 4 * (x % 16);
+      cp_async16(buf + kV + 4 * x, vb + src, t < T);
+      if (bwd) cp_async16(buf + kY + 4 * x, yb + src, t < T);
+    }
+    if (bwd) {
+      const float* src = st + static_cast<long long>(c) * kRows * kDim;
+#pragma unroll
+      for (int e = 0; e < kLaneRows; ++e)
+        cp_async16(buf + kS + 4 * (e * kThreads + tid),
+                   src + 4 * (e * kThreads + tid), true);
+    }
+    cp_async_commit();
+  };
+
+  // One step of the state: S = diag(w_t) S + k_t v_t^T, step s of `buf`.
+  auto advance = [&](const float* buf, int s, float (&S)[kLaneRows][4]) {
+    const Rows wq = ld_rows(buf + kW + s * kRows + i0);
+    const Rows kq = ld_rows(buf + kK + s * kRows + i0);
+    const float4 vq = *reinterpret_cast<const float4*>(buf + kV + s * kDim +
+                                                       j0);
+#pragma unroll
+    for (int e = 0; e < kLaneRows; ++e)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        S[e][f] = fmaf(wq.v[e], S[e][f], kq.v[e] * at(vq, f));
+  };
 
   // Forward walk: S_{c kChunk - 1} saved at the start of chunk c.
-  float S[kRows] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; c < nc; ++c) {
-    st[static_cast<long long>(c) * kThreads] =
-        make_float4(S[0], S[1], S[2], S[3]);
-    const int n = min(kChunk, T - c * kChunk);
-    for (int s = 0; s < n; ++s) {
-      const long long off = row + (static_cast<long long>(c) * kChunk + s)
-                                      * kDim;
-      const float4 wq = ld4(w + off + i0), kq = ld4(k + off + i0);
-      const float vj = __ldg(v + off + j);
-      S[0] = fmaf(wq.x, S[0], kq.x * vj);
-      S[1] = fmaf(wq.y, S[1], kq.y * vj);
-      S[2] = fmaf(wq.z, S[2], kq.z * vj);
-      S[3] = fmaf(wq.w, S[3], kq.w * vj);
+  {
+    float S[kLaneRows][4];
+#pragma unroll
+    for (int e = 0; e < kLaneRows; ++e)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) S[e][f] = 0.f;
+    load(0, 0, false);
+    for (int c = 0; c < nc; ++c) {
+      // Chunk c has landed and every thread is done with chunk c - 1.
+      cp_async_wait_all();
+      __syncthreads();
+      if (c + 1 < nc) load(c + 1, (c + 1) & 1, false);
+      float4* dst = reinterpret_cast<float4*>(
+          st + static_cast<long long>(c) * kRows * kDim);
+#pragma unroll
+      for (int e = 0; e < kLaneRows; ++e)
+        dst[e * kThreads + tid] = make_float4(S[e][0], S[e][1], S[e][2],
+                                              S[e][3]);
+      const float* buf = smem + (c & 1) * kBuf;
+#pragma unroll
+      for (int s = 0; s < kChunk; ++s) advance(buf, s, S);
     }
   }
-
-  // Backward walk, a chunk at a time, G in registers.
-  float G[kRows] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = nc - 1; c >= 0; --c) {
-    const int n = min(kChunk, T - c * kChunk);
-    const long long base = row + static_cast<long long>(c) * kChunk * kDim;
-    const float4 s0 = st[static_cast<long long>(c) * kThreads];
-    float H[kChunk][kRows];      // H[s] = S_{t-1} at step t = c kChunk + s
-    float Sc[kRows] = {s0.x, s0.y, s0.z, s0.w};
-#pragma unroll
-    for (int s = 0; s < kChunk; ++s) {
-      if (s < n) {
-        const long long off = base + s * kDim;
-        const float4 wq = ld4(w + off + i0), kq = ld4(k + off + i0);
-        const float vj = __ldg(v + off + j);
-#pragma unroll
-        for (int e = 0; e < kRows; ++e) H[s][e] = Sc[e];
-        Sc[0] = fmaf(wq.x, Sc[0], kq.x * vj);
-        Sc[1] = fmaf(wq.y, Sc[1], kq.y * vj);
-        Sc[2] = fmaf(wq.z, Sc[2], kq.z * vj);
-        Sc[3] = fmaf(wq.w, Sc[3], kq.w * vj);
-      }
-    }
-#pragma unroll
-    for (int s = kChunk - 1; s >= 0; --s) {
-      if (s < n) {
-        const long long off = base + s * kDim;
-        const float4 rq = ld4(r + off + i0), wq = ld4(w + off + i0),
-                     kq = ld4(k + off + i0);
-        const float vj = __ldg(v + off + j), dyj = __ldg(dy + off + j);
-        const float rr[kRows] = {rq.x, rq.y, rq.z, rq.w};
-        const float ww[kRows] = {wq.x, wq.y, wq.z, wq.w};
-        const float kk[kRows] = {kq.x, kq.y, kq.z, kq.w};
-        float a8[8], a4[4];
-        float dvp = 0.f;
-#pragma unroll
-        for (int e = 0; e < kRows; ++e) {
-          a4[e] = H[s][e] * dyj;          // dr: S_{t-1} dy_t
-          a8[e] = G[e] * vj;              // dk: G_t v_t
-          a8[e + kRows] = H[s][e] * G[e]; // dw
-          dvp = fmaf(G[e], kk[e], dvp);   // dv: G_t^T k_t
-          G[e] = fmaf(ww[e], G[e], rr[e] * dyj);
-        }
-        scatter_sum<8, 8>(a8, lane);
-        scatter_sum<4, 8>(a4, lane);
-        const long long at = off - row;   // (t, 0) within the row
-        const int i8 = ((lane >> 3) & 1) * 4 + ((lane >> 2) & 1) * 2 +
-                       ((lane >> 1) & 1);
-        if ((lane & 1) == 0) {
-          if (i8 < kRows) pdk[at + i0 + i8] = a8[0];
-          else pdw[at + i0 + i8 - kRows] = a8[0];
-        }
-        const int i4 = ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
-        if ((lane & 3) == 0) pdr[at + i0 + i4] = a4[0];
-        dvp += __shfl_xor_sync(kFull, dvp, 16);
-        if (lane < 16) dvs[s][warp][jl] = dvp;
-      }
-    }
-    __syncthreads();
-    {
-      const int s = tid / kTile, jj = tid % kTile;
-      if (s < n) {
-        float acc = dvs[s][0][jj];
-#pragma unroll
-        for (int q = 1; q < kWarps; ++q) acc += dvs[s][q][jj];
-        dv[base + s * kDim + jt * kTile + jj] = acc;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// One CTA a row bh, kWarps warps; warp q takes the steps t = q, q +
-// kWarps, ... in order, lane l the elements l and l + 32.
-__global__ void __launch_bounds__(kThreads)
-    wkv6_bwd_finish(const float* __restrict__ r, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ u,
-                    const float* __restrict__ dy,
-                    const float* __restrict__ part, float* __restrict__ dr,
-                    float* __restrict__ dk, float* __restrict__ dw,
-                    float* __restrict__ dv, float* __restrict__ du, int BH,
-                    int T) {
-  __shared__ float dus[kWarps][kDim];
-  const long long bh = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long row = bh * T * kDim;
-  const long long slice = static_cast<long long>(BH) * T * kDim;
-  const float u0 = u[bh * kDim + lane], u1 = u[bh * kDim + lane + 32];
-  float du0 = 0.f, du1 = 0.f;
-  for (int t = warp; t < T; t += kWarps) {
-    const long long off = row + static_cast<long long>(t) * kDim;
-    const float r0 = r[off + lane], r1 = r[off + lane + 32];
-    const float k0 = k[off + lane], k1 = k[off + lane + 32];
-    const float y0 = dy[off + lane], y1 = dy[off + lane + 32];
-    float vdy = fmaf(v[off + lane + 32], y1, v[off + lane] * y0);
-    float b = fmaf(r1, u1 * k1, r0 * (u0 * k0));
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) {
-      vdy += __shfl_xor_sync(kFull, vdy, o);
-      b += __shfl_xor_sync(kFull, b, o);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long at = off + lane + 32 * h;
-      float sr = part[at], sk = part[kTiles * slice + at],
-            sw = part[2 * kTiles * slice + at];
-#pragma unroll
-      for (int q = 1; q < kTiles; ++q) {
-        sr += part[q * slice + at];
-        sk += part[(kTiles + q) * slice + at];
-        sw += part[(2 * kTiles + q) * slice + at];
-      }
-      const float uu = h ? u1 : u0, rr = h ? r1 : r0, kk = h ? k1 : k0;
-      dr[at] = sr + uu * kk * vdy;
-      dk[at] = sk + uu * rr * vdy;
-      dw[at] = sw;
-      dv[at] += b * (h ? y1 : y0);
-    }
-    du0 += r0 * k0 * vdy;
-    du1 += r1 * k1 * vdy;
-  }
-  dus[warp][lane] = du0;
-  dus[warp][lane + 32] = du1;
+  // Each thread reads back only the states it wrote: the fence orders its
+  // stores before its own cp.async reads of them.
+  __threadfence();
   __syncthreads();
-  if (threadIdx.x < kDim) {
-    float acc = dus[0][threadIdx.x];
+  load(nc - 1, (nc - 1) & 1, true);
+
+  const Rows uq = ld_rows(u + bh * kDim + row0 + i0);
+  float* out = smem + kOut;        // [3][kChunk][kRows]: dr, dk, dw
+  double* vdy = reinterpret_cast<double*>(smem + kVdy);
+  // The epilogue's rows (fixed per thread: kThreads is a multiple of
+  // kRows / 4) and its share of du.
+  const int ex = 4 * (tid % (kRows / 4));
+  const float4 ue = *reinterpret_cast<const float4*>(u + bh * kDim + row0 +
+                                                     ex);
+  double dus[4] = {0.0, 0.0, 0.0, 0.0};
+
+  // dv of sub-chunk number g (its first step t0): the cluster's kSlices x
+  // kWarps partials of this CTA's columns [row0, row0 + kRows), summed in
+  // rank then warp order. A lane of the partials' rows holds columns 4 cl
+  // + 2 rl and + 1 at float2 index lane = 16 rl + cl.
+  auto reduce_dv = [&](int g, int t0) {
+    constexpr int kPairs = kRows / 2;
 #pragma unroll
-    for (int q = 1; q < kWarps; ++q) acc += dus[q][threadIdx.x];
-    du[bh * kDim + threadIdx.x] = acc;
+    for (int x = tid; x < kSub * kPairs; x += kThreads) {
+      const int s = x / kPairs, p2 = q * kPairs + x % kPairs;
+      const int ln = 16 * (p2 & 1) + (p2 >> 1);
+      const float* part = smem + kDvp + (g % 3) * kWarps * kSub * kDim +
+                          s * kDim + 2 * ln;
+      float2 acc = ld_cluster2(part, 0);
+#pragma unroll
+      for (int pw = 1; pw < kSlices * kWarps; ++pw) {
+        const float2 y = ld_cluster2(part + (pw % kWarps) * kSub * kDim,
+                                     pw / kWarps);
+        acc.x += y.x;
+        acc.y += y.y;
+      }
+      if (t0 + s < T)
+        *reinterpret_cast<float2*>(dv + base +
+                                   static_cast<long long>(t0 + s) * kDim +
+                                   2 * p2) = acc;
+    }
+  };
+
+  // Backward walk, a chunk at a time, the last first, G in registers.
+  float G[kLaneRows][4];
+#pragma unroll
+  for (int e = 0; e < kLaneRows; ++e)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) G[e][f] = 0.f;
+  int g = 0, t_prev = 0;     // sub-chunks walked; the last one's first step
+  for (int c = nc - 1; c >= 0; --c) {
+    // Chunk c has landed, and chunk c + 1's epilogue is done.
+    cp_async_wait_all();
+    __syncthreads();
+    if (c > 0) load(c - 1, (c - 1) & 1, true);
+    const float* buf = smem + (c & 1) * kBuf;
+    const int t0c = c * kChunk;
+
+    // v_t . dy_t of the chunk's steps in double, kP lanes a step.
+    {
+      constexpr int kP = kThreads >= kChunk ? kThreads / kChunk : 1;
+#pragma unroll
+      for (int x = tid; x < kChunk * kP; x += kThreads) {
+        const int s = x / kP, p = x % kP;
+        double acc = 0.0;
+#pragma unroll
+        for (int j = p * (kDim / kP); j < (p + 1) * (kDim / kP); j += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(buf + kV +
+                                                            s * kDim + j);
+          const float4 b = *reinterpret_cast<const float4*>(buf + kY +
+                                                            s * kDim + j);
+          acc = fma(double(a.x), double(b.x), acc);
+          acc = fma(double(a.y), double(b.y), acc);
+          acc = fma(double(a.z), double(b.z), acc);
+          acc = fma(double(a.w), double(b.w), acc);
+        }
+#pragma unroll
+        for (int o = kP / 2; o > 0; o /= 2)
+          acc += __shfl_xor_sync(kFull, acc, o);
+        if (p == 0) vdy[s] = acc;
+      }
+    }
+
+    for (int sub = kSubs - 1; sub >= 0; --sub) {
+      const int sb = sub * kSub;         // the sub-chunk's first step
+      float S[kLaneRows][4];
+#pragma unroll
+      for (int e = 0; e < kLaneRows; ++e) {
+        const float4 x = reinterpret_cast<const float4*>(
+            buf + kS)[e * kThreads + tid];
+        S[e][0] = x.x, S[e][1] = x.y, S[e][2] = x.z, S[e][3] = x.w;
+      }
+      for (int s = 0; s < sb; ++s) advance(buf, s, S);
+
+      // Recompute: H[s] = S_{t-1} of the sub-chunk's steps.
+      float H[kSub][kLaneRows][4];
+#pragma unroll
+      for (int s = 0; s < kSub; ++s) {
+#pragma unroll
+        for (int e = 0; e < kLaneRows; ++e)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) H[s][e][f] = S[e][f];
+        advance(buf, sb + s, S);
+      }
+
+      // Backward: the lane's partial sums over its 4 columns of dr, dk
+      // (with its bonus, through G') and dw, kept for the sub-chunk's
+      // steps (p[kP3 s + kLaneRows q + e] for quantity q, row e: H[s]
+      // frees 4 kLaneRows registers a step as p takes 3 kLaneRows), dv's
+      // summed at once; then G_{t-1}.
+      constexpr int kP3 = 3 * kLaneRows;
+      float p[kP3 * kSub];
+#pragma unroll
+      for (int s = kSub - 1; s >= 0; --s) {
+        const int sc = sb + s;
+        const Rows rq = ld_rows(buf + kR + sc * kRows + i0);
+        const Rows wq = ld_rows(buf + kW + sc * kRows + i0);
+        const Rows kq = ld_rows(buf + kK + sc * kRows + i0);
+        const float4 vq = *reinterpret_cast<const float4*>(
+            buf + kV + sc * kDim + j0);
+        const float4 yq = *reinterpret_cast<const float4*>(
+            buf + kY + sc * kDim + j0);
+        float d4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < kLaneRows; ++e) {
+          const float ur = uq.v[e] * rq.v[e];
+          float ar = 0.f, ak = 0.f, aw = 0.f;
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const float gp = fmaf(ur, at(yq, f), G[e][f]);
+            ar = fmaf(H[s][e][f], at(yq, f), ar);
+            ak = fmaf(gp, at(vq, f), ak);
+            aw = fmaf(H[s][e][f], G[e][f], aw);
+            d4[f] = fmaf(gp, kq.v[e], d4[f]);
+            G[e][f] = fmaf(wq.v[e], G[e][f], rq.v[e] * at(yq, f));
+          }
+          p[kP3 * s + e] = ar;
+          p[kP3 * s + kLaneRows + e] = ak;
+          p[kP3 * s + 2 * kLaneRows + e] = aw;
+        }
+        // dv over the warp's two row halves: lane keeps columns 2 rl, + 1.
+        const bool hi = (lane & 16) != 0;
+        const float d0 = (hi ? d4[2] : d4[0]) +
+                         __shfl_xor_sync(kFull, hi ? d4[0] : d4[2], 16);
+        const float d1 = (hi ? d4[3] : d4[1]) +
+                         __shfl_xor_sync(kFull, hi ? d4[1] : d4[3], 16);
+        reinterpret_cast<float2*>(smem + kDvp +
+                                  ((g % 3) * kWarps + wp) * kSub * kDim +
+                                  s * kDim)[lane] = make_float2(d0, d1);
+      }
+      // The row sums of the sub-chunk at once: a lane ends with the
+      // kHeld consecutive values from `held` of the 16 lanes' sums.
+      constexpr int kHeld = kP3 * kSub / 16;
+      scatter_sum<kP3 * kSub, 8>(p, lane);
+      const int held = ((lane >> 3) & 1) * 8 * kHeld +
+                       ((lane >> 2) & 1) * 4 * kHeld +
+                       ((lane >> 1) & 1) * 2 * kHeld + (lane & 1) * kHeld;
+#pragma unroll
+      for (int h = 0; h < kHeld; ++h) {
+        const int x = held + h, s = x / kP3, qe = x % kP3;
+        out[(qe / kLaneRows) * kChunk * kRows + (sb + s) * kRows + i0 +
+            qe % kLaneRows] = p[h];
+      }
+
+      // The previous sub-chunk's partials are complete in every CTA of the
+      // cluster once it passes this wait; this one's are released by the
+      // arrive. A ring of three buffers: buffer g % 3 is written again
+      // only after every CTA arrived past its reads.
+      if (g > 0) {
+        cluster_wait();
+        reduce_dv(g - 1, t_prev);
+      }
+      cluster_arrive();
+      t_prev = t0c + sb;
+      ++g;
+    }
+
+    // Epilogue: dr's bonus, dr, dk, dw in 16-byte stores, du's sums.
+    __syncthreads();
+#pragma unroll
+    for (int x = tid; x < kChunk * kRows / 4; x += kThreads) {
+      const int s = x / (kRows / 4), t = t0c + s;
+      const float4 rq = *reinterpret_cast<const float4*>(buf + kR +
+                                                         s * kRows + ex);
+      const float4 kq = *reinterpret_cast<const float4*>(buf + kK +
+                                                         s * kRows + ex);
+      const double vd = vdy[s];
+      const float vf = static_cast<float>(vd);
+      float4 a = *reinterpret_cast<const float4*>(out + s * kRows + ex);
+      a.x = fmaf(ue.x * kq.x, vf, a.x);
+      a.y = fmaf(ue.y * kq.y, vf, a.y);
+      a.z = fmaf(ue.z * kq.z, vf, a.z);
+      a.w = fmaf(ue.w * kq.w, vf, a.w);
+      dus[0] = fma(double(rq.x) * kq.x, vd, dus[0]);
+      dus[1] = fma(double(rq.y) * kq.y, vd, dus[1]);
+      dus[2] = fma(double(rq.z) * kq.z, vd, dus[2]);
+      dus[3] = fma(double(rq.w) * kq.w, vd, dus[3]);
+      if (t < T) {
+        const long long at_ = base + static_cast<long long>(t) * kDim +
+                              row0 + ex;
+        const float* o = out + s * kRows + ex;
+        *reinterpret_cast<float4*>(dr + at_) = a;
+        *reinterpret_cast<float4*>(dk + at_) =
+            *reinterpret_cast<const float4*>(o + kChunk * kRows);
+        *reinterpret_cast<float4*>(dw + at_) =
+            *reinterpret_cast<const float4*>(o + 2 * kChunk * kRows);
+      }
+    }
+  }
+  cluster_wait();
+  reduce_dv(g - 1, t_prev);
+  // No CTA leaves while another may still read its partials.
+  cluster_arrive();
+  cluster_wait();
+
+  // du: each row's partial sums added in thread order.
+  double* dsum = reinterpret_cast<double*>(smem + kDu);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dsum[4 * tid + e] = dus[e];
+  __syncthreads();
+  if (tid < kRows) {
+    const int g4 = tid / 4, e = tid % 4;
+    double acc = dsum[4 * g4 + e];
+    for (int x = g4 + kRows / 4; x < kThreads; x += kRows / 4)
+      acc += dsum[4 * x + e];
+    du[bh * kDim + row0 + tid] = static_cast<float>(acc);
   }
 }
 
@@ -269,33 +528,29 @@ __global__ void __launch_bounds__(kThreads)
 
 // Plain C entry point (loaded with ctypes). r, k, w, v, dy, dr, dk, dw, dv
 // are contiguous float32 (BH, T, 64) arrays, u and du (BH, 64), on the
-// current device; `states` holds BH * kTiles * ceil(T / kChunk) *
-// kThreads float4 and `part` 3 * kTiles * BH * T * 64 floats of scratch
-// (the wrapper allocates both). 1 <= BH <= 65535, T >= 1 (the wrapper
-// refuses anything else before calling). Returns the cudaError_t of the
-// launches (0 on success); nothing synchronises.
+// current device, 16-byte aligned; `states` holds BH * ceil(T / kChunk) *
+// 64 * 64 floats of scratch (the wrapper allocates it). 1 <= BH <= 65535,
+// T >= 1 (the wrapper refuses anything else before calling). Returns the
+// cudaError_t of the launch (0 on success); nothing synchronises.
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* w,
                                const void* v, const void* u, const void* dy,
-                               void* states, void* part, void* dr, void* dk,
-                               void* dw, void* dv, void* du, int bh, int T,
+                               void* states, void* dr, void* dk, void* dw,
+                               void* dv, void* du, int bh, int T,
                                void* stream) {
   if (bh < 1 || bh > 65535 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* rf = static_cast<const float*>(r);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* yf = static_cast<const float*>(dy);
-  auto* pf = static_cast<float*>(part);
-  auto* dvf = static_cast<float*>(dv);
-  wkv6_bwd_kernel<<<dim3(kTiles, bh), kThreads, 0, s>>>(
-      rf, kf, static_cast<const float*>(w), vf, yf,
-      static_cast<float4*>(states), pf, dvf, bh, T);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_finish<<<bh, kThreads, 0, s>>>(
-      rf, kf, vf, static_cast<const float*>(u), yf, pf,
-      static_cast<float*>(dr), static_cast<float*>(dk),
-      static_cast<float*>(dw), dvf, static_cast<float*>(du), bh, T);
+  if (kBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wkv6_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  wkv6_bwd_kernel<<<dim3(kSlices, bh), kThreads, kBytes,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(r), static_cast<const float*>(k),
+      static_cast<const float*>(w), static_cast<const float*>(v),
+      static_cast<const float*>(u), static_cast<const float*>(dy),
+      static_cast<float*>(states), static_cast<float*>(dr),
+      static_cast<float*>(dk), static_cast<float*>(dw),
+      static_cast<float*>(dv), static_cast<float*>(du), T);
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,13 +53,11 @@ _MAX_ROWS = 65535   # grid.y limit: one row of CTAs per bh
 #: ``csrc/wkv6.cu``), at most K / 4: see :func:`kernel_groups`.
 GROUPS = 8
 #: The backward kernel's key and value width (``kDim`` in
-#: ``csrc/wkv6_bwd.cu``), the steps between the states it saves
-#: (``kChunk``), the column tiles of a row (``kTiles``) and its CTA size
-#: (``kThreads``): the wrapper sizes the kernel's scratch from them.
+#: ``csrc/wkv6_bwd.cu``) and the steps between the states it saves
+#: (``kChunk``): the wrapper sizes the kernel's scratch, one 64 x 64 state
+#: a chunk of a row, from them.
 BWD_DIM = 64
 BWD_CHUNK = 16
-BWD_TILES = 4
-BWD_THREADS = 256
 
 
 def reset_launch_counts() -> None:
@@ -298,17 +296,15 @@ def _launch_bwd(r, k, w, v, u, dy):
 
     f32 = torch.float32
     n_chunks = -(-t // BWD_CHUNK)
-    states = torch.empty((bh * BWD_TILES * n_chunks * BWD_THREADS * 4,),
-                         dtype=f32, device=device)
-    part = torch.empty((3 * BWD_TILES * bh * t * kd,), dtype=f32,
-                       device=device)
+    states = torch.empty((bh * n_chunks * BWD_DIM * BWD_DIM,), dtype=f32,
+                         device=device)
     dr, dk, dw, dv = (torch.empty((bh, t, kd), dtype=f32, device=device)
                       for _ in range(4))
     du = torch.empty((bh, kd), dtype=f32, device=device)
     err = build.load("wkv6_bwd").wkv6_bwd_launch(
         r.data_ptr(), k.data_ptr(), w.data_ptr(), v.data_ptr(), u.data_ptr(),
-        dy.data_ptr(), states.data_ptr(), part.data_ptr(), dr.data_ptr(),
-        dk.data_ptr(), dw.data_ptr(), dv.data_ptr(), du.data_ptr(), bh, t,
+        dy.data_ptr(), states.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dw.data_ptr(), dv.data_ptr(), du.data_ptr(), bh, t,
         torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"wkv6 backward launch failed: cudaError {err}")

@@ -43,9 +43,10 @@ over d = 128 in another order through 38 layers, on logits of size ~1;
 a dropped carry or a wrong mask moves them by ~1e-1), and against
 ``Engine.prefill`` on the card rtol = atol = 1e-4. The backward kernels
 against their plain versions computed in float64: ``wkv6_bwd`` rtol =
-atol = 1e-4 (float32 sums over up to 513 steps of states of size ~10-100,
-the plain version's sums exact to float64), ``lru_scan_bwd`` rtol = atol =
-1e-5 (one FMA a step, gradients below ~30).
+atol = 1e-4 (float32 sums over up to 4096 steps of states of size ~10-100,
+the plain version's sums exact to float64; du, a sum over T that cancels,
+is summed in double by the kernel), ``lru_scan_bwd`` rtol = atol = 1e-5
+(one FMA a step, gradients below ~30).
 """
 import numpy as np
 import pytest
@@ -764,12 +765,17 @@ def test_wkv6_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,t", [(2, 16), (3, 37), (1, 1), (40, 513),
-                                  (161, 300)])
+                                  (161, 300), (2, 5), (3, 13), (2, 24),
+                                  (133, 40), (80, 4096)])
 def test_wkv6_backward_kernel_matches_plain(cuda, bh, t):
     """``wkv6`` where autograd records: ``WKV6Fn`` launches the forward
     and the backward kernel once each; dr, dk, dw, dv, du against
-    ``wkv6_backward_plain`` in float64 on the card (T not a multiple of
-    the kernel's 16-step chunk included)."""
+    ``wkv6_backward_plain`` in float64 on the card. T shorter than the
+    kernel's 8-step sub-chunk (1, 5) and than its 16-step chunk (13), a
+    chunk and a half (24), no multiple of either (37, 300, 513); BH 1
+    and 2 (one cluster of 4 CTAs a bh: no wave filled), 133 (532 CTAs,
+    more than 4 a SM on 132 SMs) and 161; the training step's BH 80 at T
+    4096."""
     args = _wkv_args(bh, t, 64, 64, bh + t, cuda)
     dy = torch.randn((bh, t, 64), generator=torch.Generator().manual_seed(
         t)).to(cuda)
@@ -783,6 +789,22 @@ def test_wkv6_backward_kernel_matches_plain(cuda, bh, t):
     for a, w in zip(leaves, want):
         torch.testing.assert_close(a.grad.double(), w, rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t", [(3, 37), (80, 600)])
+def test_wkv6_backward_kernel_repeats_bitwise(cuda, bh, t):
+    """Every sum of the backward kernel is taken in a fixed order (no
+    atomics; the cluster's dv partials in rank then warp order): two
+    launches on the same inputs give the same bits."""
+    args = _wkv_args(bh, t, 64, 64, 7 * bh + t, cuda)
+    dy = torch.randn((bh, t, 64), generator=torch.Generator().manual_seed(
+        bh)).to(cuda)
+    first = [x.clone() for x in kw6.wkv6_backward(*args, dy)]
+    second = kw6.wkv6_backward(*args, dy)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dr", "dk", "dw", "dv", "du"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

@@ -64,10 +64,13 @@ def _wkv_args(bh, t, k, v, seed, dtype=torch.float64):
 # Plain backwards against float64 autograd
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("bh,t,k,v", [
-    (2, 37, 8, 16), (1, 16, 64, 64), (3, 5, 16, 8), (2, 65, 64, 64)])
+    (2, 37, 8, 16), (1, 16, 64, 64), (3, 5, 16, 8), (2, 65, 64, 64),
+    (2, kw6.BWD_CHUNK - 1, 64, 64), (1, kw6.BWD_CHUNK + 8, 64, 64),
+    (2, 2 * kw6.BWD_CHUNK + 1, 64, 64)])
 def test_wkv6_backward_plain_matches_float64_autograd(bh, t, k, v):
-    """T a multiple of the saved-state chunk (16), short of one, and
-    ragged; K != V included."""
+    """T a multiple of the saved-state chunk (``BWD_CHUNK``), short of
+    one, and ragged; a chunk and the kernel's 8-step sub-chunk, two
+    chunks and a step; K != V included."""
     *args, dy = _wkv_args(bh, t, k, v, bh + t + k)
     leaves_ = [a.clone().requires_grad_(True) for a in args]
     kw6.wkv6_scan(*leaves_).backward(dy)
@@ -148,6 +151,52 @@ def test_backward_launches_refuse_before_launching():
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         klru._launch_bwd(a, a, a)
     assert {**kw6.LAUNCHES, **klru.LAUNCHES} == before
+
+
+def _bwd_case(case):
+    """Arguments of ``_launch_bwd`` that it must refuse, by name."""
+    *args, dy = _wkv_args(2, 8, 64, 64, 0, torch.float32)
+    if case == "K 32":
+        *args, dy = _wkv_args(2, 8, 32, 64, 0, torch.float32)
+    elif case == "dy shape":
+        dy = dy[:, :4]
+    elif case == "float64 w":
+        args[2] = args[2].double()
+    elif case == "strided v":
+        args[3] = torch.cat([args[3], args[3]], -1)[..., ::2]
+    elif case == "misaligned r":
+        args[0] = torch.empty(2 * 8 * 64 + 1)[1:].view(2, 8, 64).copy_(
+            args[0])
+    elif case == "BH 65536":     # refused before the layout is read
+        args = [x[:1].expand(65536, *x.shape[1:]) for x in args]
+        dy = dy[:1].expand(65536, 8, 64)
+    return args, dy
+
+
+@pytest.mark.parametrize("case,err,match", [
+    ("K 32", ValueError, "K = V = 64"),
+    ("dy shape", ValueError, "dy has shape"),
+    ("float64 w", TypeError, "float32"),
+    ("strided v", ValueError, "contiguous"),
+    ("misaligned r", ValueError, "16-byte"),
+    ("BH 65536", ValueError, "BH <= 65535"),
+    ("cpu", ValueError, "takes CUDA tensors")])
+def test_launch_bwd_refuses_before_building(case, err, match, monkeypatch):
+    """Each argument the backward kernel does not take is refused by the
+    wrapper's checks, which come before it sizes the kernel's scratch
+    (``BWD_DIM``, ``BWD_CHUNK``): no library is built or loaded and no
+    launch is counted."""
+    from repro_torch.kernels import build
+
+    def no_load(name):
+        raise AssertionError(f"build.load({name!r}) reached")
+
+    monkeypatch.setattr(build, "load", no_load)
+    args, dy = _bwd_case(case)
+    before = dict(kw6.LAUNCHES)
+    with pytest.raises(err, match=match):
+        kw6._launch_bwd(*args, dy)
+    assert kw6.LAUNCHES == before
 
 
 # --------------------------------------------------------------------------
