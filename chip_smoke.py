@@ -51,7 +51,7 @@ times the kernels at each path's shapes.
        ``cuda`` in ~10 chunks a mode, a mutant whose uploads read the
        previous chunk's slots, ``cp_als_stream`` against [3]'s fits;
        [12b] rect nell1 scale 0.01; [12c] twitch scale 0.01 in at least
-       4 chunks a mode; [12d] the paper's full vast tensor through
+       4 chunks a mode; [12d] the paper's vast tensor (scale 0.5) through
        ``make_engine(PlanSpec(residency="auto"))`` at 1/8 of its
        resident footprint: the streamed rotation timed (uploads, kernels
        and host remap apart) beside the resident one, its peak device
@@ -124,6 +124,22 @@ times the kernels at each path's shapes.
        ``TrainController`` preempted at step 2 of 4 and resumed from its
        checkpoint against an uninterrupted run, a checkpoint's save and
        load timed
+  [17] sharded training (``repro_torch.sharding``, the sharded
+       ``make_train_step``; a single controller drives shards of
+       ``cuda:0``, so its times are "shards on one card"): [17a]
+       tinyllama-1.1b at full width and depth on a (data 2, model 2)
+       mesh (dp + fsdp, heads / MLP columns / vocabulary over the model
+       axis), B 4, S 4096: one step against the single-device step from
+       the same state and batch, 3 timed steps, peak memory, one step
+       under ``torch.profiler``; a float32 2-layer copy the same way, and
+       the copy without the sum over the model axis after ``wo``, which
+       must fail; [17b] rwkv6-3b and recurrentgemma-9b at full width on
+       4 layers, (data 2, model 1), against the single-device step, with
+       ``wkv6`` / ``wkv6_bwd`` / ``lru_scan`` / ``lru_scan_bwd`` launched
+       on each shard; [17c] the float32 state saved on (2, 2) and
+       restored onto (2, 1), bitwise; [17d] ``cp_als(mesh=ctx)`` at nell1
+       0.01 against ``cp_als(mesh=Mesh)``; [17e] ``pipeline_apply`` over
+       4 stages and ``compressed_grad_sync`` over 4 pods of the card
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -265,6 +281,23 @@ function on absolute inputs) and ``u = 2**-24``:
     run-to-run noise around 0: the embedding's backward accumulates with
     atomics on the card, so the card is not run-to-run bitwise), the
     last loss within 1e-3 relative; a checkpoint loads back bitwise.
+  * [17] a sharded step against the single-device step from the same
+    state and batch: in bf16 ([17a] at full width, [17b]) the losses
+    within 3e-2 (the reference's own bound for its sharded bf16 step),
+    each gradient leaf within ``SHARD_GRAD_RTOL`` = 5e-2 of that leaf's
+    largest (the same bf16 products summed over half the batch on each
+    data shard and half the heads or columns on each model shard, then
+    across shards in float32), every parameter within
+    ``SHARD_PARAM_ATOL`` = 1e-6 (times |p| above 1) where its
+    gradient's sign is sure (|m|
+    at least twice the gradient limit, |g| >= 1e-5) and within 2 lr
+    elsewhere (Adam's first step is sign-like); the float32
+    2-layer copy (TF32 off) at ``GRAD_RTOL`` and 1e-4 relative on the
+    loss, held against a step that drops the sum after ``wo``; the
+    elastic restore bitwise; ``cp_als(mesh=ctx)`` within ``FIT_ATOL``;
+    the pipeline within 1e-5 of its sequential stages, a full-rank
+    compressed sync within 1e-4 of the mean, its error feedback the
+    residual within 1e-5.
 """
 from __future__ import annotations
 
@@ -2057,7 +2090,9 @@ def lru_scan_record(lru):
 STREAM_LAYOUT = ("val", "idx", "alpha", "lrow")
 STREAM_CHUNK = 1 << 20         # [12a]: chunk slots, ~10 chunks a mode
 RECT_STREAM_CHUNK = 1 << 22    # [12b]: ~9 chunks a rect mode
-VAST_SCALE = 1.0               # [12d]: the paper's full vast tensor
+VAST_SCALE = 0.5               # [12d]: the paper's vast tensor at half
+#                                scale, so the whole run with [17] stays
+#                                inside its time limit (ROADMAP)
 VAST_REPS = 3                  # [12d]: timed rotations, median taken
 
 
@@ -4470,6 +4505,434 @@ def phase_train(kw6, klru, report, reps):
     return out["rwkv"]["wkv6_bwd"], out["rg"]["lru_scan_bwd"]
 
 
+# --------------------------------------------------------------------------
+# [17] Sharded training on the card.
+# --------------------------------------------------------------------------
+SHARD_MESH = (2, 2)                    # (data, model), 4 shards on cuda:0
+SHARD_STEPS = 3                        # [17a]'s timed steps after the check
+SHARD_LOSS_ATOL = 3e-2                 # the reference's bf16 loss bound
+SHARD_GRAD_RTOL = 5e-2                 # bf16: of each leaf's largest
+SHARD_PARAM_ATOL = 1e-6                # x max(1, |p|) where g's sign is sure
+SHARD_G_FLOOR = 1e-5                   # |g| above it: eps out of the step
+SHARD_F32_LAYERS, SHARD_F32_SEQ = 2, 256
+SHARD_REC_LAYERS = 4                   # [17b]'s depth, each model
+PIPE_D, PIPE_BATCH, PIPE_MICRO = 1024, 64, 8
+COMPRESS_SHAPE, COMPRESS_RANK = (4096, 1024), 32
+
+
+def shard_ctx(shape):
+    """A sharding context over ``shape`` (data, model) shards, all on
+    ``cuda:0`` (a single controller: times are "shards on one card")."""
+    from repro_torch import sharding
+
+    axes = ("data", "model")[:len(shape)]
+    return sharding.make_ctx(dist_mesh(math.prod(shape), shape, axes))
+
+
+def shard_step_pair(tag, cfg, ctx, batch, prepare=None, rtol=GRAD_RTOL,
+                    loss_atol=None):
+    """One step from the same state and batch on one device and sharded
+    over ``ctx`` (the state placed by a copy before
+    the single-device step updates it in place): the losses within
+    ``loss_atol`` (else 1e-4 relative), every gradient leaf (the first
+    moment, m = (1 - b1) g) within ``rtol`` of that leaf's largest, every
+    updated parameter within ``SHARD_PARAM_ATOL`` (times |p| where |p|
+    > 1: a few float32 ulps at any size) wherever |m| is at
+    least twice that limit and |g| at least ``SHARD_G_FLOOR`` (there g
+    has one sign on both sides and Adam's first step, lr g / (|g| +
+    eps), is the same to float32 rounding), within 2 lr elsewhere (the
+    step is sign-like where g is rounding noise). Returns the numbers,
+    the sharded state and the kernels' launches in the sharded step."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.kernels import lru_scan as klru
+    from repro_torch.kernels import wkv6 as kw6
+    from repro_torch.launch import specs
+    from repro_torch.training import init_state, make_train_step
+    from repro_torch.training.tree import leaves
+
+    ocfg = train_ocfg(1)
+    one = init_state(cfg, ocfg, 0, device="cuda")
+    if prepare is not None:
+        prepare(one)
+    two = specs.place_state(one, ctx)
+    _, m1 = make_train_step(cfg, ocfg)(
+        one, {k: v.clone() for k, v in batch.items()})
+    with sharding.use(ctx):
+        step = make_train_step(cfg, ocfg)
+    kw6.reset_launch_counts()
+    klru.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    two, m2 = step(two, batch)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {**kw6.LAUNCHES, **klru.LAUNCHES}
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    lim = loss_atol if loss_atol is not None else 1e-4 * abs(l1)
+    if not abs(l1 - l2) <= lim:
+        raise AssertionError(f"{tag} sharded loss {l2} against the single "
+                             f"device's {l1} (limit {lim:.1e})")
+    share, pmax, ptight, held = 0.0, 0.0, 0.0, 0
+    floor = (1 - ocfg.b1) * SHARD_G_FLOOR
+    pairs = zip(leaves(two["opt"]["m"]), leaves(one["opt"]["m"]),
+                leaves(two["params"]), leaves(one["params"]))
+    for i, (a, b, pa, pb) in enumerate(pairs):
+        a = sharding.gather_tensor(a)
+        glim = rtol * float(b.abs().max()) + 1e-30
+        err = float((a - b).abs().max())
+        if not err <= glim:
+            raise AssertionError(f"{tag} gradient leaf {i} "
+                                 f"{tuple(b.shape)} off by {err:.3e} "
+                                 f"(limit {glim:.3e})")
+        share = max(share, err / glim)
+        d = (sharding.gather_tensor(pa) - pb).abs()
+        sure = (b.abs() >= 2 * glim) & (b.abs() >= floor)
+        pmax = max(pmax, float(d.max()))
+        ptight = max(ptight, float(torch.where(
+            sure, d / pb.abs().clamp_min(1.0), 0).max()))
+        held += int(sure.sum())
+    if not pmax <= 2 * m1["lr"] * 1.001 or not ptight <= SHARD_PARAM_ATOL:
+        raise AssertionError(
+            f"{tag} an updated parameter {pmax:.3e} off (limit 2 lr = "
+            f"{2 * m1['lr']:.1e}), {ptight:.3e} where the gradient's sign "
+            f"is sure (limit {SHARD_PARAM_ATOL:.0e})")
+    del one
+    free_device_memory()
+    return {"loss_single": l1, "loss_sharded": l2, "grad_share": share,
+            "param_max_diff": pmax, "param_sure_diff": ptight,
+            "param_sure_count": held, "first_step_ms": first_ms,
+            "leaves": len(leaves(two["params"]))}, two, launches
+
+
+def shard_f32_check(tag, cfg, ctx):
+    """A float32 copy (TF32 off) of the first ``SHARD_F32_LAYERS`` layers:
+    the sharded step against the single-device step at ``GRAD_RTOL``,
+    the losses within 1e-4 relative; the same check must fail a sharded
+    step that drops the sum over the model axis after ``wo``. Returns
+    the numbers and the sharded state (for [17c])."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+    from repro_torch.training import SyntheticLM
+
+    cfg2 = dataclasses.replace(cfg, n_layers=SHARD_F32_LAYERS,
+                               compute_dtype="float32")
+    batch = SyntheticLM(cfg2, TRAIN_BATCH, SHARD_F32_SEQ, seed=1,
+                        device="cuda").next()
+    out, state, _ = shard_step_pair(tag, cfg2, ctx, batch)
+    keep = transformer.sum_heads
+    transformer.sum_heads = lambda parts: parts
+    try:
+        shard_step_pair(tag, cfg2, ctx, batch)
+    except AssertionError as e:
+        out["dropped_sum"] = str(e)
+    else:
+        raise AssertionError(f"{tag} the float32 check does not catch a "
+                             "sharded step that drops the sum after wo")
+    finally:
+        transformer.sum_heads = keep
+    log(f"{tag} float32 copy ({SHARD_F32_LAYERS} layers, B {TRAIN_BATCH}, "
+        f"S {SHARD_F32_SEQ}, TF32 off) sharded on {SHARD_MESH} == one "
+        f"device: {out['leaves']} leaves (max {out['grad_share']:.3f} of "
+        f"the limit {GRAD_RTOL} x the leaf's largest; params within "
+        f"{out['param_sure_diff']:.2e} at {out['param_sure_count']:,} sure "
+        f"elements), loss "
+        f"{out['loss_sharded']:.6f} / {out['loss_single']:.6f}; dropping "
+        "the sum over the model axis after wo fails it")
+    return out, state
+
+
+def shard_tinyllama(tag, reps):
+    """[17a]: tinyllama-1.1b at full width and depth on a (data 2, model
+    2) mesh of ``cuda:0``: one bf16 step against the single-device step
+    from the same state and batch (loss within ``SHARD_LOSS_ATOL``, every
+    gradient leaf within ``SHARD_GRAD_RTOL`` of its largest, params as
+    :func:`shard_step_pair` says), then ``SHARD_STEPS`` timed steps,
+    their peak memory,
+    and one step under ``torch.profiler``; the float32 check and its
+    mutant."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training import SyntheticLM
+
+    free_device_memory()
+    cfg = get_config(TRAIN_ARCH)
+    ctx = shard_ctx(SHARD_MESH)
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda")
+    out, state, _ = shard_step_pair(tag, cfg, ctx, data.next(),
+                                    rtol=SHARD_GRAD_RTOL,
+                                    loss_atol=SHARD_LOSS_ATOL)
+    log(f"{tag} {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}) at B "
+        f"{TRAIN_BATCH}, S "
+        f"{TRAIN_SEQ} on a {SHARD_MESH} (data, model) mesh of cuda:0: loss "
+        f"{out['loss_sharded']:.5f} against one device's "
+        f"{out['loss_single']:.5f} (limit {SHARD_LOSS_ATOL}); "
+        f"{out['leaves']} gradient leaves within {out['grad_share']:.3f} of "
+        f"the limit {SHARD_GRAD_RTOL} x the leaf's largest; params within "
+        f"{out['param_max_diff']:.2e}, and within "
+        f"{out['param_sure_diff']:.2e} at the {out['param_sure_count']:,} "
+        f"elements whose gradient's sign is sure (limit {SHARD_PARAM_ATOL}); "
+        f"first step {out['first_step_ms']:.0f} ms")
+    from repro_torch import sharding
+    from repro_torch.training import make_train_step
+
+    with sharding.use(ctx):
+        step = make_train_step(cfg, train_ocfg(1 + SHARD_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(SHARD_STEPS):
+        b = data.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"{tag} non-finite loss {float(m['loss'])}")
+    out["step_ms"] = ms
+    out["steady_step_ms"] = statistics.median(ms)
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (out["steady_step_ms"]
+                                                      / 1e3)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    b = data.next()
+    held = {}
+
+    def one():
+        held["state"], _ = step(state, b)
+
+    out["profile"] = device_breakdown(one, ("copy", "elementwise"))
+    del held, state
+    free_device_memory()
+    log(f"{tag} {SHARD_STEPS} sharded steps: "
+        + ", ".join(f"{x:.1f}" for x in ms)
+        + f" ms (median {out['steady_step_ms']:.1f}, "
+        f"{out['tokens_per_s']:,.0f} tokens/s), peak {out['peak_gib']:.2f} "
+        f"GiB; one more under torch.profiler: "
+        + breakdown_line(out["profile"]))
+    out["f32"], f32_state = shard_f32_check(tag, cfg, ctx)
+    return out, f32_state
+
+
+def shard_recurrent(tag):
+    """[17b]: rwkv6-3b and recurrentgemma-9b at full width, depth cut to
+    ``SHARD_REC_LAYERS``, on a (data 2, model 1) mesh of ``cuda:0``
+    (these kinds have no tensor-parallel path): one step against the
+    single-device step, and the recurrence kernels' launches on the
+    shards (forward and recompute on each shard, one backward)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.training import SyntheticLM
+
+    out, launches = {}, {}
+    ctx = shard_ctx((2, 1))
+    for arch, kernel in ((RWKV_ARCH, "wkv6"), (RG_ARCH, "lru_scan")):
+        free_device_memory()
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=SHARD_REC_LAYERS)
+
+        def prepare(state, arch=arch):
+            if arch != RWKV_ARCH:
+                return
+            g = torch.Generator(device="cuda").manual_seed(1)
+            for w in state["params"]["stage0"]["b0"]["wb_lora"]:
+                w.normal_(0.0, WB_LORA_STD, generator=g)
+
+        batch = SyntheticLM(cfg, RWKV_TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                            device="cuda").next()
+        rec, state, got = shard_step_pair(
+            tag, cfg, ctx, batch, prepare, rtol=SHARD_GRAD_RTOL,
+            loss_atol=SHARD_LOSS_ATOL)
+        del state
+        n = transformer.layer_kinds(cfg).count(
+            "rwkv" if kernel == "wkv6" else "rec")
+        want = {kernel: 2 * n * 2, kernel + "_bwd": n * 2}
+        got = {k: got[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{tag} {arch} launches {got}, expected "
+                                 f"{want} (two shards: forward, recompute "
+                                 "and backward a layer each)")
+        rec["launches"] = got
+        launches.update(got)
+        out[arch] = rec
+        log(f"{tag} {arch} ({SHARD_REC_LAYERS} layers) at B "
+            f"{RWKV_TRAIN_BATCH}, S {TRAIN_SEQ} on (data 2, model 1): loss "
+            f"{rec['loss_sharded']:.5f} / {rec['loss_single']:.5f}, "
+            f"{rec['leaves']} leaves within {rec['grad_share']:.3f} of the "
+            f"limit, params within {rec['param_sure_diff']:.2e} at "
+            f"{rec['param_sure_count']:,} sure elements; launches {got}")
+    free_device_memory()
+    return out, launches
+
+
+def shard_reshard(tag, state):
+    """[17c]: [17a]'s float32 sharded state saved on (2, 2) and restored
+    onto (2, 1) (reshard on load), bitwise; save and load timed."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch import sharding
+    from repro_torch.launch import specs
+    from repro_torch.training import CheckpointManager
+    from repro_torch.training.tree import leaves
+
+    ctx2 = shard_ctx((2, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "ck"), async_save=False)
+        t0 = time.perf_counter()
+        mgr.save(state, {"step": 1})
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        with sharding.use(ctx2):
+            t0 = time.perf_counter()
+            back, _ = mgr.restore_latest(
+                like=state, shardings=specs.state_shardings(state, ctx2))
+            torch.cuda.synchronize()
+            load_ms = 1e3 * (time.perf_counter() - t0)
+    placed = [x for x in leaves(back) if isinstance(x, sharding.Sharded)]
+    if not placed or any(x.mesh is not ctx2.mesh for x in placed):
+        raise AssertionError(f"{tag} the restore is not on the (2, 1) mesh")
+    for a, b in zip(leaves(back), leaves(state)):
+        if isinstance(a, sharding.Sharded):
+            a, b = sharding.gather_tensor(a), sharding.gather_tensor(b)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag} a leaf did not reshard bitwise")
+    log(f"{tag} saved on {SHARD_MESH}, restored on (2, 1): {len(placed)} "
+        f"sharded leaves bitwise; save {save_ms:.0f} ms, load {load_ms:.0f}"
+        " ms")
+    return {"save_ms": save_ms, "load_ms": load_ms}
+
+
+def shard_cp_als(tag):
+    """[17d]: ``cp_als(mesh=ctx)`` (a (data 2, model 2) context; ALS uses
+    its data axis only) at nell1 ``DIST_SCALE`` against ``cp_als(mesh=)``
+    on the (data 2) mesh it implies: fits within ``FIT_ATOL`` (the card
+    is not run-to-run bitwise), the row 4 kernel launched on the shards."""
+    import torch
+    from repro_torch.core import (build_sharded_flycoo, cp_als,
+                                  init_factors, spec, synthesize)
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.kernels import mttkrp as kmt
+
+    ts = spec("nell1", scale=DIST_SCALE)
+    indices, values = synthesize(ts, seed=0)
+    t = build_sharded_flycoo(indices, values, ts.dims, n_dev=4)
+    cfg = ExecutionConfig(backend="cuda_fused", rank_hint=RANK)
+    fits = {}
+    for name, mesh in (("ctx", shard_ctx(SHARD_MESH)),
+                       ("mesh", dist_mesh(2))):
+        factors = init_factors(torch.Generator(device="cuda").manual_seed(0),
+                               t.dims, RANK)
+        kmt.reset_launch_counts()
+        res = cp_als(t, RANK, iters=3, config=cfg, factors=factors,
+                     mesh=mesh)
+        torch.cuda.synchronize()
+        if name == "ctx":
+            launches = kmt.LAUNCHES["mttkrp_fused_gather_compact"]
+        fits[name] = list(res.fits)
+    gap = max(abs(a - b) for a, b in zip(fits["ctx"], fits["mesh"]))
+    if not gap <= FIT_ATOL or not launches:
+        raise AssertionError(f"{tag} cp_als(mesh=ctx) fits {fits['ctx']} "
+                             f"against {fits['mesh']}; row 4 launches "
+                             f"{launches}")
+    log(f"{tag} cp_als(mesh=ctx) at nell1 {DIST_SCALE} on 2 data shards: "
+        f"fits {fits['ctx'][-1]:.6f} within {gap:.1e} of cp_als(mesh=Mesh) "
+        f"(limit {FIT_ATOL}); {launches} mttkrp_fused_gather_compact "
+        "launches on the shards")
+    return {"fits": fits, "fit_gap": gap,
+            "launches": {"mttkrp_fused_gather_compact": launches}}
+
+
+def shard_primitives(tag):
+    """[17e]: ``pipeline_apply`` over 4 stages of ``cuda:0`` against the
+    sequential stages (1e-5), and ``compressed_grad_sync`` over 4 pod
+    positions of ``cuda:0``: every position equal, the error feedback
+    the residual, a rank above the matrix's exact; both timed."""
+    import torch
+    from repro_torch.training.compression import compressed_grad_sync
+    from repro_torch.training.pipeline import pipeline_apply
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ws = torch.randn(4, PIPE_D, PIPE_D, device="cuda", generator=g) \
+        / math.sqrt(PIPE_D)
+    x = torch.randn(PIPE_BATCH, PIPE_D, device="cuda", generator=g)
+
+    def stage_fn(w, h):
+        return torch.tanh(h @ w)
+
+    want = x
+    for s in range(4):
+        want = stage_fn(ws[s], want)
+    mesh = dist_mesh(4, axes=("pp",))
+    y = pipeline_apply(stage_fn, ws, x, mesh=mesh, n_micro=PIPE_MICRO)
+    perr = float((y - want).abs().max())
+    if not perr <= 1e-5:
+        raise AssertionError(f"{tag} pipeline_apply off by {perr:.2e}")
+    pipe_ms = cuda_ms(lambda: pipeline_apply(stage_fn, ws, x, mesh=mesh,
+                                             n_micro=PIPE_MICRO), 3)
+    grads = [{"w": torch.randn(COMPRESS_SHAPE, device="cuda", generator=g),
+              "b": torch.randn(64, device="cuda", generator=g)}
+             for _ in range(4)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    synced, err = compressed_grad_sync(grads, COMPRESS_RANK, generator=gen)
+    for k in range(4):
+        if not torch.equal(synced[k]["w"], synced[0]["w"]):
+            raise AssertionError(f"{tag} the pods disagree after the sync")
+        res = float((err[k]["w"] - (grads[k]["w"] - synced[k]["w"]))
+                    .abs().max())
+        if res > 1e-5:
+            raise AssertionError(f"{tag} the error feedback is not the "
+                                 f"residual ({res:.2e})")
+    mean_b = sum(gr["b"] for gr in grads) / 4
+    if float((synced[0]["b"] - mean_b).abs().max()) > 1e-6:
+        raise AssertionError(f"{tag} the small leaf is not the exact mean")
+    small = [{"w": gr["w"][:, :16].contiguous()} for gr in grads]
+    exact, _ = compressed_grad_sync(small, 16, generator=gen)
+    mean_w = sum(s["w"] for s in small) / 4
+    xerr = float((exact[0]["w"] - mean_w).abs().max())
+    if xerr > 1e-4:
+        raise AssertionError(f"{tag} a full-rank sync is {xerr:.2e} off the "
+                             "mean")
+    sync_ms = cuda_ms(lambda: compressed_grad_sync(grads, COMPRESS_RANK,
+                                                   generator=gen), 3)
+    log(f"{tag} pipeline_apply (4 stages, {PIPE_MICRO} microbatches, d "
+        f"{PIPE_D}) within {perr:.1e} of the sequential stages, "
+        f"{pipe_ms:.2f} ms; compressed_grad_sync (4 pods, "
+        f"{COMPRESS_SHAPE} at rank {COMPRESS_RANK}) agrees on every pod, "
+        f"error feedback = residual, full rank within {xerr:.1e} of the "
+        f"mean, {sync_ms:.2f} ms")
+    return {"pipeline_err": perr, "pipeline_ms": pipe_ms,
+            "sync_ms": sync_ms, "full_rank_err": xerr}
+
+
+def phase_shard(report, reps):
+    """[17] Sharded training on the card (``sharding.py``, the sharded
+    ``make_train_step``): [17a] tinyllama-1.1b at full width and depth on
+    (data 2, model 2), [17b] rwkv6-3b and recurrentgemma-9b on (data 2,
+    model 1), [17c] the elastic restore, [17d] ``cp_als(mesh=ctx)``,
+    [17e] the pipeline and the compressed sync. Returns the kernels'
+    launches in the sharded paths."""
+    t0 = time.perf_counter()
+    out = {}
+    out["tinyllama"], f32_state = shard_tinyllama("[17a]", reps)
+    out["recurrent"], launches = shard_recurrent("[17b]")
+    out["reshard"] = shard_reshard("[17c]", f32_state)
+    del f32_state
+    free_device_memory()
+    out["cp_als"] = shard_cp_als("[17d]")
+    launches.update(out["cp_als"]["launches"])
+    out["primitives"] = shard_primitives("[17e]")
+    report["shard"] = out
+    free_device_memory()
+    log(f"[17] passed in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def kernels_record(per_kernel, launches, errs):
     """The ``kernels`` JSON line: ``per_kernel`` maps each kernel to its
     per-mode timing rows and a note of the tensor they were timed at."""
@@ -4609,6 +5072,7 @@ def main(argv=None) -> int:
     del coo8, twitch
     phase_dense(report, args.reps)
     wbwd, lbwd = phase_train(kw6, klru, report, args.reps)
+    launches17 = phase_shard(report, args.reps)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [
@@ -4629,6 +5093,8 @@ def main(argv=None) -> int:
                    "single PyTorch call computes a linear recurrence's "
                    "backward")]
     dist_record(kernels, times14, launches14, err14)
+    for rec in kernels:
+        rec["sharded_launches"] = launches17.get(rec["name"], 0)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

@@ -183,11 +183,14 @@ def cp_als(tensor: FlycooTensor, rank: int, iters: int = 10,
     ``(factors, lam)`` and rebuilds the state from the tensor under the
     next backend before it replays the sweep.
 
-    With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) the state is
-    sharded over its data axis (``engine.dist.shard_state``) and each
-    sweep is one ``dist_all_modes`` rotation with the same fold, the
-    factors on the first shard's device and copied to each other
-    distinct device once a mode. ``tensor``'s partition counts must
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`, or a
+    :class:`~repro_torch.sharding.ShardingCtx` of which only the data
+    axis is used, never its tp axis: the ALS fold needs the full rank on
+    every shard) the state is sharded over its data axis
+    (``engine.dist.shard_state``) and each sweep is one
+    ``dist_all_modes`` rotation with the same fold, the factors on the
+    first shard's device and copied to each other distinct device once a
+    mode. ``tensor``'s partition counts must
     divide over the mesh (``core.distributed.build_sharded_flycoo``);
     ``dist`` is an optional ``DistConfig`` whose ``model_axis`` stays
     ``None``. Snapshots are then v2, under a problem fingerprint that
@@ -201,6 +204,7 @@ def cp_als(tensor: FlycooTensor, rank: int, iters: int = 10,
     if mesh is None and dist is not None:
         raise ValueError("dist config given without a mesh")
     if mesh is not None:   # before any state is built
+        mesh, dist = engine.dist.from_ctx(mesh, dist, model=False)
         engine.dist.check_mesh(mesh, dist or engine.dist.DistConfig())
     config = config or ExecutionConfig()
     store = as_store(checkpoint)

@@ -344,33 +344,59 @@ def _grid(mesh: Mesh, dist: DistConfig) -> np.ndarray:
 
 
 def check_mesh(mesh, dist: DistConfig) -> None:
-    """Refuse anything but the port's :class:`Mesh` (``TypeError``) and
-    a mesh without the config's axes (``ValueError``)."""
+    """Refuse anything but the port's :class:`Mesh` or a
+    :class:`~repro_torch.sharding.ShardingCtx` over one (``TypeError``)
+    and a mesh without the config's axes (``ValueError``)."""
+    from repro_torch.sharding import ShardingCtx
+
+    if isinstance(mesh, ShardingCtx):
+        mesh = mesh.mesh
     if not isinstance(mesh, Mesh):
         raise TypeError(
-            f"the distributed tier takes a repro_torch.launch.mesh.Mesh, "
-            f"got {type(mesh).__name__}; a sharding context (the "
-            "reference's ShardingCtx) comes with ROADMAP Queue A item 12.3")
+            f"the distributed tier takes a repro_torch.launch.mesh.Mesh or "
+            f"a repro_torch.sharding.ShardingCtx, got {type(mesh).__name__}")
     for ax in (dist.data_axis, dist.model_axis):
         if ax is not None and ax not in mesh.axis_names:
             raise ValueError(f"mesh has no axis {ax!r}: {mesh.axis_names}")
 
 
+def from_ctx(mesh, dist: DistConfig | None = None, *,
+             model: bool = True) -> tuple[Mesh, DistConfig | None]:
+    """``(mesh, dist)`` with a sharding context unwrapped: with a
+    :class:`~repro_torch.sharding.ShardingCtx` and no ``dist`` the axes
+    follow the context, ``DistConfig(data_axis=ctx.data_axis,
+    model_axis=ctx.tp_axis)`` (the model axis left out with ``model=False``,
+    as ``cp_als`` needs the full rank on every shard). Anything else is
+    returned as it is."""
+    from repro_torch.sharding import ShardingCtx
+
+    if not isinstance(mesh, ShardingCtx):
+        return mesh, dist
+    if dist is None:
+        dist = DistConfig(data_axis=mesh.data_axis,
+                          model_axis=mesh.tp_axis if model else None)
+    return mesh.mesh, dist
+
+
 # --------------------------------------------------------------------------
 # shard_state: place an EngineState over the mesh.
 # --------------------------------------------------------------------------
-def shard_state(state: EngineState, mesh: Mesh,
+def shard_state(state: EngineState, mesh,
                 dist: DistConfig | None = None) -> DistState:
     """Shard a single-device :class:`EngineState` over ``mesh``'s data
-    axis.
+    axis. ``mesh`` is the port's :class:`Mesh` or a
+    :class:`~repro_torch.sharding.ShardingCtx`: with a context and no
+    ``dist`` the data/model axes follow its dp/tp convention
+    (:func:`from_ctx`).
 
     Renumbers every mode layout into device-major slots, precomputes the
     permute :class:`ExchangeSchedule`, builds each shard's schedule and
     work tables and places them on its device; the relabel tables go to
     each distinct device once. Requires every mode's ``kappa`` to be a
-    multiple of the data-axis size. ``mesh`` must be the port's
-    :class:`Mesh`: anything else raises ``TypeError``.
+    multiple of the data-axis size. Anything but a :class:`Mesh` or a
+    context raises ``TypeError``.
     """
+    mesh, dist = from_ctx(mesh, dist)
     dist = dist or DistConfig()
     check_mesh(mesh, dist)
     n_dev = mesh.shape[dist.data_axis]
@@ -823,6 +849,6 @@ def surviving_mesh(mesh: Mesh, lost: int, kappas: Sequence[int],
 
 
 __all__ = ["DistConfig", "DistState", "ExchangeSchedule", "shard_state",
-           "assemble", "check_mesh", "shard_layout", "dist_mttkrp",
+           "assemble", "check_mesh", "from_ctx", "shard_layout", "dist_mttkrp",
            "dist_all_modes", "schedule_for_plans", "element_devices",
            "exchange_bytes", "row_bytes", "surviving_mesh", "EXCHANGES"]

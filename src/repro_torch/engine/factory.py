@@ -192,10 +192,13 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
 
     ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) returns the
     resident state sharded over its ``data_axis`` (a ``DistState``, with
-    the spec's ``exchange``); a raw COO tensor is then planned with each
-    mode's kappa rounded to the shard count (``kappa_for(n_dev=)``). The
-    mesh tier is resident: ``residency="stream"`` with a mesh raises,
-    ``"auto"`` resolves to ``"full"``, and an OOM has no stream rung.
+    the spec's ``exchange``); a
+    :class:`~repro_torch.sharding.ShardingCtx` in its place gives the
+    axes, ``data_axis=ctx.data_axis`` and ``model_axis=ctx.tp_axis``; a
+    raw COO tensor is then planned with each mode's kappa rounded to the
+    shard count (``kappa_for(n_dev=)``). The mesh tier is resident:
+    ``residency="stream"`` with a mesh raises, ``"auto"`` resolves to
+    ``"full"``, and an OOM has no stream rung.
     """
     from repro_torch.core.flycoo import FlycooTensor
     from repro_torch.core.plancache import DEFAULT_CACHE
@@ -207,12 +210,17 @@ def make_engine(tensor, spec: PlanSpec | None = None, *,
     from .api import as_flycoo, init
     from .stream import resident_bytes, stream_init
 
-    from .dist import check_mesh, shard_state
+    from .dist import check_mesh, from_ctx, shard_state
 
     spec = (spec or PlanSpec()).canonical()
     n_dev = 1
     if mesh is not None:
         dist = spec.to_dist_config(data_axis)
+        mesh, ctx_dist = from_ctx(mesh)
+        if ctx_dist is not None:
+            data_axis = ctx_dist.data_axis
+            dist = dataclasses.replace(spec.to_dist_config(data_axis),
+                                       model_axis=ctx_dist.model_axis)
         check_mesh(mesh, dist)
         if spec.residency == "stream":
             raise ValueError(

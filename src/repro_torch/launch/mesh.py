@@ -9,9 +9,11 @@ tensors live on its device (``repro_torch.engine.dist``).
 :func:`make_mesh` takes distinct visible cards and raises when there are
 too few. Several shards share a card only when the caller says so
 (``devices=["cuda:0"] * 4``); the tests pass ``devices=["cpu"] * 4``, the
-counterpart of the reference's forced host-device count. The
-reference's ``make_production_mesh`` (256 and 512 chips) comes with the
-sharding context of ROADMAP Queue A item 12.3.
+counterpart of the reference's forced host-device count.
+:func:`make_production_mesh` is the reference's production layout, (data
+16, model 16) on 256 cards or (pod 2, data 16, model 16) on 512; the
+tests build it on ``devices=["cpu"] * 256``. ``repro_torch.sharding``
+puts a sharding context over a mesh.
 """
 from __future__ import annotations
 
@@ -83,4 +85,14 @@ def make_mesh(shape, axes, devices=None) -> Mesh:
     return Mesh(arr.reshape(shape), axes)
 
 
-__all__ = ["Mesh", "make_mesh"]
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The reference's production mesh: (data 16, model 16), or with
+    ``multi_pod`` (pod 2, data 16, model 16). Raises, as
+    :func:`make_mesh` does, when fewer cards are visible and no
+    ``devices=`` is given."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
+__all__ = ["Mesh", "make_mesh", "make_production_mesh"]

@@ -12,9 +12,17 @@ cross-attention decode raise ``NotImplementedError`` naming their ROADMAP
 item; the reference's ``shard(...)`` hints and ``set_cost_mode`` (an XLA
 cost-measurement switch) are dropped. ``p`` is a layer's parameter module
 (the reference's keys as attributes).
+
+Tensor parallelism (``models.transformer.apply_block_tp``): shard ``j`` of
+the model axis runs these same functions on its slice of the weights and
+a narrowed config (:func:`attention_shard`: ``n_heads / tp`` query heads
+and the KV heads they read); the caller sums the partial outputs of
+``wo`` and ``w_down`` over the model axis.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
@@ -22,7 +30,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, Node, dense_init
 
 _NEG = -1e30
 _KV_QUANT = "kv_quant (the int8 KV cache) is ROADMAP Queue A item 12.4b"
@@ -189,6 +197,58 @@ def attention_full(p, xq, cfg: ModelConfig, *, mask: str = "causal",
     return o.flatten(2) @ p.wo.to(cfg.cdtype).flatten(0, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _narrow(cfg: ModelConfig, n_heads: int, n_kv_heads: int) -> ModelConfig:
+    return dataclasses.replace(cfg, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                               head_dim=cfg.hd)
+
+
+def heads_split(p, cfg: ModelConfig) -> bool:
+    """Whether the model axis splits this attention's heads (the partial
+    outputs of ``wo`` are then summed over it). Where the heads do not
+    divide the axis, the reference's guard replicates ``wq`` / ``wo`` and
+    the whole attention runs on every shard, unsummed."""
+    return p.wq.shape[1] < cfg.n_heads
+
+
+def attention_shard(p, cfg: ModelConfig, j: int):
+    """Shard ``j``'s attention params and narrowed config, for split
+    heads (:func:`heads_split`). ``p`` holds what the shard computes with
+    (``sharding.working_copy``): ``wq`` / ``wo`` with its ``n_heads /
+    tp`` heads. ``wk`` / ``wv`` come split alike when the KV heads divide
+    the model axis; otherwise they are whole (replicated) and the shard
+    slices the KV heads its query heads read (all the shard's query
+    heads in one KV group, or whole groups), or, when its heads cut a
+    group, gathers one KV head a query head. Biases are replicated and
+    sliced here."""
+    h = p.wq.shape[1]
+    g = cfg.n_heads // cfg.n_kv_heads
+    q_lo = j * h
+    out = Node({k: v for k, v in p.items() if k not in ("bq", "bk", "bv")})
+    kv = p.wk.shape[1]
+    if kv < cfg.n_kv_heads:                       # split with the queries
+        kv_idx = slice(j * kv, (j + 1) * kv)
+    else:
+        lo, hi = q_lo // g, (q_lo + h - 1) // g + 1
+        if hi - lo == 1 or (q_lo % g == 0 and h % g == 0):
+            kv_idx, kv = slice(lo, hi), hi - lo
+        else:                                     # a group cut: per head
+            kv_idx = torch.arange(q_lo, q_lo + h,
+                                  device=p.wk.device) // g
+            kv = h
+        out["wk"], out["wv"] = p.wk[:, kv_idx], p.wv[:, kv_idx]
+    if "bq" in p:
+        out["bq"] = p.bq[q_lo:q_lo + h]
+        out["bk"], out["bv"] = p.bk[kv_idx], p.bv[kv_idx]
+    return out, _narrow(cfg, h, kv)
+
+
+def mlp_split(p, cfg: ModelConfig) -> bool:
+    """Whether the model axis splits this MLP's ``d_ff`` (the partial
+    outputs of ``w_down`` are then summed over it)."""
+    return p.w_up.shape[-1] < cfg.d_ff
+
+
 def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
                      mask: str = "causal", use_rope: bool = True,
                      cross: bool = False):
@@ -283,5 +343,5 @@ def apply_mlp(p, x, cfg: ModelConfig):
 
 
 __all__ = ["apply_mlp", "apply_rope", "attention_decode", "attention_full",
-           "check_q_len", "gelu", "init_attention", "init_mlp",
-           "make_attn_cache"]
+           "attention_shard", "check_q_len", "gelu", "heads_split",
+           "init_attention", "init_mlp", "make_attn_cache", "mlp_split"]

@@ -22,7 +22,19 @@ model functions take a ``Model`` or a ``Node`` tree of the same keys
 grad); :func:`stack_layers` gives a model's tree the reference's
 stage layout. Other block kinds and model features raise
 ``NotImplementedError`` naming their ROADMAP item; the reference's
-``shard(...)`` hints are dropped (one device).
+``shard(...)`` hints are dropped.
+
+Tensor parallelism over a mesh's model axis (:func:`forward_tp`, which
+the sharded train step runs for each position of the dp axes): shard
+``j`` holds its own replica of the residual stream and runs the
+single-device block body on its slice of the weights
+(``layers.attention_shard``; ``d_ff / tp`` columns of the MLP), and
+:func:`apply_block_tp` sums the partial outputs of ``wo`` and ``w_down``
+over the axis (``sum_heads``, ``sum_ff``) before it adds the residual,
+once a sublayer. A vocab-split ``embed`` is a masked lookup a shard,
+summed (``sum_vocab``). Only the ``attn`` kind has this path; a model
+axis above 1 with ``rwkv``, ``rec`` or ``local`` layers raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import sharding
 from ..tensorized import (cpd_embed, cpd_logits, dense_table,
                           init_cpd_embedding)
 from . import layers, rglru, rwkv
@@ -40,6 +53,9 @@ from .common import (ModelConfig, Node, Params, apply_norm, as_node,
                      dense_init, device_of, init_norm, param)
 
 _NOT_PORTED = "ROADMAP Queue A item 12.4b (LM side: the other families)"
+_NO_TP = ("tensor parallelism (a model axis above 1) of the rwkv, rec and "
+          "local blocks is ROADMAP Queue A item 12.3b; train these on a "
+          "mesh whose model axis is 1 (dp + fsdp)")
 #: Block kinds the port runs.
 PORTED_KINDS = ("attn", "rwkv", "rec", "local")
 
@@ -122,7 +138,6 @@ def _mask_kind(kind: str) -> str:
 
 def apply_block(params, x, cfg: ModelConfig, kind: str):
     _check_kind(kind)
-    use_rope = cfg.rope_theta > 0
     if kind == "rwkv":
         x = x + rwkv.time_mix(params, apply_norm(params.ln1, x, cfg), cfg)
         return x + rwkv.channel_mix(params, apply_norm(params.ln2, x, cfg),
@@ -130,13 +145,28 @@ def apply_block(params, x, cfg: ModelConfig, kind: str):
     if kind == "rec":
         x = x + rglru.apply_rglru(params.rec,
                                   apply_norm(params.ln1, x, cfg), cfg)
-        return x + layers.apply_mlp(params.mlp,
-                                    apply_norm(params.ln2, x, cfg), cfg)
-    h = apply_norm(params.ln1, x, cfg)
-    x = x + layers.attention_full(params.attn, h, cfg, mask=_mask_kind(kind),
-                                  use_rope=use_rope)
-    h = apply_norm(params.ln2, x, cfg)
-    return x + layers.apply_mlp(params.mlp, h, cfg)
+        return x + _mlp_part(params, x, cfg)
+    x = x + _attn_part(params, x, cfg, kind)
+    return x + _mlp_part(params, x, cfg)
+
+
+def _attn_part(p, x, cfg: ModelConfig, kind: str, j: int | None = None):
+    """The attention sublayer's output (before the residual). Under
+    tensor parallelism (model shard ``j``), where the heads are split, it
+    is shard ``j``'s partial output of ``wo``; where they are not, the
+    whole output."""
+    attn, cj = p.attn, cfg
+    if j is not None and layers.heads_split(p.attn, cfg):
+        attn, cj = layers.attention_shard(p.attn, cfg, j)
+    return layers.attention_full(attn, apply_norm(p.ln1, x, cfg), cj,
+                                 mask=_mask_kind(kind),
+                                 use_rope=cfg.rope_theta > 0)
+
+
+def _mlp_part(p, x, cfg: ModelConfig):
+    """The MLP sublayer's output (before the residual): a partial output
+    of ``w_down`` where the model axis splits ``d_ff``."""
+    return layers.apply_mlp(p.mlp, apply_norm(p.ln2, x, cfg), cfg)
 
 
 def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
@@ -163,6 +193,43 @@ def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
     x = x + o
     h = apply_norm(params.ln2, x, cfg)
     return x + layers.apply_mlp(params.mlp, h, cfg), new_cache
+
+
+# The sums over the model axis, one a sublayer (module attributes, so a
+# check can drop one and see the result change).
+sum_heads = sharding.psum      # after wo
+sum_ff = sharding.psum         # after w_down
+sum_vocab = sharding.psum      # the vocab-split embedding lookup
+
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Refuse a model axis above 1 for the block kinds without a tensor
+    parallel path."""
+    other = sorted(set(layer_kinds(cfg)) - {"attn"})
+    if tp > 1 and other:
+        raise NotImplementedError(f"{cfg.name}: {_NO_TP} (kinds {other})")
+
+
+def apply_block_tp(ps, xs, cfg: ModelConfig, kind: str):
+    """One ``attn`` block over the model axis: ``ps`` holds each shard's
+    layer params, ``xs`` its replica of the residual stream (on its
+    device); returns the new replicas. Each shard's sublayer is
+    recomputed in backward as ``cfg.remat`` says, apart from the other
+    shards' (a recompute stays on one device: the autograd engine runs
+    each device's backward on its own thread), and the sums over the
+    model axis sit between them."""
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r}: {_NO_TP}")
+    attn, mlp = _remat(_attn_part, cfg), _remat(_mlp_part, cfg)
+    outs = [attn(p, x, cfg, kind, j)
+            for j, (p, x) in enumerate(zip(ps, xs))]
+    if layers.heads_split(ps[0].attn, cfg):
+        outs = sum_heads(outs)
+    xs = [x + o for x, o in zip(xs, outs)]
+    outs = [mlp(p, x, cfg) for p, x in zip(ps, xs)]
+    if layers.mlp_split(ps[0].mlp, cfg):
+        outs = sum_ff(outs)
+    return [x + o for x, o in zip(xs, outs)]
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
@@ -220,6 +287,34 @@ def head_matrix(params, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return params.embed.to(cfg.cdtype).T
     return params.head.to(cfg.cdtype)
+
+
+def vocab_split(params, cfg: ModelConfig) -> bool:
+    """Whether the model axis splits this shard's head: its ``head``
+    columns, or the ``embed`` rows a tied head reads."""
+    if cfg.cpd_embedding:
+        return False
+    if "head" in params:
+        return params.head.shape[1] < cfg.vocab_padded
+    return params.embed.shape[0] < cfg.vocab_padded
+
+
+def embed_lookup_tp(ps, ids, cfg: ModelConfig) -> list:
+    """:func:`embed_lookup` over the model axis: ``ids`` one tensor a
+    shard. A vocab-split table is looked up where each shard owns the
+    id (rows ``j * n`` to ``(j + 1) * n``), zeros elsewhere, and summed;
+    a replicated one (or the CPD factors) is looked up whole on each."""
+    if len(ps) == 1 or cfg.cpd_embedding \
+            or ps[0].embed.shape[0] == cfg.vocab_padded:
+        return [embed_lookup(p, t, cfg) for p, t in zip(ps, ids)]
+    parts = []
+    for j, (p, t) in enumerate(zip(ps, ids)):
+        n = p.embed.shape[0]
+        local = t.long() - j * n
+        own = (local >= 0) & (local < n)
+        rows = p.embed[local.clamp(0, n - 1)].to(cfg.cdtype)
+        parts.append(torch.where(own[..., None], rows, 0))
+    return sum_vocab(parts)
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -283,6 +378,22 @@ def forward(params, cfg: ModelConfig, tokens, return_hidden: bool = False):
     if return_hidden:
         return apply_norm(params.ln_f, x, cfg)
     return _logits(params, x, cfg)
+
+
+def forward_tp(ps, cfg: ModelConfig, tokens):
+    """:func:`forward` with ``return_hidden`` over the model axis: ``ps``
+    one params view a shard (``unstack_layers`` of its working copies),
+    ``tokens`` one (B, S) tensor a shard; returns each shard's replica of
+    the final normed hidden state (the loss owns the head). One shard is
+    :func:`forward` itself."""
+    if len(ps) == 1:
+        return [forward(ps[0], cfg, tokens[0], return_hidden=True)]
+    check_tp(cfg, len(ps))
+    layers.check_q_len(tokens[0].shape[1])
+    xs = embed_lookup_tp(ps, tokens, cfg)
+    for i, kind in enumerate(layer_kinds(cfg)):
+        xs = apply_block_tp([p.layers[i] for p in ps], xs, cfg, kind)
+    return [apply_norm(p.ln_f, x, cfg) for p, x in zip(ps, xs)]
 
 
 def _zip(trees):
@@ -349,7 +460,8 @@ def decode_step(params, cache, cfg: ModelConfig, token):
     return _logits(params, x, cfg), new_cache
 
 
-__all__ = ["Model", "apply_block", "apply_block_decode", "decode_step",
-           "embed_lookup", "forward", "head_matrix", "init_block",
+__all__ = ["Model", "apply_block", "apply_block_decode", "apply_block_tp",
+           "check_tp", "decode_step", "embed_lookup", "embed_lookup_tp",
+           "forward", "forward_tp", "head_matrix", "init_block",
            "init_cache", "init_model", "layer_kinds", "stack_layers",
-           "unstack_layers"]
+           "unstack_layers", "vocab_split"]

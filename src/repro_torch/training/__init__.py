@@ -1,6 +1,6 @@
-"""Training on one device: optimizer, loop, checkpointing, data (the
-reference's ``training/`` without its sharded half: ``compression`` and
-``pipeline`` need a mesh, ROADMAP item 12.3)."""
+"""Training: optimizer, loop (on one device or sharded over a mesh),
+checkpointing, data, gradient compression and the pipeline schedule (the
+reference's ``training/``)."""
 from .optimizer import OptimizerConfig
 from .train_loop import (ControllerConfig, TrainController, chunked_xent,
                          init_state, make_loss_fn, make_train_step,

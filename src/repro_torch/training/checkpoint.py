@@ -1,5 +1,5 @@
 """Train-state checkpoints: atomic, checksummed, retained, saved in the
-background. The reference's ``training/checkpoint.py``, single device.
+background. The reference's ``training/checkpoint.py``.
 
 Each step is ONE flat ``.npz`` (the state's tensors in
 :func:`~.tree.leaves` order, plus JSON meta with the data-pipeline
@@ -13,8 +13,13 @@ back to the next-older step instead of resuming from garbage. A save
 copies the state to the host before it returns (the train step then
 updates its tensors in place) and writes on a worker thread. A restore
 puts each tensor on the device and in the dtype of ``like``'s (a
-bfloat16 tensor is stored as float32, exactly). The reference's
-reshard-on-load needs a mesh: the sharded half of ROADMAP item 12.3.
+bfloat16 tensor is stored as float32, exactly).
+
+A sharded state (``sharding.Sharded`` leaves) is gathered whole before
+it is written, so the blob and its digest do not depend on the mesh.
+``restore(shardings=)`` reshards on load: each tensor is placed by its
+spec over the current sharding context's mesh, whatever mesh (or single
+device) wrote it (the reference's elastic shrink/grow).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import re
 import numpy as np
 import torch
 
+from .. import sharding
 from ..obs.metrics import counter as _counter
 from ..obs.trace import span as _span
 from ..resilience.snapshot import payload_digest
@@ -47,7 +53,10 @@ def _payload(host_leaves, meta_bytes) -> dict:
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
-    """A host copy of ``x`` (bfloat16, which numpy lacks, as float32)."""
+    """A host copy of ``x`` (bfloat16, which numpy lacks, as float32);
+    a sharded tensor gathered whole."""
+    if isinstance(x, sharding.Sharded):
+        x = sharding.gather_tensor(x, "cpu")
     x = x.detach()
     if x.dtype == torch.bfloat16:
         x = x.float()
@@ -144,7 +153,7 @@ class CheckpointManager:
             except OSError:
                 pass
 
-    def _unflatten(self, host, meta, like):
+    def _unflatten(self, host, meta, like, shardings):
         if like is None:
             raise ValueError("restore requires `like` (a state of the same "
                              "structure) for the tree and devices")
@@ -152,24 +161,44 @@ class CheckpointManager:
         if len(ref) != len(host):
             raise ValueError(f"checkpoint has {len(host)} leaves, `like` "
                              f"{len(ref)}")
+        if shardings is not None:
+            ctx = sharding.current()
+            if ctx is None:
+                raise ValueError("restore(shardings=) reshards onto the "
+                                 "current mesh: call it under "
+                                 "sharding.use(ctx)")
+            specs = _spec_leaves(like, shardings)
+        else:
+            specs = [None] * len(ref)
         with _span("checkpoint.load", step=meta["step"]):
-            flat = [torch.from_numpy(a).to(x.device, x.dtype)
-                    for a, x in zip(host, ref)]
+            flat = []
+            for a, x, spec in zip(host, ref, specs):
+                t = torch.from_numpy(a)
+                if spec is not None:
+                    flat.append(sharding.place_tensor(t.to(x.dtype), spec,
+                                                      ctx.mesh))
+                elif isinstance(x, sharding.Sharded):
+                    flat.append(sharding.place_tensor(t.to(x.dtype), x.spec,
+                                                      x.mesh))
+                else:
+                    flat.append(t.to(x.device, x.dtype))
         _events().inc("load")
         return unflatten(like, flat), meta["data_state"]
 
-    def restore(self, step: int, like=None):
+    def restore(self, step: int, like=None, shardings=None):
         """Load one step onto ``like``'s structure, devices and dtypes.
-        Raises on a corrupt blob — use :meth:`restore_latest` for
-        quarantine-and-fall-back semantics."""
+        ``shardings`` (specs of the same structure,
+        ``launch.specs.state_shardings``) reshards onto the current
+        sharding context's mesh. Raises on a corrupt blob — use
+        :meth:`restore_latest` for quarantine-and-fall-back semantics."""
         for s, name in self._blobs():
             if s == step:
                 host, meta = self._load(name)
-                return self._unflatten(host, meta, like)
+                return self._unflatten(host, meta, like, shardings)
         raise FileNotFoundError(f"no checkpoint for step {step} in "
                                 f"{self.dir}")
 
-    def restore_latest(self, like=None):
+    def restore_latest(self, like=None, shardings=None):
         """Newest *intact* checkpoint, or ``None`` with an empty dir.
         Corrupt blobs met on the way down are quarantined and skipped."""
         if like is None:
@@ -180,8 +209,27 @@ class CheckpointManager:
             except Exception:
                 self._quarantine(name)
                 continue
-            return self._unflatten(host, meta, like)
+            return self._unflatten(host, meta, like, shardings)
         return None
+
+
+def _spec_leaves(like, shardings) -> list:
+    """One spec (or ``None``: left where ``like`` has it) for each tensor
+    of ``like``, in :func:`~.tree.leaves` order."""
+    out = []
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], None if spec is None else spec[k])
+        elif isinstance(node, list):
+            for i, x in enumerate(node):
+                walk(x, None if spec is None else spec[i])
+        else:
+            out.append(spec)
+
+    walk(like, shardings)
+    return out
 
 
 __all__ = ["CheckpointManager"]

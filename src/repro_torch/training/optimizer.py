@@ -14,6 +14,13 @@ Unlike the reference's, ``update`` writes the new parameters and moments
 into the tensors it is given (returning the same trees) and
 ``clip_by_global_norm`` scales the gradients in place: a step at full
 width then holds one copy of each.
+
+Over a mesh (leaves that are ``sharding.Sharded``) AdamW updates each
+piece on its device; the global norm counts each element once (one
+piece a block, replicas skipped), summed on the first piece's device;
+Adafactor, whose factored statistics span the whole leaf and are
+replicated, gathers a leaf at a time onto the mesh's first device,
+updates it there and copies the result back into every piece.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import sharding
 from .tree import each, leaves, rank, tree_map
 
 _F32 = np.float32
@@ -69,13 +77,22 @@ def _sumsq(x) -> torch.Tensor:
     return total
 
 
+def _blocks(x) -> list[torch.Tensor]:
+    """Each element of a leaf tensor once: the tensor, or one piece a
+    block of a sharded one."""
+    if isinstance(x, sharding.Sharded):
+        return [x.pieces[k] for k in x.blocks().values()]
+    return [x]
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in :func:`~.tree.leaves` order) of each
-    leaf's sum of squares, float32, on the leaves' device."""
+    leaf's sum of squares, float32, on the first leaf's device."""
     total = None
     for x in leaves(tree):
-        sq = _sumsq(x)
-        total = sq if total is None else total + sq
+        for part in _blocks(x):
+            sq = _sumsq(part)
+            total = sq if total is None else total + sq.to(total.device)
     return total.sqrt()
 
 
@@ -85,7 +102,9 @@ def clip_by_global_norm(grads, max_norm: float):
     g = global_norm(grads)
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
     for x in leaves(grads):
-        x.mul_(scale.to(x.dtype))
+        for part in (x.pieces.values() if isinstance(x, sharding.Sharded)
+                     else (x,)):
+            part.mul_(scale.to(part.device, part.dtype))
     return grads, g
 
 
@@ -201,6 +220,13 @@ def adafactor_update(grads, opt_state, params, cfg: OptimizerConfig):
     beta = float(_F32(1.0) - (_F32(int(step)) + _F32(1.0)) ** _F32(-0.8))
 
     def upd(g, f, p):
+        if sharding.is_sharded(p):  # a leaf at a time, whole, then back
+            pw, fw = sharding.gather(p), sharding.gather(f)
+            upd(sharding.gather(g), fw, pw)
+            for src, dst in ((pw, p), (fw, f)):
+                for a, b in zip(leaves(src), leaves(dst)):
+                    sharding.fill(b, a)
+            return
         stacked = _stack(p)
         if stacked is not None:
             new = _adafactor_leaf(torch.stack(g), f, stacked, lr, beta, cfg)

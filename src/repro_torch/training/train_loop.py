@@ -1,5 +1,5 @@
 """Loss, train_step factory, and the fault-tolerant training controller:
-the reference's ``training/train_loop.py`` on one device.
+the reference's ``training/train_loop.py``.
 
 The train state is ``{"params", "opt", "step"}``, ``params`` in the
 reference's stage layout (``models.transformer.stack_layers``: each
@@ -8,9 +8,21 @@ int32 tensor on the host. A step takes gradients with
 ``torch.autograd.grad`` through ``models.transformer.forward`` on a view
 of the params whose tensors require grad (``unstack_layers``), clips
 them and updates params and moments in place (``training.optimizer``).
-The reference's ``sharding.shard(...)`` calls are no-ops without a mesh
-context and are dropped; ``param_shardings`` and the mesh are the
-sharded half of ROADMAP item 12.3.
+
+Under a mesh (``make_train_step(param_shardings=)``, or a
+``sharding.use(ctx)`` context) the state's tensors are
+``sharding.Sharded`` (``launch.specs.place_state``) and one process
+drives every position: the batch is split over the dp axes; each
+position gathers its fsdp dims into working copies (in the compute dtype
+under ``cast_params_once``, as the reference's; else the masters'
+dtype, and each layer casts at use as on one device) and runs
+``transformer.forward_tp`` with the other positions of its model axis;
+the loss is the global ``sum(nll * mask) / sum(mask)``; one
+``torch.autograd.grad`` takes every position's gradients, which are
+summed over the positions that hold replicas and kept, on each device,
+only for its own blocks (``sharding.reduce_grads``); then the clip and
+the update run on each piece on its device. Nothing in the step waits
+on the host.
 """
 from __future__ import annotations
 
@@ -24,8 +36,11 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding
+from ..launch import specs
 from ..models import transformer
 from ..models.common import ModelConfig, tree_of
+from ..tensorized import cpd_logits
 from . import optimizer as opt_lib
 from .optimizer import OptimizerConfig
 from .tree import each, leaves, rank, tree_map, unflatten
@@ -44,17 +59,23 @@ def _mask_padded(lf, vocab: int):
     return lf
 
 
-def softmax_xent(logits, targets, vocab: int):
-    """f32 cross-entropy; positions with target < 0 are masked; padded
-    vocab rows (>= vocab) are excluded from the partition function. The
-    picked logit is gathered (the reference's one-hot contraction sums
-    the same single term)."""
+def _softmax_sums(logits, targets, vocab: int):
+    """(sum of the masked NLL, count of targets) over all positions."""
     lf = _mask_padded(logits.float(), vocab)
     lse = torch.logsumexp(lf, dim=-1)
     tgt = targets.clamp_min(0).long()
     picked = lf.gather(-1, tgt[..., None])[..., 0]
     mask = (targets >= 0).float()
-    return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)
+    return ((lse - picked) * mask).sum(), mask.sum()
+
+
+def softmax_xent(logits, targets, vocab: int):
+    """f32 cross-entropy; positions with target < 0 are masked; padded
+    vocab rows (>= vocab) are excluded from the partition function. The
+    picked logit is gathered (the reference's one-hot contraction sums
+    the same single term)."""
+    nll, cnt = _softmax_sums(logits, targets, vocab)
+    return nll / cnt.clamp_min(1.0)
 
 
 def _xent_chunk(xc, head, tc, vocab: int):
@@ -70,27 +91,67 @@ def _xent_chunk(xc, head, tc, vocab: int):
     return ((lse - picked) * mask).sum(), mask.sum()
 
 
+def _xent_part(xc, hd, tc, vocab: int, j: int):
+    """Vocab shard ``j``'s share of :func:`_xent_chunk`: the
+    log-partition over its head columns ``j * n`` to ``(j + 1) * n``
+    (padded columns, ids >= ``vocab``, lie on the last shards) and the
+    picked logit where it owns the target (0 elsewhere)."""
+    n = hd.shape[-1]
+    logits = xc @ hd
+    cols = j * n + torch.arange(n, device=logits.device)
+    lse = torch.logsumexp(torch.where(cols >= vocab, _NEG, logits.float()),
+                          dim=-1)
+    local = tc.clamp_min(0).long() - j * n
+    own = (local >= 0) & (local < n)
+    got = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return lse, torch.where(own, got.float(), 0.0)
+
+
+def _chunked_sums(xs, heads, targets, vocab: int, chunk: int = 512):
+    """(sum of the masked NLL, count of targets) of :func:`chunked_xent`;
+    ``xs``, ``heads`` and ``targets`` one a vocab shard (one for a whole
+    head). Over shards, each shard's part of a chunk is recomputed in
+    backward on its own (:func:`_xent_part`), and the parts meet on the
+    first shard's device: the log-partitions by a log-sum-exp over the
+    shards (the max trick), the picked logits by a sum."""
+    s = xs[0].shape[1]
+    cs = min(chunk, s)
+    n_chunks = (s + cs - 1) // cs
+    heads = [h.to(x.dtype) for h, x in zip(heads, xs)]
+    grad = torch.is_grad_enabled()
+
+    def run(fn, *args):
+        if grad:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    nll = cnt = 0.0
+    for i in range(n_chunks):
+        lo = min(i * cs, s - cs)
+        xc = [x[:, lo:lo + cs] for x in xs]
+        tc = [t[:, lo:lo + cs] for t in targets]
+        if len(xs) == 1:
+            part, n = run(_xent_chunk, xc[0], heads[0], tc[0], vocab)
+        else:
+            parts = [run(_xent_part, x, h, t, vocab, j)
+                     for j, (x, h, t) in enumerate(zip(xc, heads, tc))]
+            dev = xc[0].device
+            lse = torch.logsumexp(torch.stack([p[0].to(dev)
+                                               for p in parts]), dim=0)
+            picked = sum(p[1].to(dev) for p in parts)
+            mask = (tc[0] >= 0).float()
+            part, n = ((lse - picked) * mask).sum(), mask.sum()
+        nll, cnt = nll + part, cnt + n
+    return nll, cnt
+
+
 def chunked_xent(x, head, targets, vocab: int, cfg, chunk: int = 512):
     """Cross-entropy with the head matmul in a sequence-chunk loop: full
     (B, S, V) logits are never materialised, and where autograd records
     each chunk is recomputed in backward. A last chunk that S does not
     fill starts at S - chunk, as the reference's ``dynamic_slice`` clamps
     it (its overlap is counted twice there too)."""
-    b, s, d = x.shape
-    cs = min(chunk, s)
-    n_chunks = (s + cs - 1) // cs
-    hd = head.to(x.dtype)
-    grad = torch.is_grad_enabled()
-    nll = cnt = 0.0
-    for i in range(n_chunks):
-        lo = min(i * cs, s - cs)
-        xc, tc = x[:, lo:lo + cs], targets[:, lo:lo + cs]
-        if grad:
-            part, n = checkpoint(_xent_chunk, xc, hd, tc, vocab,
-                                 use_reentrant=False)
-        else:
-            part, n = _xent_chunk(xc, hd, tc, vocab)
-        nll, cnt = nll + part, cnt + n
+    nll, cnt = _chunked_sums([x], [head], [targets], vocab, chunk)
     return nll / torch.clamp(cnt, min=1.0)
 
 
@@ -111,8 +172,127 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
     return loss_fn
 
 
+def loss_sums_tp(cfg: ModelConfig, views, batches):
+    """(sum of the masked NLL, count of targets) of one dp slice over the
+    model axis: ``views`` and ``batches`` one a shard. A vocab-split head
+    takes each shard's :func:`_xent_part`; a replicated one (or the CPD
+    head) computes the loss on the first shard only."""
+    tokens = [b["tokens"] for b in batches]
+    targets = [b["targets"] for b in batches]
+    hs = transformer.forward_tp(views, cfg, tokens)
+    if cfg.cpd_embedding:  # CPD head: factored logits on the first shard
+        return _softmax_sums(cpd_logits(views[0].embed_cpd, hs[0]),
+                             targets[0], cfg.vocab)
+    if transformer.vocab_split(views[0], cfg):
+        heads = [transformer.head_matrix(v, cfg) for v in views]
+        return _chunked_sums(hs, heads, targets, cfg.vocab)
+    return _chunked_sums(hs[:1], [transformer.head_matrix(views[0], cfg)],
+                         targets[:1], cfg.vocab)
+
+
+def _cast_flags(params) -> list[bool]:
+    """For each tensor (in :func:`leaves` order), whether its leaf's
+    stacked rank is >= 2 (the leaves the working copy casts)."""
+    return leaves(tree_map(lambda leaf: [rank(leaf) >= 2]
+                           * len(leaves(leaf)), params))
+
+
+def _step(ocfg: OptimizerConfig, grad_accum: int, enter, grads_of, finish):
+    """``train_step(state, batch) -> (state, metrics)`` around a gradient
+    source: ``enter(state) -> (state, fwd)`` once a step, ``grads_of(fwd,
+    mb) -> (loss, [grad, ...])`` once a microbatch, ``finish(params,
+    grads)`` the gradient tree in the masters' layout and dtype. The
+    microbatches' gradients are summed in place and divided, then clipped
+    and applied."""
+
+    def train_step(state, batch):
+        state, fwd = enter(state)
+        if grad_accum == 1:
+            loss, grads = grads_of(fwd, batch)
+        else:
+            mbs = {k: v.reshape(grad_accum, -1, *v.shape[1:])
+                   for k, v in batch.items()}
+            loss, grads = 0.0, None
+            for i in range(grad_accum):
+                li, gi = grads_of(fwd, {k: v[i] for k, v in mbs.items()})
+                loss = loss + li
+                if grads is None:
+                    grads = gi
+                else:
+                    for a, b in zip(grads, gi):
+                        a.add_(b)
+            for g in grads:
+                g.div_(grad_accum)
+            loss = loss / grad_accum
+        params = state["params"]
+        grads, gnorm = opt_lib.clip_by_global_norm(finish(params, grads),
+                                                   ocfg.grad_clip)
+        new_params, new_opt, lr = opt_lib.update(grads, state["opt"],
+                                                 params, ocfg)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return {"params": new_params, "opt": new_opt,
+                "step": state["step"] + 1}, metrics
+
+    return train_step
+
+
+def _sharded_step(cfg: ModelConfig, ocfg: OptimizerConfig, grad_accum: int,
+                  ctx, param_shardings, cast_params_once: bool):
+    transformer.check_tp(cfg, ctx.tp)
+    mesh = ctx.mesh
+    pos_all = sharding.positions(mesh)
+    tp_k = mesh.axis_names.index(ctx.tp_axis) if ctx.tp_axis else None
+    groups: dict = {}                  # dp coordinates -> model-axis row
+    for pos in pos_all:
+        dp_key = tuple(c for k, c in enumerate(pos) if k != tp_k)
+        groups.setdefault(dp_key, []).append(pos)
+
+    def enter(state):
+        if not sharding.is_sharded(state["params"]):
+            state = specs.place_state(state, ctx, specs.state_shardings(
+                state, ctx, param_shardings))
+        params = state["params"]
+        return state, (params, leaves(params), _cast_flags(params))
+
+    def grads_of(fwd, mb):
+        """The loss and every position's gradients, position-major."""
+        params, flat, flags = fwd
+        placed = sharding.place(mb, specs.batch_shardings(cfg, mb, ctx), ctx)
+        work = {}
+        for pos in pos_all:
+            work[pos] = [sharding.working_copy(
+                s, pos, ctx, cfg.cdtype if cast_params_once and f
+                and s.is_floating_point() else None).detach()
+                .requires_grad_(True) for s, f in zip(flat, flags)]
+        nlls, cnts = [], []
+        for row in groups.values():
+            views = [transformer.unstack_layers(cfg,
+                                                unflatten(params, work[p]))
+                     for p in row]
+            batches = [{k: v.at(p) for k, v in placed.items()} for p in row]
+            nll, cnt = loss_sums_tp(cfg, views, batches)
+            nlls.append(nll)
+            cnts.append(cnt)
+        dev = nlls[0].device
+        nll = sum(x.to(dev) for x in nlls)
+        cnt = sum(x.to(dev) for x in cnts)
+        loss = nll / torch.clamp(cnt, min=1.0)
+        req = [t for p in pos_all for t in work[p]]
+        return loss.detach(), list(torch.autograd.grad(
+            loss, req, materialize_grads=True))
+
+    def finish(params, grads):
+        flat = leaves(params)
+        n = len(flat)
+        return unflatten(params, [sharding.reduce_grads(
+            s, {p: grads[k * n + i] for k, p in enumerate(pos_all)}, ctx)
+            for i, s in enumerate(flat)])
+
+    return _step(ocfg, grad_accum, enter, grads_of, finish)
+
+
 def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
-                    grad_accum: int = 1,
+                    grad_accum: int = 1, param_shardings=None,
                     cast_params_once: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state
     is updated in place and returned.
@@ -123,7 +303,23 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
     one working copy in the compute dtype of the leaves of stacked rank
     >= 2 at step entry, takes the gradients of those copies and casts them
     back to float32 for the update. ``metrics``: ``loss`` and
-    ``grad_norm`` (0-d tensors on the device), ``lr`` (a float)."""
+    ``grad_norm`` (0-d tensors on the device), ``lr`` (a float).
+
+    Under a sharding context (``sharding.use(ctx)`` when the step is made)
+    the step is the sharded one (see the module docstring; its working
+    copies are in the compute dtype with ``cast_params_once``, else in
+    the masters' dtype, cast at use as on one device), and
+    ``param_shardings``
+    (a tree of specs, ``sharding.param_sharding_tree``'s by default)
+    places a state that is not placed yet. ``param_shardings`` without a
+    context raises ``ValueError``."""
+    ctx = sharding.current()
+    if ctx is not None:
+        return _sharded_step(cfg, ocfg, grad_accum, ctx, param_shardings,
+                             cast_params_once)
+    if param_shardings is not None:
+        raise ValueError("param_shardings needs a mesh: make the step "
+                         "under sharding.use(ctx)")
     loss_fn = make_loss_fn(cfg)
 
     def cast(leaf):
@@ -132,55 +328,40 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
         return each(lambda p: p.to(cfg.cdtype) if p.is_floating_point()
                     else p, leaf)
 
-    def one(fwd, mb):
+    def enter(state):
+        params = state["params"]
+        return state, tree_map(cast, params) if cast_params_once else params
+
+    def grads_of(fwd, mb):
         req = [x.detach().requires_grad_(True) for x in leaves(fwd)]
         view = transformer.unstack_layers(cfg, unflatten(fwd, req))
         loss = loss_fn(view, mb)
-        grads = torch.autograd.grad(loss, req, materialize_grads=True)
-        return loss.detach(), list(grads)
+        return loss.detach(), list(torch.autograd.grad(
+            loss, req, materialize_grads=True))
 
-    def train_step(state, batch):
-        params = state["params"]
-        fwd = tree_map(cast, params) if cast_params_once else params
-        if grad_accum == 1:
-            loss, grads = one(fwd, batch)
-        else:
-            mbs = {k: v.reshape(grad_accum, -1, *v.shape[1:])
-                   for k, v in batch.items()}
-            loss, grads = 0.0, None
-            for i in range(grad_accum):
-                li, gi = one(fwd, {k: v[i] for k, v in mbs.items()})
-                loss = loss + li
-                if grads is None:
-                    grads = gi
-                else:
-                    for a, b in zip(grads, gi):
-                        a.add_(b)
-            for g in grads:
-                g.div_(grad_accum)
-            loss = loss / grad_accum
+    def finish(params, grads):
         # grads back to the masters' dtype for the update
-        grads = [g.to(p.dtype) if g.dtype != p.dtype else g
-                 for g, p in zip(grads, leaves(params))]
-        grads = unflatten(params, grads)
-        grads, gnorm = opt_lib.clip_by_global_norm(grads, ocfg.grad_clip)
-        new_params, new_opt, lr = opt_lib.update(grads, state["opt"],
-                                                 params, ocfg)
-        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
-        return {"params": new_params, "opt": new_opt,
-                "step": state["step"] + 1}, metrics
+        return unflatten(params, [g.to(p.dtype) if g.dtype != p.dtype else g
+                                  for g, p in zip(grads, leaves(params))])
 
-    return train_step
+    return _step(ocfg, grad_accum, enter, grads_of, finish)
 
 
 def init_state(cfg: ModelConfig, ocfg: OptimizerConfig, seed: int = 0,
                device="cuda") -> dict:
     """``models.transformer.init_model`` on ``device`` from ``seed``, in
-    the stage layout, with a fresh optimizer state."""
+    the stage layout, with a fresh optimizer state. Under a sharding
+    context it is drawn on the mesh's first device and placed over the
+    mesh (``launch.specs.place_state``)."""
+    ctx = sharding.current()
+    if ctx is not None:
+        transformer.check_tp(cfg, ctx.tp)
+        device = ctx.mesh.devices.flat[0]
     model = transformer.init_model(cfg, seed, device=device)
     params = _detached(transformer.stack_layers(cfg, tree_of(model)))
-    return {"params": params, "opt": opt_lib.init(params, ocfg),
-            "step": torch.zeros((), dtype=torch.int32)}
+    state = {"params": params, "opt": opt_lib.init(params, ocfg),
+             "step": torch.zeros((), dtype=torch.int32)}
+    return state if ctx is None else specs.place_state(state, ctx)
 
 
 def _detached(tree):
@@ -233,7 +414,10 @@ class TrainController:
         self.state = state
         if self.state is None:
             self.state = init_state(cfg, ocfg, seed, device=device)
-            restored = self.mgr.restore_latest(like=self.state)
+            ctx = sharding.current()
+            restored = self.mgr.restore_latest(
+                like=self.state, shardings=None if ctx is None
+                else specs.state_shardings(self.state, ctx))
             if restored is not None:
                 self.state, data_state = restored
                 self.data.set_state(data_state)
@@ -271,4 +455,5 @@ class TrainController:
 
 
 __all__ = ["ControllerConfig", "TrainController", "chunked_xent",
-           "init_state", "make_loss_fn", "make_train_step", "softmax_xent"]
+           "init_state", "loss_sums_tp", "make_loss_fn", "make_train_step",
+           "softmax_xent"]

@@ -7,13 +7,17 @@ reference stacks a stage's layers on a leading scan axis
 ``rep`` tensors of that leaf as a list (``models.transformer.
 stack_layers``). Rules that read a leaf's rank (weight decay, Adafactor's
 factoring, the bf16 working copy) read the stacked rank, one more than
-each tensor's, so that they take the reference's decisions.
+each tensor's, so that they take the reference's decisions. Under a
+mesh each tensor is a :class:`~repro_torch.sharding.Sharded` (its pieces
+over the mesh's positions), and :func:`each` visits every piece.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+from ..sharding import Sharded
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -27,9 +31,14 @@ def tree_map(fn: Callable, tree, *rest):
 
 def each(fn: Callable, leaf, *rest):
     """``fn`` on every tensor of a leaf: one call for a tensor, one a
-    layer for a list (the other leaves indexed alike)."""
+    layer for a list (the other leaves indexed alike), one a piece for a
+    :class:`~repro_torch.sharding.Sharded` (the other leaves' pieces at
+    the same key)."""
     if isinstance(leaf, list):
-        return [fn(x, *(r[i] for r in rest)) for i, x in enumerate(leaf)]
+        return [each(fn, x, *(r[i] for r in rest))
+                for i, x in enumerate(leaf)]
+    if isinstance(leaf, Sharded):
+        return leaf.map(fn, *rest)
     return fn(leaf, *rest)
 
 

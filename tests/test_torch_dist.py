@@ -589,7 +589,8 @@ def test_make_mesh_and_surviving_mesh():
 def test_shard_state_refuses_other_meshes():
     t = _tensor("a")
     state = engine.init(t, _cfg())
-    with pytest.raises(TypeError, match="item 12.3"):
+    with pytest.raises(TypeError, match="Mesh or a repro_torch.sharding."
+                       "ShardingCtx"):
         dist.shard_state(state, object())
     with pytest.raises(ValueError, match="no axis"):
         dist.shard_state(state, _mesh(2), DistConfig(data_axis="x"))

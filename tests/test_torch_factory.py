@@ -315,16 +315,19 @@ def test_make_engine_plans_like_engine_init_and_reports():
     assert REGISTRY.counter("plan_cache_outcomes")["hit"] >= 1
 
 
+_NOT_A_MESH = "Mesh or a repro_torch.sharding.ShardingCtx"
+
+
 @pytest.mark.parametrize("call,item", [
-    (dict(mesh=object()), "item 12.3"),
-    (dict(mesh=object(), ladder=True), "item 12.3"),
-    (dict(spec=dict(ladder=True), mesh=object()), "item 12.3"),
-    (dict(mesh=object(), resume=object()), "item 12.3")])
+    (dict(mesh=object()), _NOT_A_MESH),
+    (dict(mesh=object(), ladder=True), _NOT_A_MESH),
+    (dict(spec=dict(ladder=True), mesh=object()), _NOT_A_MESH),
+    (dict(mesh=object(), resume=object()), _NOT_A_MESH)])
 def test_make_engine_refuses_what_is_not_ported(call, item):
-    """A mesh that is not the port's ``launch.mesh.Mesh`` (the reference's
-    ``ShardingCtx`` comes with ROADMAP item 12.3) raises ``TypeError``
-    naming its item; no ladder and no resume steps over the refusal, and
-    nothing else runs in its place. The distributed tier itself is held
+    """A mesh that is neither the port's ``launch.mesh.Mesh`` nor a
+    ``sharding.ShardingCtx`` raises ``TypeError`` naming both types; no
+    ladder and no resume steps over the refusal, and nothing else runs in
+    its place. The distributed tier itself is held
     in ``tests/test_torch_dist.py``, the ladder and resume in
     ``tests/test_torch_resilience.py``."""
     idx, val, dims = _coo(nnz=300)

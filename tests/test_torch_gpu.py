@@ -1519,3 +1519,140 @@ def test_train_step_on_the_card(cuda, arch):
         d = (a.cpu() - b).abs()
         assert float(d.max()) <= 2e-3
         assert float(torch.where(m.abs() >= 1e-5, d, 0).max()) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# Sharded training on the card (shards of cuda:0, a single controller)
+# --------------------------------------------------------------------------
+def _card_ctx(shape):
+    import math
+
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_mesh
+
+    axes = ("data", "model")[:len(shape)]
+    return sharding.make_ctx(make_mesh(shape, axes,
+                                       ["cuda:0"] * math.prod(shape)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shape", [("tinyllama-1.1b", (2, 2)),
+                                        ("qwen2.5-3b", (1, 4)),
+                                        ("rwkv6-3b", (2, 1)),
+                                        ("recurrentgemma-9b", (2, 1))])
+def test_sharded_train_step_on_the_card(cuda, arch, shape):
+    """One float32 (TF32 off) sharded step of a smoke config over shards
+    of ``cuda:0`` against the single-device step on the card from the
+    same state: losses rtol 1e-5, every gradient (the first moment)
+    rtol 1e-4 / atol 1e-7, parameters within 1e-6 wherever |g| >= 1e-6
+    and within 2 lr elsewhere (the first Adam step is sign-like where g
+    is float32 noise); the recurrence kernels launch on each dp shard
+    (forward, recompute, backward)."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.configs import smoke
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer
+    from repro_torch.training import (OptimizerConfig, SyntheticLM,
+                                      init_state, make_train_step)
+    from repro_torch.training.tree import leaves
+
+    cfg = dataclasses.replace(smoke(arch), compute_dtype="float32",
+                              remat="full")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    ctx = _card_ctx(shape)
+    one = init_state(cfg, ocfg, 0, device="cuda")
+    two = specs.place_state(one, ctx)
+    batch = SyntheticLM(cfg, 4, 64, device="cuda").next()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, m1 = make_train_step(cfg, ocfg)(one, dict(batch))
+        with sharding.use(ctx):
+            step = make_train_step(cfg, ocfg)
+        kw6.reset_launch_counts()
+        klru.reset_launch_counts()
+        two, m2 = step(two, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    kinds = transformer.layer_kinds(cfg)
+    dp = shape[0]
+    assert kw6.LAUNCHES == {"wkv6": 2 * dp * kinds.count("rwkv"),
+                            "wkv6_bwd": dp * kinds.count("rwkv")}
+    assert klru.LAUNCHES == {"lru_scan": 2 * dp * kinds.count("rec"),
+                             "lru_scan_bwd": dp * kinds.count("rec")}
+    assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-5)
+    got = sharding.gather(two)
+    for a, b in zip(leaves(got["opt"]["m"]), leaves(one["opt"]["m"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-7)
+    for a, b, m in zip(leaves(got["params"]), leaves(one["params"]),
+                       leaves(one["opt"]["m"])):
+        d = (a - b).abs()
+        assert float(d.max()) <= 2e-3
+        assert float(torch.where(m.abs() >= 1e-7, d, 0).max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_sharded_reshard_on_the_card(cuda, tmp_path):
+    """A state placed on (2, 2) shards of the card, saved, restored onto
+    (2, 1): bitwise; the blob is the unsharded save's."""
+    import os
+
+    from repro_torch import sharding
+    from repro_torch.configs import smoke
+    from repro_torch.launch import specs
+    from repro_torch.training import (CheckpointManager, OptimizerConfig,
+                                      init_state)
+    from repro_torch.training.tree import leaves
+
+    cfg = smoke("olmo-1b")
+    ocfg = OptimizerConfig()
+    plain = init_state(cfg, ocfg, 0, device="cuda")
+    ctx4, ctx2 = _card_ctx((2, 2)), _card_ctx((2, 1))
+    mgr = CheckpointManager(str(tmp_path / "a"), async_save=False)
+    mgr.save(specs.place_state(plain, ctx4), {"step": 0})
+    CheckpointManager(str(tmp_path / "b"), async_save=False).save(
+        plain, {"step": 0})
+    assert os.listdir(tmp_path / "a") == os.listdir(tmp_path / "b")
+    with sharding.use(ctx2):
+        back, _ = mgr.restore_latest(
+            like=plain, shardings=specs.state_shardings(plain, ctx2))
+    for a, b in zip(leaves(sharding.gather(back)), leaves(plain)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_pipeline_and_compression_on_the_card(cuda):
+    """``pipeline_apply`` over 4 stages of ``cuda:0`` against the
+    sequential stages (1e-5); ``compressed_grad_sync`` over 4 pods: the
+    same on every pod, the error feedback the residual, a full-rank sync
+    the mean (1e-4)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.compression import compressed_grad_sync
+    from repro_torch.training.pipeline import pipeline_apply
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ws = torch.randn(4, 64, 64, device="cuda", generator=g) / 8
+    x = torch.randn(16, 64, device="cuda", generator=g)
+    want = x
+    for s in range(4):
+        want = torch.tanh(want @ ws[s])
+    mesh = make_mesh((4,), ("pp",), ["cuda:0"] * 4)
+    y = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, x, mesh=mesh,
+                       n_micro=4)
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    grads = [{"w": torch.randn(128, 64, device="cuda", generator=g)}
+             for _ in range(4)]
+    synced, err = compressed_grad_sync(
+        grads, 8, generator=torch.Generator(device="cuda").manual_seed(1))
+    for k in range(4):
+        assert torch.equal(synced[k]["w"], synced[0]["w"])
+        torch.testing.assert_close(err[k]["w"], grads[k]["w"]
+                                   - synced[k]["w"], rtol=0, atol=1e-5)
+    full, _ = compressed_grad_sync(
+        grads, 64, generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.testing.assert_close(full[0]["w"],
+                               sum(gr["w"] for gr in grads) / 4,
+                               rtol=1e-4, atol=1e-4)

@@ -788,14 +788,15 @@ def test_resilience_report_flags_silent_faults():
 def test_distributed_parts_refuse_naming_item_10(case, tmp_path):
     """Item 10 (the distributed tier) is ported, so none of its parts
     refuses any more: ``cp_als`` refuses only a mesh that is not the
-    port's (naming item 12.3, the sharding context), a spec with
+    port's ``Mesh`` or a ``ShardingCtx`` (naming both), a spec with
     distributed faults installs, and ``save(mesh=)`` writes the v2
     format. The tier itself is held in ``tests/test_torch_dist.py``."""
     from repro_torch.launch.mesh import make_mesh
 
     t = _tensor()
     if case == "cp_als":
-        with pytest.raises(TypeError, match="item 12.3"):
+        with pytest.raises(TypeError, match="Mesh or a repro_torch."
+                           "sharding.ShardingCtx"):
             cp_als(t, 4, iters=1, config=_cfg(), mesh=object())
         assert chaos.active() is None
     elif case == "chaos":

@@ -455,5 +455,7 @@ def test_launch_train_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "done: step=3" in out
     assert CheckpointManager(str(tmp_path)).all_steps() == [3]
-    with pytest.raises(NotImplementedError, match="12.3"):
+    # --mesh without --device cpu takes cards and raises where torch sees
+    # too few: no fallback to the CPU
+    with pytest.raises(RuntimeError, match="cards"):
         launch_train.main(["--arch", "tinyllama-1.1b", "--mesh", "2,2"])
