@@ -51,7 +51,7 @@ times the kernels at each path's shapes.
        ``cuda`` in ~10 chunks a mode, a mutant whose uploads read the
        previous chunk's slots, ``cp_als_stream`` against [3]'s fits;
        [12b] rect nell1 scale 0.01; [12c] twitch scale 0.01 in at least
-       4 chunks a mode; [12d] the paper's vast tensor (scale 0.5) through
+       4 chunks a mode; [12d] the paper's vast tensor (scale 0.25) through
        ``make_engine(PlanSpec(residency="auto"))`` at 1/8 of its
        resident footprint: the streamed rotation timed (uploads, kernels
        and host remap apart) beside the resident one, its peak device
@@ -140,6 +140,30 @@ times the kernels at each path's shapes.
        restored onto (2, 1), bitwise; [17d] ``cp_als(mesh=ctx)`` at nell1
        0.01 against ``cp_als(mesh=Mesh)``; [17e] ``pipeline_apply`` over
        4 stages and ``compressed_grad_sync`` over 4 pods of the card
+  [18] the MoE family (``models/moe.py``; no port kernel on this path:
+       routing, the sort-based dropping dispatch, the combine and the
+       experts' batched products are PyTorch ops, as the reference's are
+       ``jnp`` ops): [18a] olmoe-1b-7b at full width and depth (16
+       layers, 64 experts, top-8, f32 params, random weights from a
+       seed), the bf16 prefill ``forward`` at B 4, S 4096 (C 2,560 an
+       expert; timed, profiled into matmul / softmax / dispatch and
+       combine / other, peak memory; a second prefill's hidden state
+       bitwise the first's), a float32 cross-check of
+       ``forward`` against ``Engine.prefill`` on a 4-layer copy at a
+       capacity factor of E / k (without drops the two paths are the
+       same function), ``Engine.generate`` serving 4 requests of 16 + 32
+       tokens, and a decode step's casts of the expert weights to bf16
+       timed; [18b] the same for qwen3-moe-235b-a22b at full width, its
+       depth cut from 94 layers to 4 (~9.95 GB of f32 a layer: 45 GB at
+       4, ~935 GB at 94); [18c] olmoe on 4 layers (its 16 layers' AdamW
+       state alone would take 111 GB), B 4, S 4096, AdamW, 3 timed
+       steps and one profiled, and a float32 2-layer step on the card
+       against the CPU's; [18d] olmoe on 2 layers over a (data 2, model
+       2) mesh of ``cuda:0`` (32 experts a model shard) at a capacity
+       factor of E / k against the single-device step, then timed steps
+       and a profiled step at the config's own factor (1.25), the
+       float32 copy and the copy without the exchange that returns the
+       experts' outputs, which must fail
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -298,6 +322,18 @@ function on absolute inputs) and ``u = 2**-24``:
     the pipeline within 1e-5 of its sequential stages, a full-rank
     compressed sync within 1e-4 of the mean, its error feedback the
     residual within 1e-5.
+  * [18] the float32 checks as [15a]'s, [16a]'s and [17a]'s, with one
+    more source of difference: a token's top-k experts are a
+    discontinuous function of its router scores, which the two sides
+    compute in float32 in another order (~3e-6 apart at d 2048), so a
+    token whose k-th and (k+1)-th scores lie closer than that may take
+    another expert on each side and move its output by ~1/k of itself.
+    At a gap of ~0.07 between them (64 experts, scores of std ~0.9)
+    that is ~4e-5 a routing, so the float32 checks route few tokens
+    (B 2 x S 16 through 4 layers; B 1 x S 64 and B 2 x S 32 through 2):
+    ~0.5% each that one token flips. The bf16 prefill and serving are
+    checked for shape and finiteness; [18d]'s bf16 step at [17a]'s
+    limits.
 """
 from __future__ import annotations
 
@@ -1623,6 +1659,8 @@ def device_breakdown(fn, kernel="wkv6"):
     """Device time of one call of ``fn`` by kernel class, from
     ``torch.profiler``: ms in ``kernel`` (the port's kernel on the path;
     or a tuple of names, each kernel counted under the first it
+    contains; or a dict of labels to tuples of name fragments, each
+    kernel counted under the first label one of whose fragments it
     contains), in matrix products (cuBLAS, CUTLASS and nvjet kernels) and
     in all other kernels, the number of
     kernels, the host's wall ms (call + synchronize) and the device's
@@ -1639,7 +1677,8 @@ def device_breakdown(fn, kernel="wkv6"):
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    names = ({kernel: (kernel,)} if isinstance(kernel, str) else kernel
+             if isinstance(kernel, dict) else {k: (k,) for k in kernel})
     ms = {**{k: 0.0 for k in names}, "matmul": 0.0, "other": 0.0}
     top, n = [], 0
     for e in prof.key_averages():
@@ -1647,7 +1686,8 @@ def device_breakdown(fn, kernel="wkv6"):
             continue
         t = e.device_time_total / 1e3
         name = e.key.lower()
-        kind = next((k for k in names if k in name), None) or (
+        kind = next((k for k, frags in names.items()
+                     if any(f in name for f in frags)), None) or (
             "matmul" if any(w in name for w in ("gemm", "xmma", "nvjet",
                                                 "cutlass")) else "other")
         ms[kind] += t
@@ -2090,9 +2130,10 @@ def lru_scan_record(lru):
 STREAM_LAYOUT = ("val", "idx", "alpha", "lrow")
 STREAM_CHUNK = 1 << 20         # [12a]: chunk slots, ~10 chunks a mode
 RECT_STREAM_CHUNK = 1 << 22    # [12b]: ~9 chunks a rect mode
-VAST_SCALE = 0.5               # [12d]: the paper's vast tensor at half
-#                                scale, so the whole run with [17] stays
-#                                inside its time limit (ROADMAP)
+VAST_SCALE = 0.25              # [12d]: the paper's vast tensor at a
+#                                quarter scale, so the whole run with
+#                                [17] and [18] stays well inside its time
+#                                limit on a slow host (ROADMAP)
 VAST_REPS = 3                  # [12d]: timed rotations, median taken
 
 
@@ -3645,10 +3686,10 @@ def first_layers(model, cfg4):
     return small
 
 
-def dense_prefill(tag, model, cfg, tokens, reps):
+def dense_prefill(tag, model, cfg, tokens, reps, kernel="softmax"):
     """The main path: one bf16 prefill ``forward``, checked (shape,
     finite), then timed (median of ``reps`` CUDA-event runs) and profiled
-    (matmul / softmax / other device time)."""
+    (matmul / ``kernel`` (softmax) / other device time)."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.tensorized import split_dims
@@ -3670,7 +3711,7 @@ def dense_prefill(tag, model, cfg, tokens, reps):
         out["forward_ms"] = cuda_median_ms(
             lambda: transformer.forward(model, cfg, tokens), reps)
         out["forward_profile"] = device_breakdown(
-            lambda: transformer.forward(model, cfg, tokens), "softmax")
+            lambda: transformer.forward(model, cfg, tokens), kernel)
     log(f"{tag} forward (B {tokens.shape[0]}, S {tokens.shape[1]}, bf16, "
         f"logits width {width}): {out['forward_ms']:.1f} ms (median of "
         f"{reps}), peak {out['prefill_peak_gib']:.2f} GiB")
@@ -4047,9 +4088,10 @@ def grad_leaf_check(tag, got, want):
     return worst
 
 
-def train_grad_check(tag, cfg, state):
-    """A float32 copy (TF32 off) of the first ``GRAD_LAYERS`` layers takes
-    one step on the card and on the CPU from the same state: every
+def train_grad_check(tag, cfg, state, layers=GRAD_LAYERS, seq=GRAD_SEQ):
+    """A float32 copy (TF32 off) of the first ``layers`` layers takes
+    one step (B 1, S ``seq``) on the card and on the CPU from the same
+    state: every
     gradient leaf (recovered from the first moment, m = (1 - b1) g after
     one step) within ``GRAD_RTOL`` of the leaf's largest, the losses
     within 1e-4; the check must fail when one layer's gradient is
@@ -4061,14 +4103,14 @@ def train_grad_check(tag, cfg, state):
                                       optimizer)
     from repro_torch.training.tree import leaves, tree_map
 
-    cfg4 = dataclasses.replace(cfg, n_layers=GRAD_LAYERS,
+    cfg4 = dataclasses.replace(cfg, n_layers=layers,
                                compute_dtype="float32")
     ocfg = train_ocfg(1)
-    batch = SyntheticLM(cfg4, 1, GRAD_SEQ, seed=1, device="cpu").next()
+    batch = SyntheticLM(cfg4, 1, seq, seed=1, device="cpu").next()
     outs = {}
     for dev in ("cuda", "cpu"):
-        params = _tree_copy(first_layers_params(state["params"],
-                                                GRAD_LAYERS), dev)
+        params = _tree_copy(first_layers_params(state["params"], layers),
+                            dev)
         st = {"params": params, "opt": optimizer.init(params, ocfg),
               "step": torch.zeros((), dtype=torch.int32)}
         new, m = make_train_step(cfg4, ocfg)(
@@ -4087,7 +4129,7 @@ def train_grad_check(tag, cfg, state):
     else:
         raise AssertionError(f"{tag} the gradient check does not catch a "
                              "step that drops one layer's gradient")
-    log(f"{tag} float32 step of {GRAD_LAYERS} layers (B 1, S {GRAD_SEQ}, "
+    log(f"{tag} float32 step of {layers} layers (B 1, S {seq}, "
         f"TF32 off) on the card == on the CPU: {len(leaves(want))} "
         f"gradient leaves (max {share:.3f} of the limit {GRAD_RTOL} x the "
         f"leaf's largest), loss {lc:.6f} / {lw:.6f}; dropping layer 1's "
@@ -4605,41 +4647,44 @@ def shard_step_pair(tag, cfg, ctx, batch, prepare=None, rtol=GRAD_RTOL,
             "leaves": len(leaves(two["params"]))}, two, launches
 
 
-def shard_f32_check(tag, cfg, ctx):
-    """A float32 copy (TF32 off) of the first ``SHARD_F32_LAYERS`` layers:
-    the sharded step against the single-device step at ``GRAD_RTOL``,
-    the losses within 1e-4 relative; the same check must fail a sharded
-    step that drops the sum over the model axis after ``wo``. Returns
-    the numbers and the sharded state (for [17c])."""
+def shard_f32_check(tag, cfg, ctx, hook=("transformer", "sum_heads"),
+                    batch=TRAIN_BATCH, seq=SHARD_F32_SEQ):
+    """A float32 copy (TF32 off) of the first ``SHARD_F32_LAYERS`` layers
+    at B ``batch``, S ``seq``: the sharded step against the single-device
+    step at ``GRAD_RTOL``, the losses within 1e-4 relative; the same
+    check must fail a sharded step that drops ``hook`` (a module of
+    ``repro_torch.models`` and its sum or exchange over the model axis:
+    by default the sum after ``wo``). Returns the numbers and the
+    sharded state (for [17c])."""
     import dataclasses
+    import importlib
 
-    from repro_torch.models import transformer
     from repro_torch.training import SyntheticLM
 
     cfg2 = dataclasses.replace(cfg, n_layers=SHARD_F32_LAYERS,
                                compute_dtype="float32")
-    batch = SyntheticLM(cfg2, TRAIN_BATCH, SHARD_F32_SEQ, seed=1,
-                        device="cuda").next()
-    out, state, _ = shard_step_pair(tag, cfg2, ctx, batch)
-    keep = transformer.sum_heads
-    transformer.sum_heads = lambda parts: parts
+    data = SyntheticLM(cfg2, batch, seq, seed=1, device="cuda").next()
+    out, state, _ = shard_step_pair(tag, cfg2, ctx, data)
+    module = importlib.import_module(f"repro_torch.models.{hook[0]}")
+    keep = getattr(module, hook[1])
+    setattr(module, hook[1], lambda parts: parts)
     try:
-        shard_step_pair(tag, cfg2, ctx, batch)
+        shard_step_pair(tag, cfg2, ctx, data)
     except AssertionError as e:
-        out["dropped_sum"] = str(e)
+        out["dropped_" + hook[1]] = str(e)
     else:
         raise AssertionError(f"{tag} the float32 check does not catch a "
-                             "sharded step that drops the sum after wo")
+                             f"sharded step that drops {hook[1]}")
     finally:
-        transformer.sum_heads = keep
-    log(f"{tag} float32 copy ({SHARD_F32_LAYERS} layers, B {TRAIN_BATCH}, "
-        f"S {SHARD_F32_SEQ}, TF32 off) sharded on {SHARD_MESH} == one "
+        setattr(module, hook[1], keep)
+    log(f"{tag} float32 copy ({SHARD_F32_LAYERS} layers, B {batch}, "
+        f"S {seq}, TF32 off) sharded on {SHARD_MESH} == one "
         f"device: {out['leaves']} leaves (max {out['grad_share']:.3f} of "
         f"the limit {GRAD_RTOL} x the leaf's largest; params within "
         f"{out['param_sure_diff']:.2e} at {out['param_sure_count']:,} sure "
         f"elements), loss "
         f"{out['loss_sharded']:.6f} / {out['loss_single']:.6f}; dropping "
-        "the sum over the model axis after wo fails it")
+        f"{'.'.join(hook)} over the model axis fails it")
     return out, state
 
 
@@ -4652,9 +4697,6 @@ def shard_tinyllama(tag, reps):
     their peak memory,
     and one step under ``torch.profiler``; the float32 check and its
     mutant."""
-    import statistics
-
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.training import SyntheticLM
 
@@ -4662,12 +4704,25 @@ def shard_tinyllama(tag, reps):
     cfg = get_config(TRAIN_ARCH)
     ctx = shard_ctx(SHARD_MESH)
     data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda")
+    out, state = shard_full_pair(tag, cfg, ctx, data)
+    out.update(shard_timed(tag, cfg, ctx, data, state, SHARD_STEPS,
+                           ("copy", "elementwise")))
+    del state
+    free_device_memory()
+    out["f32"], f32_state = shard_f32_check(tag, cfg, ctx)
+    return out, f32_state
+
+
+def shard_full_pair(tag, cfg, ctx, data):
+    """:func:`shard_step_pair` in bf16 at ``[17a]``'s limits on the next
+    batch of ``data``, logged; returns its numbers and the sharded
+    state."""
     out, state, _ = shard_step_pair(tag, cfg, ctx, data.next(),
                                     rtol=SHARD_GRAD_RTOL,
                                     loss_atol=SHARD_LOSS_ATOL)
     log(f"{tag} {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}) at B "
-        f"{TRAIN_BATCH}, S "
-        f"{TRAIN_SEQ} on a {SHARD_MESH} (data, model) mesh of cuda:0: loss "
+        f"{data.batch}, S {data.seq} on a {SHARD_MESH} (data, model) mesh "
+        f"of cuda:0: loss "
         f"{out['loss_sharded']:.5f} against one device's "
         f"{out['loss_single']:.5f} (limit {SHARD_LOSS_ATOL}); "
         f"{out['leaves']} gradient leaves within {out['grad_share']:.3f} of "
@@ -4676,14 +4731,25 @@ def shard_tinyllama(tag, reps):
         f"{out['param_sure_diff']:.2e} at the {out['param_sure_count']:,} "
         f"elements whose gradient's sign is sure (limit {SHARD_PARAM_ATOL}); "
         f"first step {out['first_step_ms']:.0f} ms")
+    return out, state
+
+
+def shard_timed(tag, cfg, ctx, data, state, steps, kernel):
+    """``steps`` sharded steps from ``state`` on ``data``'s batches, each
+    timed on the host clock around a synchronised step, their peak
+    memory, then one more under ``torch.profiler`` (``kernel`` as
+    :func:`device_breakdown` takes it). The state is updated in place."""
+    import statistics
+
+    import torch
     from repro_torch import sharding
     from repro_torch.training import make_train_step
 
     with sharding.use(ctx):
-        step = make_train_step(cfg, train_ocfg(1 + SHARD_STEPS))
+        step = make_train_step(cfg, train_ocfg(1 + steps))
     torch.cuda.reset_peak_memory_stats()
     ms = []
-    for _ in range(SHARD_STEPS):
+    for _ in range(steps):
         b = data.next()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4692,28 +4758,25 @@ def shard_tinyllama(tag, reps):
         ms.append(1e3 * (time.perf_counter() - t0))
         if not math.isfinite(float(m["loss"])):
             raise AssertionError(f"{tag} non-finite loss {float(m['loss'])}")
-    out["step_ms"] = ms
-    out["steady_step_ms"] = statistics.median(ms)
-    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (out["steady_step_ms"]
-                                                      / 1e3)
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out = {"step_ms": ms, "steady_step_ms": statistics.median(ms),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["tokens_per_s"] = data.batch * data.seq / (out["steady_step_ms"]
+                                                    / 1e3)
     b = data.next()
     held = {}
 
     def one():
         held["state"], _ = step(state, b)
 
-    out["profile"] = device_breakdown(one, ("copy", "elementwise"))
-    del held, state
-    free_device_memory()
-    log(f"{tag} {SHARD_STEPS} sharded steps: "
+    out["profile"] = device_breakdown(one, kernel)
+    del held
+    log(f"{tag} {steps} sharded steps: "
         + ", ".join(f"{x:.1f}" for x in ms)
         + f" ms (median {out['steady_step_ms']:.1f}, "
         f"{out['tokens_per_s']:,.0f} tokens/s), peak {out['peak_gib']:.2f} "
         f"GiB; one more under torch.profiler: "
         + breakdown_line(out["profile"]))
-    out["f32"], f32_state = shard_f32_check(tag, cfg, ctx)
-    return out, f32_state
+    return out
 
 
 def shard_recurrent(tag):
@@ -4933,6 +4996,208 @@ def phase_shard(report, reps):
     return launches
 
 
+# --------------------------------------------------------------------------
+# [18] The MoE family.
+# --------------------------------------------------------------------------
+MOE_ARCH, MOE_BIG = "olmoe-1b-7b", "qwen3-moe-235b-a22b"
+MOE_BIG_LAYERS = 4                     # [18b]: 94 layers would not fit one card
+MOE_XCHECK_BATCH, MOE_XCHECK_SEQ = 2, 16
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
+MOE_GRAD_LAYERS, MOE_GRAD_SEQ = 2, 64  # [18c]'s float32 card-vs-CPU step
+MOE_SHARD_LAYERS, MOE_SHARD_STEPS = 2, 2
+MOE_F32_BATCH, MOE_F32_SEQ = 2, 32     # [18d]'s float32 copy
+#: The profile's classes on the MoE path: the softmaxes (attention's and
+#: the router's), and routing, dispatch and combine (the top-k and
+#: dispatch sorts, the row gathers, ``index_copy`` / ``index_add``,
+#: ``searchsorted``; the embedding's row gather and the loss's target
+#: gather land there too).
+MOE_KERNELS = {"softmax": ("softmax",),
+               "dispatch_combine": ("sort", "index", "searchsorted",
+                                    "scatter", "gather")}
+
+
+def no_drops(cfg):
+    """``cfg`` at a capacity factor of E / k: C is then the token count,
+    so no expert drops a pair at any batch or split."""
+    import dataclasses
+
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def expert_cast(model, cfg, reps):
+    """CUDA-event ms (median of ``reps``) of casting every layer's expert
+    weights to the compute dtype, one leaf at a time, as each decode
+    step does (``moe._expert_ffn`` casts at use, as the reference's
+    einsums do), and the bytes that moves (f32 read, bf16 written)."""
+    import torch
+
+    ws = [getattr(layer.moe, k) for layer in model.layers
+          for k in ("w_gate", "w_up", "w_down")]
+
+    def cast():
+        for w in ws:
+            w.to(cfg.cdtype)
+
+    ms = cuda_median_ms(cast, reps)
+    nbytes = sum(w.numel() for w in ws) * (
+        4 + torch.finfo(cfg.cdtype).bits // 8)
+    return ms, nbytes
+
+
+def moe_run(tag, cfg, reps, g):
+    """[18a]/[18b] for one MoE config: init on the card, the bf16 prefill
+    (timed, profiled, peak), the float32 cross-check on a 4-layer copy
+    over the same tensors at :func:`no_drops` (decode routes B tokens a
+    step, the prefill B S: only without drops do the two agree), serving,
+    and the decode step's expert casts. Returns the numbers (the model
+    is freed)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import moe, transformer
+
+    free_device_memory()
+    t0 = time.perf_counter()
+    model = transformer.init_model(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size()
+              for p in model.parameters()) / 2**30
+    t_tok = DENSE_BATCH * DENSE_SEQ
+    cap = moe._capacity(t_tok, cfg.top_k, cfg.n_experts,
+                        cfg.capacity_factor)
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd} / {cfg.n_kv_heads} KV, qk_norm "
+        f"{cfg.qk_norm}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+        f"{cfg.top_k}, capacity factor {cfg.capacity_factor} (C {cap} at "
+        f"{t_tok} tokens), vocab {cfg.vocab}; {n_params:,} params ({gib:.2f}"
+        f" GiB f32; param_count() {cfg.param_count():,}) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_SEQ),
+                           generator=g, device="cuda")
+    out = {"params": n_params, "param_gib": gib, "layers": cfg.n_layers,
+           "batch": DENSE_BATCH, "seq": DENSE_SEQ, "capacity": cap,
+           **dense_prefill(tag, model, cfg, tokens, reps, MOE_KERNELS)}
+    with torch.no_grad():
+        first = transformer.forward(model, cfg, tokens, return_hidden=True)
+        same = torch.equal(first, transformer.forward(
+            model, cfg, tokens, return_hidden=True))
+    del tokens, first
+    if not same:
+        raise AssertionError(f"{tag} two bf16 prefills of the same tokens "
+                             "give different hidden states")
+    out["prefill_repeats_bitwise"] = True
+    log(f"{tag} a second bf16 prefill of the same tokens: the final hidden "
+        f"state bitwise the first's")
+    cfg4 = no_drops(dataclasses.replace(cfg, n_layers=4,
+                                        compute_dtype="float32"))
+    prompt = torch.randint(0, cfg.vocab, (MOE_XCHECK_BATCH, MOE_XCHECK_SEQ),
+                           generator=g, device="cuda")
+    with torch.no_grad():
+        xerr, xlogit = xcheck(tag, first_layers(model, cfg4), cfg4, prompt)
+    out["xcheck_max_abs_diff"] = xerr
+    out["xcheck_max_abs_logit"] = xlogit
+    out.update(serve_check(tag, model, cfg, DENSE_BATCH, g,
+                           {**MOE_KERNELS, "copy": ("copy",)}))
+    ms, nbytes = expert_cast(model, cfg, reps)
+    step = out["serve"][1]["ms_per_step"]
+    out["decode_expert_cast"] = {"ms": ms, "bytes": nbytes,
+                                 "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                                 "share_of_step": ms / step}
+    log(f"{tag} a decode step's casts of the expert weights to "
+        f"{cfg.compute_dtype}: {ms:.2f} ms on the card (median of {reps}; "
+        f"{nbytes / 1e9:.1f} GB, bound {1e3 * nbytes / HBM_BYTES_PER_S:.2f}"
+        f" ms at 3.35 TB/s), {ms / step:.1%} of a warm decode step's "
+        f"{step:.2f} ms")
+    del model
+    free_device_memory()
+    return out
+
+
+def moe_train(tag):
+    """[18c]: olmoe-1b-7b at full width on ``MOE_TRAIN_LAYERS`` layers
+    (at 16 its AdamW state alone takes 111 GB), B 4, S 4096, AdamW,
+    ``MOE_TRAIN_STEPS`` timed steps and one profiled, then a float32
+    copy of ``MOE_GRAD_LAYERS`` layers stepped on the card and on the
+    CPU from the same state (default capacity: both drop the same
+    pairs)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    state, out = train_run(tag, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           MOE_TRAIN_STEPS, profile=MOE_KERNELS)
+    out.update(train_grad_check(tag, cfg, state, MOE_GRAD_LAYERS,
+                                MOE_GRAD_SEQ))
+    del state
+    free_device_memory()
+    return out
+
+
+def moe_shard(tag):
+    """[18d]: olmoe-1b-7b at full width on ``MOE_SHARD_LAYERS`` layers,
+    its 64 experts over the model axis of a (data 2, model 2) mesh of
+    ``cuda:0`` (32 a shard). The checks run at :func:`no_drops` (a model
+    shard routes its own slice of the tokens with that slice's capacity:
+    only without drops is the single-device step the same function): one
+    bf16 step against the single-device step at [17a]'s limits, and the
+    float32 copy and the copy without the exchange that returns the
+    experts' outputs, which must fail. The timed steps, their peak and
+    the profiled step run from that step's state at the config's own
+    capacity factor (1.25), the traffic users train at."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import SyntheticLM
+
+    free_device_memory()
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_SHARD_LAYERS)
+    ctx = shard_ctx(SHARD_MESH)
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda")
+    out, state = shard_full_pair(tag, no_drops(cfg), ctx, data)
+    log(f"{tag} the timed and profiled steps at capacity factor "
+        f"{cfg.capacity_factor} (the check above at "
+        f"{no_drops(cfg).capacity_factor:g})")
+    out["timed_capacity_factor"] = cfg.capacity_factor
+    out.update(shard_timed(tag, cfg, ctx, data, state, MOE_SHARD_STEPS,
+                           {**MOE_KERNELS, "copy": ("copy",)}))
+    del state
+    free_device_memory()
+    out["f32"], _ = shard_f32_check(tag, no_drops(cfg), ctx,
+                                    ("moe", "from_experts"), MOE_F32_BATCH,
+                                    MOE_F32_SEQ)
+    free_device_memory()
+    return out
+
+
+def phase_moe(report, reps):
+    """[18] The MoE family (no port kernel on this path: routing,
+    dispatch, combine and the experts' batched products are PyTorch ops,
+    as the reference's are ``jnp`` ops): olmoe-1b-7b at full width and
+    depth ([18a]), qwen3-moe-235b-a22b at full width on
+    ``MOE_BIG_LAYERS`` layers ([18b]: ~9.95 GB of f32 a layer, 45 GB at
+    4, its 94 would not fit one card), olmoe training on 4 layers
+    ([18c]) and sharded on 2 ([18d])."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    out = {MOE_ARCH: moe_run("[18a]", get_config(MOE_ARCH), reps, g)}
+    out[MOE_BIG] = moe_run("[18b]", dataclasses.replace(
+        get_config(MOE_BIG), n_layers=MOE_BIG_LAYERS), reps, g)
+    out["train"] = moe_train("[18c]")
+    out["shard"] = moe_shard("[18d]")
+    report["moe"] = out
+    log(f"[18] passed in {time.perf_counter() - t0:.1f} s")
+
+
 def kernels_record(per_kernel, launches, errs):
     """The ``kernels`` JSON line: ``per_kernel`` maps each kernel to its
     per-mode timing rows and a note of the tensor they were timed at."""
@@ -5073,6 +5338,7 @@ def main(argv=None) -> int:
     phase_dense(report, args.reps)
     wbwd, lbwd = phase_train(kw6, klru, report, args.reps)
     launches17 = phase_shard(report, args.reps)
+    phase_moe(report, args.reps)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [

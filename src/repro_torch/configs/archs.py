@@ -2,7 +2,8 @@
 
 The reference registers ten architectures; the port has the ones whose
 block kinds it runs: the dense attention family (tinyllama-1.1b,
-olmo-1b, qwen2.5-3b), recurrentgemma-9b and rwkv6-3b. ``smoke()``
+olmo-1b, qwen2.5-3b), the MoE family (olmoe-1b-7b,
+qwen3-moe-235b-a22b), recurrentgemma-9b and rwkv6-3b. ``smoke()``
 returns a reduced same-family config for CPU tests, by the reference's
 rules.
 """
@@ -12,20 +13,21 @@ import dataclasses
 
 from ..models.common import ModelConfig
 from .olmo_1b import CONFIG as OLMO_1B
+from .olmoe_1b_7b import CONFIG as OLMOE_1B_7B
 from .qwen2_5_3b import CONFIG as QWEN2_5_3B
+from .qwen3_moe_235b_a22b import CONFIG as QWEN3_MOE_235B
 from .recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
 from .rwkv6_3b import CONFIG as RWKV6_3B
 from .tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [OLMO_1B, QWEN2_5_3B, TINYLLAMA_1_1B,
-                        RECURRENTGEMMA_9B, RWKV6_3B]}
+    c.name: c for c in [OLMO_1B, QWEN2_5_3B, TINYLLAMA_1_1B, OLMOE_1B_7B,
+                        QWEN3_MOE_235B, RECURRENTGEMMA_9B, RWKV6_3B]}
 
 #: The reference's other architectures: their block kinds and features
-#: (MoE, the parallel block, prefix attention, encoder-decoder) are
-#: ROADMAP Queue A item 12.4b.
-NOT_PORTED = ("command-r-plus-104b", "olmoe-1b-7b", "paligemma-3b",
-              "qwen3-moe-235b-a22b", "whisper-large-v3")
+#: (the parallel block, prefix attention, encoder-decoder) are ROADMAP
+#: Queue A item 12.4b.
+NOT_PORTED = ("command-r-plus-104b", "paligemma-3b", "whisper-large-v3")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -9,6 +9,7 @@ indices — the regime the paper's degree-sorted load balancing targets.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -62,6 +63,25 @@ def _zipf_indices(rng: np.random.Generator, dim: int, n: int,
     return perm[idx].astype(np.int32)
 
 
+def _unique_rows(indices: np.ndarray, dims) -> np.ndarray:
+    """``np.unique(indices, axis=0)`` for indices in ``[0, dims)``: the
+    distinct rows in lexicographic order. Where the dims' product fits an
+    int64, each row is one mixed-radix key, whose order is the rows'
+    lexicographic order, and the keys go through a 1-D sort (~30x faster
+    than the structured sort of ``axis=0`` at 10^7 rows)."""
+    if math.prod(int(d) for d in dims) > np.iinfo(np.int64).max:
+        return np.unique(indices, axis=0)
+    key = np.zeros(indices.shape[0], np.int64)
+    for j, d in enumerate(dims):
+        key = key * int(d) + indices[:, j]
+    key = np.unique(key)
+    out = np.empty((key.size, len(dims)), indices.dtype)
+    for j in range(len(dims) - 1, -1, -1):
+        out[:, j] = key % int(dims[j])
+        key //= int(dims[j])
+    return out
+
+
 def synthesize(ts: TensorSpec, seed: int = 0,
                dedupe: bool = True) -> tuple[np.ndarray, np.ndarray]:
     """Generate COO (indices (nnz, N), values (nnz,)) for a spec."""
@@ -69,7 +89,7 @@ def synthesize(ts: TensorSpec, seed: int = 0,
     cols = [_zipf_indices(rng, d, ts.nnz, a=ts.zipf_a) for d in ts.dims]
     indices = np.stack(cols, axis=1)
     if dedupe:
-        indices = np.unique(indices, axis=0)
+        indices = _unique_rows(indices, ts.dims)
     values = rng.standard_normal(indices.shape[0]).astype(np.float32)
     return indices, values
 

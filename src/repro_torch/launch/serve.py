@@ -9,7 +9,9 @@
       --arch olmo-1b                                    # on the card
 
 ``--arch`` is any of ``configs.ARCHS``: tinyllama-1.1b, olmo-1b,
-qwen2.5-3b, recurrentgemma-9b, rwkv6-3b. ``--max-len`` sizes the
+qwen2.5-3b, olmoe-1b-7b, qwen3-moe-235b-a22b, recurrentgemma-9b,
+rwkv6-3b (``--arch olmoe-1b-7b --smoke --device cpu`` runs the MoE
+family here). ``--max-len`` sizes the
 attention layers' KV caches (a local layer keeps at most its window); a
 causal layer's must hold the prompt and the new tokens, or the engine
 refuses the request.

@@ -3,6 +3,8 @@ step) and the one-token ``decode_step`` over a per-layer cache, for the
 block kinds
 
   attn   pre-norm GQA causal attention + MLP (tinyllama, olmo, qwen2.5)
+  moe    GQA causal attention + the top-k MoE FFN (olmoe, qwen3-moe;
+         ``models.moe``)
   rwkv   RWKV-6 time-mix + channel-mix (rwkv6-3b)
   rec    RG-LRU recurrent block + MLP (griffin: recurrentgemma-9b)
   local  sliding-window attention + MLP (griffin attention layers)
@@ -32,9 +34,12 @@ single-device block body on its slice of the weights
 :func:`apply_block_tp` sums the partial outputs of ``wo`` and ``w_down``
 over the axis (``sum_heads``, ``sum_ff``) before it adds the residual,
 once a sublayer. A vocab-split ``embed`` is a masked lookup a shard,
-summed (``sum_vocab``). Only the ``attn`` kind has this path; a model
-axis above 1 with ``rwkv``, ``rec`` or ``local`` layers raises
-``NotImplementedError`` naming its ROADMAP item.
+summed (``sum_vocab``). A ``moe`` block's FFN is expert parallel instead
+(``moe.apply_moe_tp``: shard ``j`` holds E/m experts, its slice of the
+sequence goes to every expert's owner and back, and the slices are
+gathered into every replica). Only the ``attn`` and ``moe`` kinds have
+this path; a model axis above 1 with ``rwkv``, ``rec`` or ``local``
+layers raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import sharding
 from ..tensorized import (cpd_embed, cpd_logits, dense_table,
                           init_cpd_embedding)
-from . import layers, rglru, rwkv
+from . import layers, moe, rglru, rwkv
 from .common import (ModelConfig, Node, Params, apply_norm, as_node,
                      dense_init, device_of, init_norm, param)
 
@@ -57,7 +62,7 @@ _NO_TP = ("tensor parallelism (a model axis above 1) of the rwkv, rec and "
           "local blocks is ROADMAP Queue A item 12.3b; train these on a "
           "mesh whose model axis is 1 (dp + fsdp)")
 #: Block kinds the port runs.
-PORTED_KINDS = ("attn", "rwkv", "rec", "local")
+PORTED_KINDS = ("attn", "moe", "rwkv", "rec", "local")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -124,9 +129,13 @@ def init_block(cfg: ModelConfig, kind: str, generator) -> dict:
                 "rec": rglru.init_rglru(cfg, generator),
                 "ln2": init_norm(cfg, dev),
                 "mlp": layers.init_mlp(cfg, generator)}
-    return {"attn": layers.init_attention(cfg, generator),
-            "ln1": init_norm(cfg, dev), "ln2": init_norm(cfg, dev),
-            "mlp": layers.init_mlp(cfg, generator)}
+    p = {"attn": layers.init_attention(cfg, generator),
+         "ln1": init_norm(cfg, dev), "ln2": init_norm(cfg, dev)}
+    if kind == "moe":
+        p["moe"] = moe.init_moe(cfg, generator)
+    else:
+        p["mlp"] = layers.init_mlp(cfg, generator)
+    return p
 
 
 def _mask_kind(kind: str) -> str:
@@ -147,6 +156,9 @@ def apply_block(params, x, cfg: ModelConfig, kind: str):
                                   apply_norm(params.ln1, x, cfg), cfg)
         return x + _mlp_part(params, x, cfg)
     x = x + _attn_part(params, x, cfg, kind)
+    if kind == "moe":
+        return x + moe.apply_moe(params.moe, apply_norm(params.ln2, x, cfg),
+                                 cfg)
     return x + _mlp_part(params, x, cfg)
 
 
@@ -192,7 +204,9 @@ def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
                                            use_rope=use_rope)
     x = x + o
     h = apply_norm(params.ln2, x, cfg)
-    return x + layers.apply_mlp(params.mlp, h, cfg), new_cache
+    ffn = (moe.apply_moe(params.moe, h, cfg) if kind == "moe"
+           else layers.apply_mlp(params.mlp, h, cfg))
+    return x + ffn, new_cache
 
 
 # The sums over the model axis, one a sublayer (module attributes, so a
@@ -204,21 +218,26 @@ sum_vocab = sharding.psum      # the vocab-split embedding lookup
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
     """Refuse a model axis above 1 for the block kinds without a tensor
-    parallel path."""
-    other = sorted(set(layer_kinds(cfg)) - {"attn"})
+    parallel path, and one that does not divide the experts."""
+    kinds = set(layer_kinds(cfg))
+    other = sorted(kinds - {"attn", "moe"})
     if tp > 1 and other:
         raise NotImplementedError(f"{cfg.name}: {_NO_TP} (kinds {other})")
+    if "moe" in kinds and cfg.n_experts % tp:
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not "
+                         f"divide over a model axis of {tp}")
 
 
 def apply_block_tp(ps, xs, cfg: ModelConfig, kind: str):
-    """One ``attn`` block over the model axis: ``ps`` holds each shard's
-    layer params, ``xs`` its replica of the residual stream (on its
-    device); returns the new replicas. Each shard's sublayer is
-    recomputed in backward as ``cfg.remat`` says, apart from the other
-    shards' (a recompute stays on one device: the autograd engine runs
-    each device's backward on its own thread), and the sums over the
-    model axis sit between them."""
-    if kind != "attn":
+    """One ``attn`` or ``moe`` block over the model axis: ``ps`` holds
+    each shard's layer params, ``xs`` its replica of the residual stream
+    (on its device); returns the new replicas. Each shard's sublayer (a
+    ``moe`` FFN's dispatch, experts and combine apart) is recomputed in
+    backward as ``cfg.remat`` says, apart from the other shards' (a
+    recompute stays on one device: the autograd engine runs each
+    device's backward on its own thread), and the sums and exchanges
+    over the model axis sit between them."""
+    if kind not in ("attn", "moe"):
         raise NotImplementedError(f"block kind {kind!r}: {_NO_TP}")
     attn, mlp = _remat(_attn_part, cfg), _remat(_mlp_part, cfg)
     outs = [attn(p, x, cfg, kind, j)
@@ -226,6 +245,11 @@ def apply_block_tp(ps, xs, cfg: ModelConfig, kind: str):
     if layers.heads_split(ps[0].attn, cfg):
         outs = sum_heads(outs)
     xs = [x + o for x, o in zip(xs, outs)]
+    if kind == "moe":
+        hs = [apply_norm(p.ln2, x, cfg) for p, x in zip(ps, xs)]
+        outs = moe.apply_moe_tp([p.moe for p in ps], hs, cfg,
+                                remat=lambda fn: _remat(fn, cfg))
+        return [x + o for x, o in zip(xs, outs)]
     outs = [mlp(p, x, cfg) for p, x in zip(ps, xs)]
     if layers.mlp_split(ps[0].mlp, cfg):
         outs = sum_ff(outs)
@@ -366,7 +390,7 @@ def forward(params, cfg: ModelConfig, tokens, return_hidden: bool = False):
     ``rwkv`` layer and ``lru_scan`` once per ``rec`` layer. A length that
     the attention layers' query chunks cannot take is refused before any
     work."""
-    if {"attn", "local"} & set(layer_kinds(cfg)):
+    if {"attn", "local", "moe"} & set(layer_kinds(cfg)):
         layers.check_q_len(tokens.shape[1])
     x = embed_lookup(params, tokens, cfg)
     run = _remat(_cycle, cfg)

@@ -45,7 +45,7 @@ class Engine:
         """Refuse ``n`` more positions where a causal layer's KV cache
         cannot hold them (windowed and recurrent caches never fill)."""
         for c, kind in zip(self.cache, layer_kinds(self.cfg)):
-            if kind == "attn":
+            if kind in ("attn", "moe"):
                 if c["len"] + n > c["k"].shape[1]:
                     raise ValueError(
                         f"Engine: {n} more positions after {c['len']} do "

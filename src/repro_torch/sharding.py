@@ -428,8 +428,38 @@ def psum(parts: list) -> list:
     return [total.to(p.device) for p in parts]
 
 
-__all__ = ["ShardingCtx", "Sharded", "current", "fill", "fit_tags",
-           "gather", "gather_tensor", "is_sharded", "make_ctx",
-           "param_sharding_tree", "param_tags", "place", "place_tensor",
-           "positions", "psum", "reduce_grads", "replicated", "shard", "use",
-           "working_copy"]
+def all_to_all(blocks: list) -> list:
+    """The exchange over one mesh axis: ``blocks[j]`` holds position
+    ``j``'s m blocks on its leading dim; position ``i`` receives block
+    ``i`` of every position, stacked in position order on its device (the
+    reference's untiled ``lax.all_to_all``, split and concat dim 0).
+    Differentiable."""
+    return [torch.stack([b[i].to(dst.device) for b in blocks])
+            for i, dst in enumerate(blocks)]
+
+
+def all_gather(parts: list, dim: int) -> list:
+    """Every position's part concatenated along ``dim`` in position
+    order, on each part's device. Differentiable."""
+    return [torch.cat([p.to(dst.device) for p in parts], dim=dim)
+            for dst in parts]
+
+
+def model_rows(mesh: Mesh, tp_axis: Optional[str]) -> list[list]:
+    """The mesh's positions grouped by their dp coordinates (every axis
+    but ``tp_axis``), groups in row-major order of those coordinates and
+    each group in model-axis order: one row of model shards a dp slice
+    of the batch."""
+    tp_k = mesh.axis_names.index(tp_axis) if tp_axis else None
+    rows: dict = {}
+    for pos in positions(mesh):
+        key = tuple(c for k, c in enumerate(pos) if k != tp_k)
+        rows.setdefault(key, []).append(pos)
+    return list(rows.values())
+
+
+__all__ = ["ShardingCtx", "Sharded", "all_gather", "all_to_all", "current",
+           "fill", "fit_tags", "gather", "gather_tensor", "is_sharded",
+           "make_ctx", "model_rows", "param_sharding_tree", "param_tags",
+           "place", "place_tensor", "positions", "psum", "reduce_grads",
+           "replicated", "shard", "use", "working_copy"]

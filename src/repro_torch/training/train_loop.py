@@ -239,13 +239,8 @@ def _step(ocfg: OptimizerConfig, grad_accum: int, enter, grads_of, finish):
 def _sharded_step(cfg: ModelConfig, ocfg: OptimizerConfig, grad_accum: int,
                   ctx, param_shardings, cast_params_once: bool):
     transformer.check_tp(cfg, ctx.tp)
-    mesh = ctx.mesh
-    pos_all = sharding.positions(mesh)
-    tp_k = mesh.axis_names.index(ctx.tp_axis) if ctx.tp_axis else None
-    groups: dict = {}                  # dp coordinates -> model-axis row
-    for pos in pos_all:
-        dp_key = tuple(c for k, c in enumerate(pos) if k != tp_k)
-        groups.setdefault(dp_key, []).append(pos)
+    pos_all = sharding.positions(ctx.mesh)
+    rows = sharding.model_rows(ctx.mesh, ctx.tp_axis)
 
     def enter(state):
         if not sharding.is_sharded(state["params"]):
@@ -265,7 +260,7 @@ def _sharded_step(cfg: ModelConfig, ocfg: OptimizerConfig, grad_accum: int,
                 and s.is_floating_point() else None).detach()
                 .requires_grad_(True) for s, f in zip(flat, flags)]
         nlls, cnts = [], []
-        for row in groups.values():
+        for row in rows:
             views = [transformer.unstack_layers(cfg,
                                                 unflatten(params, work[p]))
                      for p in row]

@@ -341,7 +341,6 @@ def test_engine_takes_the_device_of_a_cpd_model():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("olmoe-1b-7b", "kinds \\['moe'\\]"),
     ("command-r-plus-104b", "parallel_block"),
     ("paligemma-3b", "prefix attention"),
     ("whisper-large-v3", "kinds \\['dec'\\]")])

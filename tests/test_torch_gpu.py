@@ -16,7 +16,9 @@ stream's budget halving and upload retry, a resume), and the
 CPD-factorized embedding (forward, its spMTTKRP backward, the CPD head)
 and the dense attention family on the card against the CPU, and training
 (the ``wkv6`` and ``lru_scan`` backward kernels against their plain
-versions in float64, a train step on the card against the CPU's).
+versions in float64, a train step on the card against the CPU's), and
+the MoE family (a layer at full width, a smoke ``forward`` and
+``Engine.prefill``, the expert-parallel sharded step).
 Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
@@ -1472,7 +1474,7 @@ def test_cpd_tinyllama_engine_on_the_card_by_default(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
-                                  "tinyllama-1.1b"])
+                                  "tinyllama-1.1b", "olmoe-1b-7b"])
 def test_train_step_on_the_card(cuda, arch):
     """One float32 (TF32 off) train step of a smoke config on the card
     against the same step on the CPU from the same state: the backward
@@ -1656,3 +1658,175 @@ def test_pipeline_and_compression_on_the_card(cuda):
     torch.testing.assert_close(full[0]["w"],
                                sum(gr["w"] for gr in grads) / 4,
                                rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# The MoE family on the card (no port kernel: routing, dispatch, combine
+# and the batched products are PyTorch ops, as the reference's are jnp)
+# --------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b"])
+def test_moe_layer_at_full_width_on_the_card(cuda, arch):
+    """One MoE layer at the full width of ``arch`` (olmoe: d 2048, 64
+    experts of d_ff 1024, top-8; qwen3: d 4096, 128 of 1536), 256 tokens,
+    float32 (TF32 off), its weights drawn on the card and copied to the
+    CPU: routing ids equal wherever the CPU's k-th and (k+1)-th
+    probabilities stand more than 1e-5 apart (a closer pair may flip
+    under float32 rounding), weights rtol = atol = 1e-5; then, from the
+    card's ids on both sides, the dispatch tables bitwise, the experts'
+    outputs and the combine rtol = atol = 1e-4 of the largest output;
+    the bf16 layer finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import Node
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    p = moe.init_moe(cfg, torch.Generator(device="cuda").manual_seed(0))
+    pc = {k: v.cpu() for k, v in p.items()}
+    xt = torch.randn(256, cfg.d_model, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(1))
+    k, e = cfg.top_k, cfg.n_experts
+    cap = moe._capacity(256, k, e, cfg.capacity_factor)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        w, ids = moe._route(xt, p["router"], k)
+        buf, info = moe._dispatch(xt, ids, e, cap)
+        out_buf = moe._expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"],
+                                  cfg)
+        y = moe._combine(out_buf, info, w, 256)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    xc = xt.cpu()
+    wc, idc = moe._route(xc, pc["router"], k)
+    probs = torch.softmax(xc @ pc["router"], -1).sort(-1, descending=True)[0]
+    clear = (probs[:, k - 1] - probs[:, k]) > 1e-5
+    assert int(clear.sum()) >= 250
+    assert torch.equal(ids.cpu()[clear], idc[clear])
+    torch.testing.assert_close(w.cpu()[clear], wc[clear], rtol=1e-5,
+                               atol=1e-5)
+    bufc, infoc = moe._dispatch(xc, ids.cpu(), e, cap)
+    assert torch.equal(buf.cpu(), bufc)
+    for a, b in zip(info, infoc):
+        assert torch.equal(a.cpu(), b)
+    outc = moe._expert_ffn(bufc, pc["w_gate"], pc["w_up"], pc["w_down"], cfg)
+    top = float(outc.abs().max())
+    torch.testing.assert_close(out_buf.cpu(), outc, rtol=1e-4,
+                               atol=1e-4 * top)
+    yc = moe._combine(out_buf.cpu(), infoc, w.cpu(), 256)
+    torch.testing.assert_close(y.cpu(), yc, rtol=1e-4,
+                               atol=1e-4 * float(yc.abs().max()))
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    y16 = moe._apply_local(Node(p), xt.view(4, 64, -1).bfloat16(), cfg16)
+    assert y16.dtype == torch.bfloat16 and bool(torch.isfinite(y16).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_layer_repeats_bitwise_on_the_card(cuda, dtype):
+    """One MoE layer at olmoe's full width on 4096 tokens (C 640 at the
+    default capacity: pairs dropped), run twice on the same input: the
+    outputs equal bit for bit (the combine adds each token's terms in a
+    fixed order, with no atomics)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import Node
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
+                              compute_dtype=dtype)
+    p = Node(moe.init_moe(cfg,
+                          torch.Generator(device="cuda").manual_seed(0)))
+    x = torch.randn(4, 1024, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    x = x.to(cfg.cdtype)
+    with torch.no_grad():
+        a = moe.apply_moe(p, x, cfg)
+        b = moe.apply_moe(p, x, cfg)
+    assert a.dtype == cfg.cdtype and bool(torch.isfinite(a).all())
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b"])
+def test_moe_forward_and_engine_on_the_card(cuda, arch):
+    """float32 (TF32 off) ``forward`` of a MoE smoke config on the card
+    against the CPU on the same weights at B 2, S 64 (rtol = atol =
+    1e-4), and at a capacity factor of 16 (nothing drops) the decode
+    path through ``Engine.prefill`` against ``forward``'s last position
+    on the card."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = dataclasses.replace(smoke(arch), compute_dtype="float32")
+    model = transformer.init_model(cfg, 0, device="cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 64),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = transformer.forward(model, cfg, tok)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = model.to(cuda)
+        with torch.no_grad():
+            got = transformer.forward(model, cfg, tok.to(cuda))
+            cf16 = dataclasses.replace(cfg, capacity_factor=16.0)
+            last = transformer.forward(model, cf16, tok.to(cuda))[:, -1]
+            pre = Engine(model, cf16, ServeConfig(2, 64)).prefill(
+                tok.to(cuda))[:, -1]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(pre, last, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_sharded_moe_step_on_the_card(cuda, shape):
+    """One float32 (TF32 off) sharded step of the smoke olmoe, its 8
+    experts over the model axis of shards of ``cuda:0``, at a capacity
+    factor of E / k = 4 (nothing drops on either side), against the
+    single-device step on the card from the same state: as
+    ``test_sharded_train_step_on_the_card``."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.configs import smoke
+    from repro_torch.launch import specs
+    from repro_torch.training import (OptimizerConfig, SyntheticLM,
+                                      init_state, make_train_step)
+    from repro_torch.training.tree import leaves
+
+    cfg = dataclasses.replace(smoke("olmoe-1b-7b"), compute_dtype="float32",
+                              remat="full", capacity_factor=4.0)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    ctx = _card_ctx(shape)
+    one = init_state(cfg, ocfg, 0, device="cuda")
+    two = specs.place_state(one, ctx)
+    batch = SyntheticLM(cfg, 4, 64, device="cuda").next()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, m1 = make_train_step(cfg, ocfg)(one, dict(batch))
+        with sharding.use(ctx):
+            two, m2 = make_train_step(cfg, ocfg)(two, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-5)
+    got = sharding.gather(two)
+    for a, b in zip(leaves(got["opt"]["m"]), leaves(one["opt"]["m"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-7)
+    for a, b, m in zip(leaves(got["params"]), leaves(one["params"]),
+                       leaves(one["opt"]["m"])):
+        d = (a - b).abs()
+        assert float(d.max()) <= 2e-3
+        assert float(torch.where(m.abs() >= 1e-7, d, 0).max()) <= 1e-6

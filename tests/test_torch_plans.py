@@ -156,6 +156,19 @@ def test_synthesize_bitwise(name, scale):
     assert np.array_equal(t.values, r.values)
 
 
+@pytest.mark.parametrize("dims", [(2 ** 21,) * 3, (7, 1, 40, 3)])
+def test_synthesize_bitwise_past_the_int64_key(dims):
+    """Rows deduplicated where the dims' product exceeds an int64 (2^63:
+    the structured sort) and where a dim is 1: bitwise the reference's."""
+    ts = tdatasets.TensorSpec(name="wide", dims=dims, nnz=3000)
+    rs = rdatasets.TensorSpec(name="wide", dims=dims, nnz=3000)
+    got, want = tdatasets.synthesize(ts, seed=5), rdatasets.synthesize(
+        rs, seed=5)
+    assert got[0].shape[0] < 3000
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("dim", [1, 7, 300, 100_000])
 @pytest.mark.parametrize("rows_pp", [8, 512])
 def test_smem_policy_reproduces_reference_with_one_partition_floor(dim,

@@ -345,7 +345,7 @@ def test_unported_paths_name_their_roadmap_item():
     cfg = configs.smoke(ARCH)
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         transformer.init_model(
-            dataclasses.replace(cfg, block_pattern=("rwkv", "moe")),
+            dataclasses.replace(cfg, block_pattern=("rwkv", "dec")),
             device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         transformer.init_model(dataclasses.replace(cfg, kind="vlm"),

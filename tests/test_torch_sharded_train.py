@@ -1,8 +1,18 @@
 """The port's sharded train step (``make_train_step`` under
 ``sharding.use(ctx)``: dp + fsdp over the data axes, tensor parallelism
-of the dense family over the model axis) against the port's
-single-device step and the JAX reference's, on the CPU, on in-process
-meshes of CPU devices (``devices=["cpu"] * n``).
+of the dense family and expert parallelism of the MoE family over the
+model axis) against the port's single-device step and the JAX
+reference's, on the CPU, on in-process meshes of CPU devices
+(``devices=["cpu"] * n``).
+
+Under a mesh each model shard routes its own slice of the tokens with
+the capacity of that slice (the reference's drop semantics), so a MoE
+step that drops pairs differs from the single-device step by design:
+the parity cases run olmoe at a capacity factor of E / k = 4 (an expert
+can take every token: nothing drops on either side), and the dropping
+path is held to the reference's own expert-parallel ``apply_moe`` and
+sharded step under a (2, 2) mesh, run in one ``python -c`` child with 4
+forced host devices.
 
 The reference's train state crosses over through
 ``interop.train_state_from_numpy``; compute is float32 on every side
@@ -22,8 +32,14 @@ Tolerances (float32):
     elsewhere (the first Adam step is sign-like where g is float32
     noise), as the single-device tests; after Adafactor's step, within
     1e-6 everywhere;
-  * a step whose sum over the model axis is dropped must miss the loss
-    bound by more than 1e-3;
+  * a step whose sum or exchange over the model axis is dropped must
+    miss the loss bound by more than 1e-3;
+  * the expert-parallel sublayer (``moe.apply_moe_tp``) against the
+    reference's ``apply_moe`` under a (2, 2) mesh, pairs dropped: rtol =
+    atol = 1e-5 of the largest output (~100: three products over d 128
+    and d_ff 256 in another order); the sharded step with drops against
+    the reference's sharded step: loss and grad norm rtol 2e-5, every
+    leaf of the updated state at the limits above;
   * bf16 working copies (``cast_params_once``, the smoke config's bf16
     compute): every working copy of a leaf of stacked rank >= 2 is bf16
     and every other float32; loss within 3e-2 of the single-device step
@@ -36,6 +52,10 @@ Tolerances (float32):
 """
 import dataclasses
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -50,7 +70,8 @@ from repro.training import make_train_step as jmake_train_step
 from repro_torch import configs, interop, sharding
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
+from repro_torch.models.common import Node
 from repro_torch.training import (CheckpointManager, ControllerConfig,
                                   OptimizerConfig, SyntheticLM,
                                   TrainController, init_state,
@@ -59,6 +80,8 @@ from repro_torch.training.tree import leaves, unflatten
 
 LR = 1e-3
 OKW = dict(lr=LR, warmup_steps=1, total_steps=10)
+REPO = Path(__file__).resolve().parents[1]
+NO_DROPS = dict(capacity_factor=4.0)   # smoke olmoe: E / k, C = tokens
 
 
 def _ctx(shape):
@@ -130,6 +153,12 @@ def _check(one, m1, two, m2, adam=True):
     np.testing.assert_allclose(float(m2["grad_norm"]),
                                float(m1["grad_norm"]), rtol=1e-5)
     assert m2["lr"] == m1["lr"]
+    _check_leaves(one, two, adam)
+
+
+def _check_leaves(one, two, adam=True):
+    """Every leaf of the state ``two`` against ``one`` after one step, at
+    the module's limits for moments, statistics and parameters."""
     assert int(two["step"]) == int(one["step"]) == 1
     if adam:
         gm = leaves(one["opt"]["m"])
@@ -157,7 +186,9 @@ def _check(one, m1, two, m2, adam=True):
     ("olmo-1b", False, (2, 2), "adafactor"),
     ("tinyllama-1.1b", True, (2, 2), "adamw"),
     ("rwkv6-3b", False, (2, 1), "adamw"),
-    ("recurrentgemma-9b", False, (2, 1), "adamw")])
+    ("recurrentgemma-9b", False, (2, 1), "adamw"),
+    ("olmoe-1b-7b", False, (2, 2), "adamw"),
+    ("olmoe-1b-7b", False, (1, 4), "adamw")])
 def test_sharded_step_matches_single_device_and_reference(arch, cpd, shape,
                                                           name):
     """One step from the reference's state: every gathered leaf against
@@ -165,8 +196,10 @@ def test_sharded_step_matches_single_device_and_reference(arch, cpd, shape,
     tinyllama's one KV head and qwen2.5's do not divide the model axis
     (``wk`` / ``wv`` replicated, each shard slicing the head its queries
     read), olmo's four do; the CPD factors are replicated; rwkv6 and
-    recurrentgemma run dp + fsdp."""
-    jcfg, tcfg, jstate, fresh = _states(arch, cpd, name)
+    recurrentgemma run dp + fsdp; olmoe's 8 experts go 4 or 2 a model
+    shard, at ``NO_DROPS``."""
+    jcfg, tcfg, jstate, fresh = _states(
+        arch, cpd, name, NO_DROPS if arch == "olmoe-1b-7b" else None)
     ocfg = OptimizerConfig(name=name, **OKW)
     one, m1, two, m2 = _run_pair(tcfg, ocfg, fresh, shape)
     _check(one, m1, two, m2, adam=name == "adamw")
@@ -279,15 +312,22 @@ def test_sharded_grad_accum_matches_single_device():
     _check(one, m1, two, m2)
 
 
-@pytest.mark.parametrize("hook", ["sum_heads", "sum_ff", "sum_vocab"])
+@pytest.mark.parametrize("hook", ["sum_heads", "sum_ff", "sum_vocab",
+                                  "to_experts", "from_experts"])
 def test_dropping_a_model_axis_sum_fails(hook, monkeypatch):
-    """Each sum over the model axis matters: without it the loss misses
-    the single-device loss by far more than the bound."""
-    _, tcfg, _, fresh = _states("tinyllama-1.1b", False, "adamw")
+    """Each sum and each exchange over the model axis matters: without
+    it the loss misses the single-device loss by far more than the bound
+    (the exchanges: olmoe at ``NO_DROPS``, each shard then keeping its
+    own buffer, or its own experts' outputs)."""
+    exchange = hook in ("to_experts", "from_experts")
+    _, tcfg, _, fresh = _states(
+        "olmoe-1b-7b" if exchange else "tinyllama-1.1b", False, "adamw",
+        NO_DROPS if exchange else None)
     ocfg = OptimizerConfig(**OKW)
     batch = SyntheticLM(tcfg, 4, 32, seed=0, device="cpu").next()
     _, m1 = make_train_step(tcfg, ocfg)(fresh(), dict(batch))
-    monkeypatch.setattr(transformer, hook, lambda parts: parts)
+    monkeypatch.setattr(moe if exchange else transformer, hook,
+                        lambda parts: parts)
     with sharding.use(_ctx((2, 2))):
         _, m2 = make_train_step(tcfg, ocfg)(fresh(), batch)
     assert abs(float(m2["loss"]) - float(m1["loss"])) > 1e-3
@@ -325,6 +365,126 @@ def test_model_axis_refused_for_rwkv_and_rec(arch):
             make_train_step(cfg, ocfg)
         with pytest.raises(NotImplementedError, match="item 12.3b"):
             init_state(cfg, ocfg, device="cpu")
+
+
+_MOE_REFERENCE = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import dataclasses
+import jax, jax.numpy as jnp, numpy as np
+from repro import configs, sharding as shlib
+from repro.launch.mesh import make_mesh
+from repro.models import moe
+from repro.training import (OptimizerConfig, SyntheticLM, init_state,
+                            make_train_step)
+
+cfg = dataclasses.replace(configs.smoke("olmoe-1b-7b"),
+                          compute_dtype="float32")
+ctx = shlib.make_ctx(make_mesh((2, 2), ("data", "model")))
+p = moe.init_moe(cfg, jax.random.PRNGKey(3))
+x = np.random.default_rng(4).standard_normal(
+    (4, 16, cfg.d_model)).astype(np.float32)
+with shlib.use(ctx):
+    y = jax.jit(lambda a, b: moe.apply_moe(a, b, cfg))(p, jnp.asarray(x))
+ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+state = init_state(cfg, ocfg, jax.random.PRNGKey(0))
+batch = SyntheticLM(cfg, 4, 32, seed=0).next()
+with shlib.use(ctx):
+    new, m = jax.jit(make_train_step(cfg, ocfg))(state, batch)
+out = {"x": x, "y": y, "loss": m["loss"], "grad_norm": m["grad_norm"],
+       **{"p_" + k: v for k, v in p.items()},
+       **{f"s_{i:04d}": v for i, v in enumerate(jax.tree.leaves(new))}}
+np.savez(sys.argv[1], **{k: np.asarray(v) for k, v in out.items()})
+"""
+
+
+@pytest.fixture(scope="module")
+def moe_ref(tmp_path_factory):
+    """The reference's expert-parallel ``apply_moe`` and sharded train
+    step of the smoke olmoe (float32, default capacity: pairs dropped)
+    under a (data 2, model 2) mesh of 4 forced host devices."""
+    path = tmp_path_factory.mktemp("refmoe") / "ref.npz"
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env.pop("REPRO_CHAOS", None)
+    env.pop("REPRO_LADDER", None)
+    r = subprocess.run([sys.executable, "-c", _MOE_REFERENCE, str(path)],
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _expert_parallel(p, x, cfg, shape):
+    """``moe.apply_moe_tp``, the sublayer the sharded step runs, over a
+    (dp, m) layout: dp row ``g`` takes its slice of the batch, model
+    shard ``j`` the router and experts ``j E/m`` to ``(j + 1) E/m``;
+    every shard of a row must return the same replica."""
+    dp, m = shape
+    e_loc = cfg.n_experts // m
+    nb = x.shape[0] // dp
+    out = []
+    for g in range(dp):
+        ps = [Node(router=p.router,
+                   **{k: getattr(p, k)[j * e_loc:(j + 1) * e_loc]
+                      for k in ("w_gate", "w_up", "w_down")})
+              for j in range(m)]
+        ys = moe.apply_moe_tp(ps, [x[g * nb:(g + 1) * nb]] * m, cfg)
+        assert all(torch.equal(y, ys[0]) for y in ys[1:])
+        out.append(ys[0])
+    return torch.cat(out)
+
+
+def test_expert_parallel_apply_moe_matches_reference_with_drops(moe_ref):
+    """The port's expert-parallel sublayer (``moe.apply_moe_tp``) over a
+    (2, 2) layout (each model shard routes its 8 positions of each of
+    its 2 rows: C 5 against the 20 of the whole batch) against the
+    reference's ``apply_moe`` under its (2, 2) mesh; the one-device
+    ``apply_moe``, which drops other pairs, is far off."""
+    cfg = _f32(configs.smoke("olmoe-1b-7b"))
+    p = Node({k[2:]: torch.from_numpy(v) for k, v in moe_ref.items()
+              if k.startswith("p_")})
+    x = torch.from_numpy(moe_ref["x"])
+    want = moe_ref["y"]
+    got = _expert_parallel(p, x, cfg, (2, 2))
+    top = float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * top)
+    local = moe.apply_moe(p, x, cfg)
+    assert float(np.abs(local.numpy() - want).max()) > 1e-2 * top
+
+
+def test_sharded_moe_step_with_drops_matches_reference(moe_ref):
+    """The sharded step of the smoke olmoe at its default capacity on
+    (2, 2) against the reference's sharded step on the same state and
+    batch: the loss and grad norm, and every leaf of the updated state
+    (moments and parameters, at ``_check_leaves``'s limits); the loss is
+    off the single-device step's (which keeps other pairs) by more than
+    that bound."""
+    _, tcfg, jstate, fresh = _states("olmoe-1b-7b", False, "adamw")
+    ocfg = OptimizerConfig(**OKW)
+    batch = SyntheticLM(tcfg, 4, 32, seed=0, device="cpu").next()
+    _, m1 = make_train_step(tcfg, ocfg)(fresh(), dict(batch))
+    with sharding.use(_ctx((2, 2))):
+        two, m2 = make_train_step(tcfg, ocfg)(fresh(), batch)
+    want = float(moe_ref["loss"])
+    np.testing.assert_allclose(float(m2["loss"]), want, rtol=2e-5)
+    np.testing.assert_allclose(float(m2["grad_norm"]),
+                               float(moe_ref["grad_norm"]), rtol=2e-5)
+    assert abs(float(m1["loss"]) - want) > 2e-5 * abs(want)
+    treedef = jax.tree.structure(jstate)
+    jnew = jax.tree.unflatten(treedef, [
+        moe_ref[f"s_{i:04d}"] for i in range(treedef.num_leaves)])
+    one = interop.train_state_from_numpy(
+        jnew["params"], jnew["opt"], np.asarray(jnew["step"]), tcfg,
+        device="cpu")
+    _check_leaves(one, sharding.gather(two))
+
+
+def test_model_axis_must_divide_the_experts():
+    cfg = configs.smoke("olmoe-1b-7b")
+    with sharding.use(_ctx((1, 3))):
+        with pytest.raises(ValueError, match="8 experts"):
+            make_train_step(cfg, OptimizerConfig())
 
 
 def test_controller_resume_under_a_mesh(tmp_path):
