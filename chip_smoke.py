@@ -51,7 +51,7 @@ times the kernels at each path's shapes.
        ``cuda`` in ~10 chunks a mode, a mutant whose uploads read the
        previous chunk's slots, ``cp_als_stream`` against [3]'s fits;
        [12b] rect nell1 scale 0.01; [12c] twitch scale 0.01 in at least
-       4 chunks a mode; [12d] the paper's vast tensor (scale 0.25) through
+       4 chunks a mode; [12d] the paper's vast tensor (scale 0.125) through
        ``make_engine(PlanSpec(residency="auto"))`` at 1/8 of its
        resident footprint: the streamed rotation timed (uploads, kernels
        and host remap apart) beside the resident one, its peak device
@@ -106,7 +106,7 @@ times the kernels at each path's shapes.
        masters), each model's steps timed (host clock around synchronised
        steps), tokens/s and peak memory: [16a] tinyllama-1.1b at full
        width and depth, ``train_4k``'s S 4096 with the batch cut from 256
-       to 4, 4 steps, and a float32 4-layer copy (TF32 off) stepped on
+       to 4, 2 steps, and a float32 4-layer copy (TF32 off) stepped on
        the card and on the CPU from the same state; [16b] the same with
        the CPD embedding (rank 64), its factor gradients at the last
        batch's cotangent held to float64 as in [15b], and 15 steps of the
@@ -127,10 +127,10 @@ times the kernels at each path's shapes.
   [17] sharded training (``repro_torch.sharding``, the sharded
        ``make_train_step``; a single controller drives shards of
        ``cuda:0``, so its times are "shards on one card"): [17a]
-       tinyllama-1.1b at full width and depth on a (data 2, model 2)
-       mesh (dp + fsdp, heads / MLP columns / vocabulary over the model
-       axis), B 4, S 4096: one step against the single-device step from
-       the same state and batch, 3 timed steps, peak memory, one step
+       tinyllama-1.1b at full width on 11 of its 22 layers on a (data 2,
+       model 2) mesh (dp + fsdp, heads / MLP columns / vocabulary over
+       the model axis), B 4, S 4096: one step against the single-device step from
+       the same state and batch, a timed step, peak memory, one step
        under ``torch.profiler``; a float32 2-layer copy the same way, and
        the copy without the sum over the model axis after ``wo``, which
        must fail; [17b] rwkv6-3b and recurrentgemma-9b at full width on
@@ -164,6 +164,36 @@ times the kernels at each path's shapes.
        and a profiled step at the config's own factor (1.25), the
        float32 copy and the copy without the exchange that returns the
        experts' outputs, which must fail
+  [19] the other families (no port kernel on this path): [19a]
+       command-r-plus-104b at full width on 4 of its 64 layers (the
+       parallel block: one shared LayerNorm, attention and SwiGLU side
+       by side; 1.57 B params a layer and 3.15 B in the tied embedding:
+       37.8 GB of f32), the bf16 prefill at B 4, S 4096 (timed,
+       profiled, peak), the float32 check over the same 4 layers,
+       serving; [19b] paligemma-3b at full width and depth, the prefill
+       of 256 stub image embeddings and 3,840 tokens, the float32 check
+       on a 4-layer copy without image tokens (the reference's ``vlm``
+       decodes causally and its engine takes no image embeddings), the
+       prefix mask on a 2-layer copy against the CPU, with a causal-mask
+       variant that must fail, serving; [19c] whisper-large-v3 at full
+       width and depth (32 + 32 layers), the prefill with (B, S, D) stub
+       frames, the float32 check (``forward(tokens, enc_embeds)``
+       against ``Engine.prefill`` after ``build_cross_caches``, 4 + 4
+       layers), serving over 1,536 frames (the real 1,500 are refused,
+       as the reference's chunk loop refuses them); [19d] the int8 KV
+       cache on command-r's tensors: a float32 1-layer copy's int8
+       engine against its float engine, every row and scale written,
+       the logits, a variant that reads the rows without their scales
+       (which must fail), int8 serving at 4 layers in bf16, the cache
+       bytes; [19e] two training steps of each at a depth that fits
+       (command-r on 1 layer under Adafactor: AdamW's state would not
+       fit even at 1; paligemma full; whisper on 8 + 8 layers, cut for
+       the script's time), each float32 copy's
+       step on the card against the CPU's, and the sharded pair:
+       command-r (at a width cut to fit the pair: d 3072, 24 / 2 heads,
+       d_ff 8448, vocab 32,000) and paligemma (2 layers) over (data 2,
+       model 2) with the copy that drops the sum after ``wo`` failing,
+       whisper (2 + 2 layers) over (data 2)
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -334,6 +364,31 @@ function on absolute inputs) and ``u = 2**-24``:
     ~0.5% each that one token flips. The bf16 prefill and serving are
     checked for shape and finiteness; [18d]'s bf16 step at [17a]'s
     limits.
+  * [19] the float32 checks as [15a]'s ([19a]–[19c]; the prefix mask's
+    card-against-CPU hidden state at the same ``XCHECK_ATOL``: values
+    of ~1 after the final norm, a causal mask moves them by ~1), the
+    steps as [16a]'s and [17a]'s float32 copies. A gradient leaf's
+    limit is ``GRAD_RTOL`` of its largest element, but at least of
+    ``GRAD_ZERO`` = 1e-6 of the step's largest: whisper's key biases
+    have a zero gradient but for float32 rounding (a softmax does not
+    change when one vector is added to every key), so their float32
+    noise is held to the rounding of the sums it comes from.
+  * [19d] the int8 KV cache: each int8 row and scale against
+    ``_quantize_rows`` of the float engine's row (one layer: both
+    engines' layer input is the step's embedding), exactly, or one step
+    off where the row sits on a rounding tie (|x / s| within 1e-5 of a
+    half-integer). The logits: rounding to the nearest step moves each
+    cached element by at most half a step, s / 2 (s the row's largest
+    |x| over 127). The yardstick is the float engine's logits after
+    ``KVQ_DRAWS`` moves of every cached key and value by a uniform draw
+    within that half step (what rounding does to values spread over
+    many steps: rounding errors of a row behave as independent uniform
+    draws of variance s^2 / 12). At every step the int8 logits'
+    difference from the float engine's, over the B x V logits, must
+    stay within ``KVQ_RATIO`` = 2 of the draws', in root mean square
+    and in largest |difference|; the same function of 4 draws is
+    stable to a few percent at V 256,000. Rows read back without their
+    scales (each element 1 / s times too large) must miss it.
 """
 from __future__ import annotations
 
@@ -676,14 +731,16 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def cuda_median_ms(fn, reps):
+def cuda_median_ms(fn, reps, warm=True):
     """Median CUDA-event milliseconds of ``reps`` single calls of ``fn``
-    after one warm-up."""
+    after one warm-up (``warm=False``: the caller's last call was
+    one)."""
     import statistics
 
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -1722,20 +1779,22 @@ def free_device_memory():
     torch.cuda.empty_cache()
 
 
-def xcheck(tag, model4, cfg4, prompt):
+def xcheck(tag, model4, cfg4, prompt, enc=None):
     """The float32 cross-check (module docstring): ``forward(prompt)[:,
     -1]`` against ``Engine.prefill(prompt)``, then 8 greedy tokens of
-    ``Engine.generate`` from the first 16 against ``forward``'s. Returns
-    (max |diff|, max |logit|)."""
+    ``Engine.generate`` from the first 16 against ``forward``'s; an
+    encoder-decoder's forward and engines take the frames ``enc``.
+    Returns (max |diff|, max |logit|)."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.serving import Engine, ServeConfig
 
     batch, n = prompt.shape
     vocab = cfg4.vocab
-    fl = transformer.forward(model4, cfg4, prompt)[:, -1].float()
-    pl = Engine(model4, cfg4, ServeConfig(batch, 2 * n),
-                device="cuda").prefill(prompt)[:, -1].float()
+    fl = transformer.forward(model4, cfg4, prompt,
+                             enc_embeds=enc)[:, -1].float()
+    pl = Engine(model4, cfg4, ServeConfig(batch, 2 * n), device="cuda",
+                enc_embeds=enc).prefill(prompt)[:, -1].float()
     xerr = float((fl - pl).abs().max())
     if not xerr <= XCHECK_ATOL:
         raise AssertionError(f"{tag} f32 forward vs Engine.prefill: max "
@@ -1744,10 +1803,11 @@ def xcheck(tag, model4, cfg4, prompt):
         raise AssertionError(f"{tag} f32 forward and Engine.prefill pick "
                              "different greedy tokens")
     seq = prompt[:, :16]
-    toks = Engine(model4, cfg4, ServeConfig(batch, 64),
-                  device="cuda").generate(seq, 8)
+    toks = Engine(model4, cfg4, ServeConfig(batch, 64), device="cuda",
+                  enc_embeds=enc).generate(seq, 8)
     for _ in range(8):
-        nxt = transformer.forward(model4, cfg4, seq)[:, -1, :vocab]
+        nxt = transformer.forward(model4, cfg4, seq,
+                                  enc_embeds=enc)[:, -1, :vocab]
         seq = torch.cat([seq, nxt.argmax(-1)[:, None]], dim=1)
     if not torch.equal(toks, seq[:, 16:]):
         raise AssertionError(f"{tag} greedy tokens of Engine.generate and "
@@ -1760,11 +1820,12 @@ def xcheck(tag, model4, cfg4, prompt):
     return xerr, xlogit
 
 
-def serve_check(tag, model, cfg, batch, g, kernel):
+def serve_check(tag, model, cfg, batch, g, kernel, enc=None):
     """Serving at full depth, bf16: ``batch`` requests of 16 prompt + 32
-    new tokens, greedy, twice (the first run is cold), then one decode
-    step under ``torch.profiler`` (the caches hold 49 positions: a causal
-    cache refuses a step past its end)."""
+    new tokens, greedy, twice (the first run is cold; an
+    encoder-decoder's engine encodes the frames ``enc`` first), then one
+    decode step under ``torch.profiler`` (the caches hold 49 positions: a
+    causal cache refuses a step past its end)."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.serving import Engine, ServeConfig
@@ -1774,8 +1835,12 @@ def serve_check(tag, model, cfg, batch, g, kernel):
                            device="cuda")
     serve = []
     for _ in range(2):
-        eng = Engine(model, cfg, ServeConfig(batch, 49), device="cuda")
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = Engine(model, cfg, ServeConfig(batch, 49), device="cuda",
+                     enc_embeds=enc)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         toks = eng.generate(prompt, 32)
@@ -1788,11 +1853,17 @@ def serve_check(tag, model, cfg, batch, g, kernel):
         serve.append({"seconds": dt, "tokens_per_s": batch * 32 / dt,
                       "ms_per_step": 1e3 * dt / (16 + 32),
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if enc is not None:
+            serve[-1]["encode_s"] = encode_s
     log(f"{tag} Engine.generate ({batch} requests, 16 prompt + 32 new "
         f"tokens, greedy, bf16): cold {serve[0]['seconds']:.2f} s, warm "
         f"{serve[1]['seconds']:.2f} s = {serve[1]['tokens_per_s']:.1f} "
         f"tokens/s ({serve[1]['ms_per_step']:.2f} ms a decode step); peak "
-        f"{serve[1]['peak_gib']:.2f} GiB")
+        f"{serve[1]['peak_gib']:.2f} GiB" + (
+            "" if enc is None else
+            f"; the engine's encoder and cross caches over "
+            f"{tuple(enc.shape)} frames first: {serve[1]['encode_s']:.3f} "
+            "s (warm)"))
     with torch.no_grad():
         tok = toks[:, -1:]
         prof = device_breakdown(
@@ -2130,9 +2201,9 @@ def lru_scan_record(lru):
 STREAM_LAYOUT = ("val", "idx", "alpha", "lrow")
 STREAM_CHUNK = 1 << 20         # [12a]: chunk slots, ~10 chunks a mode
 RECT_STREAM_CHUNK = 1 << 22    # [12b]: ~9 chunks a rect mode
-VAST_SCALE = 0.25              # [12d]: the paper's vast tensor at a
-#                                quarter scale, so the whole run with
-#                                [17] and [18] stays well inside its time
+VAST_SCALE = 0.125             # [12d]: the paper's vast tensor at an
+#                                eighth of its scale, so the whole run
+#                                with [17]-[19] stays inside its time
 #                                limit on a slow host (ROADMAP)
 VAST_REPS = 3                  # [12d]: timed rotations, median taken
 
@@ -3672,13 +3743,17 @@ CPD_ARCH = "tinyllama-1.1b"
 
 
 def first_layers(model, cfg4):
-    """A model of ``cfg4.n_layers`` layers over the first layers'
-    parameter tensors of ``model`` (no copy)."""
+    """A model of ``cfg4.n_layers`` layers (and ``cfg4.n_enc_layers``
+    encoder layers) over the first layers' parameter tensors of
+    ``model`` (no copy)."""
     from repro_torch.models import transformer
     from repro_torch.models.common import tree_of
 
     tree = tree_of(model)
     tree["layers"] = [tree["layers"][str(i)] for i in range(cfg4.n_layers)]
+    if "enc" in tree:
+        tree["enc"] = [tree["enc"][str(i)]
+                       for i in range(cfg4.n_enc_layers)]
     small = transformer.Model(cfg4, tree)
     if next(small.parameters()).data_ptr() != \
             next(model.parameters()).data_ptr():
@@ -3686,35 +3761,42 @@ def first_layers(model, cfg4):
     return small
 
 
-def dense_prefill(tag, model, cfg, tokens, reps, kernel="softmax"):
-    """The main path: one bf16 prefill ``forward``, checked (shape,
-    finite), then timed (median of ``reps`` CUDA-event runs) and profiled
-    (matmul / ``kernel`` (softmax) / other device time)."""
+def dense_prefill(tag, model, cfg, tokens, reps, kernel="softmax",
+                  **inputs):
+    """The main path: one bf16 prefill ``forward`` (``inputs``: a
+    ``vlm``'s ``embeds``, prepended, or an encoder-decoder's
+    ``enc_embeds``), checked (shape, finite), then timed (median of
+    ``reps`` CUDA-event runs) and profiled (matmul / ``kernel`` (softmax)
+    / other device time)."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.tensorized import split_dims
 
     width = (math.prod(split_dims(cfg.vocab_padded)) if cfg.cpd_embedding
              else cfg.vocab_padded)
+    b, seq = tokens.shape
+    seq += inputs["embeds"].shape[1] if "embeds" in inputs else 0
     out = {}
+
+    def fwd():
+        return transformer.forward(model, cfg, tokens, **inputs)
+
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
-        logits = transformer.forward(model, cfg, tokens)
+        logits = fwd()
         torch.cuda.synchronize()
         out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        if logits.shape != (*tokens.shape, width) or \
+        if logits.shape != (b, seq, width) or \
                 not torch.isfinite(logits).all():
             raise AssertionError(f"{tag} forward logits "
                                  f"{tuple(logits.shape)} not finite or not "
-                                 f"{(*tokens.shape, width)}")
+                                 f"{(b, seq, width)}")
         del logits
-        out["forward_ms"] = cuda_median_ms(
-            lambda: transformer.forward(model, cfg, tokens), reps)
-        out["forward_profile"] = device_breakdown(
-            lambda: transformer.forward(model, cfg, tokens), kernel)
-    log(f"{tag} forward (B {tokens.shape[0]}, S {tokens.shape[1]}, bf16, "
-        f"logits width {width}): {out['forward_ms']:.1f} ms (median of "
-        f"{reps}), peak {out['prefill_peak_gib']:.2f} GiB")
+        out["forward_ms"] = cuda_median_ms(fwd, reps, warm=False)
+        out["forward_profile"] = device_breakdown(fwd, kernel)
+    log(f"{tag} forward (B {b}, S {seq}, bf16, logits width {width}): "
+        f"{out['forward_ms']:.1f} ms (median of {reps}), peak "
+        f"{out['prefill_peak_gib']:.2f} GiB")
     log(f"{tag} forward profile: {breakdown_line(out['forward_profile'])}")
     return out
 
@@ -3957,9 +4039,11 @@ def phase_dense(report, reps):
 # --------------------------------------------------------------------------
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_BATCH, TRAIN_SEQ = 4, 4096       # train_4k, the batch cut 256 -> 4
-TRAIN_STEPS = 4
+TRAIN_STEPS = 2                        # [16a]/[16b], cut from 4 for time
 GRAD_LAYERS, GRAD_SEQ = 4, 256         # [16a]'s float32 card-vs-CPU step
 GRAD_RTOL = 1e-3                       # of each leaf's largest gradient
+GRAD_ZERO = 1e-6                       # a leaf's largest, at least: x the
+#                                        step's largest (zero gradients)
 CPD_SMOKE_STEPS = 15
 RWKV_TRAIN_BATCH, RWKV_TRAIN_STEPS = 2, 3
 RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_STEPS = 6, 2, 3
@@ -3983,9 +4067,11 @@ def train_ocfg(steps):
     return OptimizerConfig(total_steps=steps, warmup_steps=1)
 
 
-def train_run(tag, cfg, batch, seq, steps, prepare=None, profile=None):
+def train_run(tag, cfg, batch, seq, steps, prepare=None, profile=None,
+              ocfg=None):
     """The main path: ``init_state`` on the card from seed 0 (``prepare``
-    may edit its params), then ``steps`` of ``make_train_step`` on
+    may edit its params), then ``steps`` of ``make_train_step`` (with
+    ``ocfg``, by default :func:`train_ocfg`'s AdamW) on
     ``SyntheticLM`` batches, each timed on the host clock around a
     synchronised step, the kernels' launch counts zeroed just before and
     read just after; given ``profile`` (kernel names for
@@ -4000,7 +4086,7 @@ def train_run(tag, cfg, batch, seq, steps, prepare=None, profile=None):
     from repro_torch.training.tree import leaves
 
     free_device_memory()
-    ocfg = train_ocfg(steps)
+    ocfg = ocfg or train_ocfg(steps)
     t0 = time.perf_counter()
     state = init_state(cfg, ocfg, 0, device="cuda")
     if prepare is not None:
@@ -4009,8 +4095,10 @@ def train_run(tag, cfg, batch, seq, steps, prepare=None, profile=None):
     n_params = sum(x.numel() for x in leaves(state["params"]))
     log(f"{tag} {cfg.name}{' + CPD embedding' if cfg.cpd_embedding else ''}"
         f": {cfg.n_layers} layers, d {cfg.d_model}, remat {cfg.remat}, "
-        f"{n_params:,} params (f32 params, grads, m, v "
-        f"{16 * n_params / 1e9:.1f} GB) initialised in "
+        f"{n_params:,} params ({ocfg.name}; f32 params and grads "
+        f"{8 * n_params / 1e9:.1f} GB"
+        + (f", m, v {8 * n_params / 1e9:.1f} GB" if ocfg.name == "adamw"
+           else "") + f") initialised in "
         f"{time.perf_counter() - t0:.1f} s")
     data = SyntheticLM(cfg, batch, seq, seed=0, device="cuda")
     step = make_train_step(cfg, ocfg)
@@ -4057,11 +4145,13 @@ def train_run(tag, cfg, batch, seq, steps, prepare=None, profile=None):
 
 def first_layers_params(params, n):
     """The stage-layout params of a one-block-pattern model cut to its
-    first ``n`` layers (the tensors shared)."""
+    first ``n`` layers, and its encoder to its first ``n`` (the tensors
+    shared)."""
     from repro_torch.training.tree import tree_map
 
-    return {k: tree_map(lambda leaf: leaf[:n], v) if k.startswith("stage")
-            else v for k, v in params.items()}
+    return {k: tree_map(lambda leaf: leaf[:n], v)
+            if k.startswith("stage") or k == "enc" else v
+            for k, v in params.items()}
 
 
 def _tree_copy(tree, device):
@@ -4072,13 +4162,24 @@ def _tree_copy(tree, device):
     return tree.detach().to(device, copy=True)
 
 
+def leaf_limit(rtol, w, top):
+    """``rtol`` x the leaf ``w``'s largest |element|, that at least
+    ``GRAD_ZERO`` x ``top`` (the step's largest gradient element): a
+    leaf whose gradient is zero but for float32 rounding (a key bias: a
+    softmax does not change when one vector is added to every key) is
+    held to the rounding of the sums it comes from, not to itself."""
+    return rtol * max(float(w.abs().max()), GRAD_ZERO * top) + 1e-30
+
+
 def grad_leaf_check(tag, got, want):
-    """Per leaf ``max |got - want| <= GRAD_RTOL * max |want|`` (float32
-    gradients of one step, card against CPU); returns the largest share
-    of a leaf's limit, or raises naming the leaf."""
+    """Per leaf ``max |got - want| <=`` :func:`leaf_limit` at
+    ``GRAD_RTOL`` (float32 gradients of one step, card against CPU);
+    returns the largest share of a leaf's limit, or raises naming the
+    leaf."""
     worst = 0.0
+    top = max(float(w.abs().max()) for w in want)
     for i, (g, w) in enumerate(zip(got, want)):
-        lim = GRAD_RTOL * float(w.abs().max()) + 1e-30
+        lim = leaf_limit(GRAD_RTOL, w, top)
         err = float((g.cpu() - w).abs().max())
         if not err <= lim:
             raise AssertionError(f"{tag} gradient leaf {i} "
@@ -4104,6 +4205,7 @@ def train_grad_check(tag, cfg, state, layers=GRAD_LAYERS, seq=GRAD_SEQ):
     from repro_torch.training.tree import leaves, tree_map
 
     cfg4 = dataclasses.replace(cfg, n_layers=layers,
+                               n_enc_layers=min(cfg.n_enc_layers, layers),
                                compute_dtype="float32")
     ocfg = train_ocfg(1)
     batch = SyntheticLM(cfg4, 1, seq, seed=1, device="cpu").next()
@@ -4551,7 +4653,8 @@ def phase_train(kw6, klru, report, reps):
 # [17] Sharded training on the card.
 # --------------------------------------------------------------------------
 SHARD_MESH = (2, 2)                    # (data, model), 4 shards on cuda:0
-SHARD_STEPS = 3                        # [17a]'s timed steps after the check
+SHARD_STEPS = 1                        # [17a]'s timed steps after the check
+SHARD_LAYERS = 11                      # [17a]'s depth (of 22), for time
 SHARD_LOSS_ATOL = 3e-2                 # the reference's bf16 loss bound
 SHARD_GRAD_RTOL = 5e-2                 # bf16: of each leaf's largest
 SHARD_PARAM_ATOL = 1e-6                # x max(1, |p|) where g's sign is sure
@@ -4617,11 +4720,12 @@ def shard_step_pair(tag, cfg, ctx, batch, prepare=None, rtol=GRAD_RTOL,
                              f"device's {l1} (limit {lim:.1e})")
     share, pmax, ptight, held = 0.0, 0.0, 0.0, 0
     floor = (1 - ocfg.b1) * SHARD_G_FLOOR
+    top = max(float(b.abs().max()) for b in leaves(one["opt"]["m"]))
     pairs = zip(leaves(two["opt"]["m"]), leaves(one["opt"]["m"]),
                 leaves(two["params"]), leaves(one["params"]))
     for i, (a, b, pa, pb) in enumerate(pairs):
         a = sharding.gather_tensor(a)
-        glim = rtol * float(b.abs().max()) + 1e-30
+        glim = leaf_limit(rtol, b, top)
         err = float((a - b).abs().max())
         if not err <= glim:
             raise AssertionError(f"{tag} gradient leaf {i} "
@@ -4689,7 +4793,8 @@ def shard_f32_check(tag, cfg, ctx, hook=("transformer", "sum_heads"),
 
 
 def shard_tinyllama(tag, reps):
-    """[17a]: tinyllama-1.1b at full width and depth on a (data 2, model
+    """[17a]: tinyllama-1.1b at full width on ``SHARD_LAYERS`` of its 22
+    layers (cut for the script's time) on a (data 2, model
     2) mesh of ``cuda:0``: one bf16 step against the single-device step
     from the same state and batch (loss within ``SHARD_LOSS_ATOL``, every
     gradient leaf within ``SHARD_GRAD_RTOL`` of its largest, params as
@@ -4700,8 +4805,10 @@ def shard_tinyllama(tag, reps):
     from repro_torch.configs import get_config
     from repro_torch.training import SyntheticLM
 
+    import dataclasses
+
     free_device_memory()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=SHARD_LAYERS)
     ctx = shard_ctx(SHARD_MESH)
     data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda")
     out, state = shard_full_pair(tag, cfg, ctx, data)
@@ -5198,6 +5305,447 @@ def phase_moe(report, reps):
     log(f"[18] passed in {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# [19] The other families: command-r's parallel block, paligemma's
+# prefix-LM, whisper's encoder-decoder, and the int8 KV cache.
+# --------------------------------------------------------------------------
+CMDR_ARCH, PALI_ARCH, WHISPER_ARCH = ("command-r-plus-104b", "paligemma-3b",
+                                      "whisper-large-v3")
+CMDR_LAYERS = 4                        # [19a]: 37.8 GB of f32 at 4 of 64
+LM_REPS = 1                            # [15], [18], [19]: timed prefills
+WHISPER_TRAIN_LAYERS = 8               # [19e]: decoder and encoder depth
+WHISPER_FRAMES = 1536                  # [19c]'s serving frames
+KVQ_STEPS = 32                         # [19d]: teacher-forced decode steps
+KVQ_DRAWS = 4                          # [19d]: half-step perturbations a step
+KVQ_RATIO = 2.0                        # [19d]: the limit, x the draws' size
+CMDR_TRAIN_LAYERS = 1                  # [19e]: Adafactor, B 1
+FAMILY_TRAIN_STEPS = 2
+FAMILY_GRAD_SEQ = 128                  # [19e]'s float32 card-vs-CPU steps
+PALI_GRAD_SEQ = 320                    # 256 image tokens + 64 text
+#: [19e]'s command-r checks (the card-vs-CPU step and the sharded pair)
+#: at a width that fits them: the attention's 128-wide heads in groups
+#: of 12 a KV head, d_ff / d 2.75, the parallel block, LayerNorm and the
+#: tied head kept; d 12288 -> 3072, 96 / 8 heads -> 24 / 2, d_ff 33792
+#: -> 8448, vocab 256000 -> 32000.
+CMDR_CUT = dict(d_model=3072, n_heads=24, n_kv_heads=2, d_ff=8448,
+                vocab=32000)
+
+
+def family_init(tag, cfg):
+    """``init_model`` on the card from seed 0, logged with its size."""
+    import torch
+    from repro_torch.models import transformer
+
+    free_device_memory()
+    t0 = time.perf_counter()
+    model = transformer.init_model(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size()
+              for p in model.parameters()) / 2**30
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers
+           else "")
+        + f", d {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} / "
+        f"{cfg.n_kv_heads} KV, d_ff {cfg.d_ff} ({cfg.act}), vocab "
+        f"{cfg.vocab}, norm {cfg.norm}, parallel block "
+        f"{cfg.parallel_block}, kind {cfg.kind}; {n_params:,} params "
+        f"({gib:.2f} GiB f32; param_count() {cfg.param_count():,}) "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
+    return model, {"params": n_params, "param_gib": gib,
+                   "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers}
+
+
+def family_cmdr(tag, reps, g):
+    """[19a]: command-r-plus-104b at full width on ``CMDR_LAYERS`` of its
+    64 layers: the bf16 prefill at B 4, S 4096, the float32 check over
+    the same 4 layers, serving; then [19d] on its tensors."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(CMDR_ARCH), n_layers=CMDR_LAYERS)
+    model, out = family_init(tag, cfg)
+    tokens = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_SEQ),
+                           generator=g, device="cuda")
+    out.update(batch=DENSE_BATCH, seq=DENSE_SEQ,
+               **dense_prefill(tag, model, cfg, tokens, reps))
+    del tokens
+    cfg4 = dataclasses.replace(cfg, compute_dtype="float32")
+    prompt = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_XCHECK_SEQ),
+                           generator=g, device="cuda")
+    with torch.no_grad():
+        out["xcheck_max_abs_diff"], out["xcheck_max_abs_logit"] = xcheck(
+            tag, first_layers(model, cfg4), cfg4, prompt)
+    out.update(serve_check(tag, model, cfg, DENSE_BATCH, g, "softmax"))
+    out["kv_quant"] = kv_quant_check("[19d]", model, cfg, g)
+    del model
+    free_device_memory()
+    return out
+
+
+def family_pali(tag, reps, g):
+    """[19b]: paligemma-3b at full width and depth: the bf16 prefill of
+    256 stub image embeddings and 3,840 text tokens (S 4096, B 4); the
+    float32 check on a 4-layer copy without image tokens (the reference's
+    ``vlm`` decodes causally and its engine takes no image embeddings,
+    so only without a prefix are ``forward`` and ``Engine.prefill`` the
+    same function); the prefix mask held separately; serving."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(PALI_ARCH)
+    model, out = family_init(tag, cfg)
+    n_img = cfg.n_img_tokens
+    tokens = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_SEQ - n_img),
+                           generator=g, device="cuda")
+    embeds = torch.randn((DENSE_BATCH, n_img, cfg.d_model), generator=g,
+                         device="cuda").to(cfg.cdtype)
+    out.update(batch=DENSE_BATCH, seq=DENSE_SEQ, image_tokens=n_img,
+               **dense_prefill(tag, model, cfg, tokens, reps,
+                               embeds=embeds))
+    del tokens, embeds
+    cfg4 = dataclasses.replace(cfg, n_layers=4, n_img_tokens=0,
+                               compute_dtype="float32")
+    prompt = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_XCHECK_SEQ),
+                           generator=g, device="cuda")
+    with torch.no_grad():
+        out["xcheck_max_abs_diff"], out["xcheck_max_abs_logit"] = xcheck(
+            tag, first_layers(model, cfg4), cfg4, prompt)
+        out["prefix"] = prefix_check(tag, model, cfg, g)
+    out.update(serve_check(tag, model, cfg, DENSE_BATCH, g, "softmax"))
+    del model
+    free_device_memory()
+    return out
+
+
+def prefix_check(tag, model, cfg, g):
+    """paligemma's prefix mask: a float32 2-layer copy's final hidden
+    state of ``forward(tokens, embeds)`` (256 image + 64 text positions,
+    B 1) on the card against the same on the CPU, max |diff| <=
+    ``XCHECK_ATOL`` (values of ~1 after the final norm); a causal-mask
+    variant on the card must miss it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_of
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    small = first_layers(model, cfg2)
+    cpu = transformer.Model(cfg2, _tree_copy(tree_of(small), "cpu"))
+    tok = torch.randint(0, cfg.vocab, (1, 64), generator=g, device="cuda")
+    emb = torch.randn((1, cfg.n_img_tokens, cfg.d_model), generator=g,
+                      device="cuda")
+    got = transformer.forward(small, cfg2, tok, embeds=emb,
+                              return_hidden=True)
+    want = transformer.forward(cpu, cfg2, tok.cpu(), embeds=emb.cpu(),
+                               return_hidden=True)
+    err = float((got.cpu() - want).abs().max())
+    if not err <= XCHECK_ATOL:
+        raise AssertionError(f"{tag} prefix-mask forward on the card vs the "
+                             f"CPU: max |diff| {err:.3e} > {XCHECK_ATOL}")
+    keep = transformer._attn_mask_kind
+    transformer._attn_mask_kind = lambda c, kind: ("causal", 0)
+    try:
+        bad = transformer.forward(small, cfg2, tok, embeds=emb,
+                                  return_hidden=True)
+    finally:
+        transformer._attn_mask_kind = keep
+    bad_err = float((bad.cpu() - want).abs().max())
+    if not bad_err > XCHECK_ATOL:
+        raise AssertionError(f"{tag} a causal-mask forward passes the prefix "
+                             f"check ({bad_err:.3e})")
+    log(f"{tag} prefix mask, f32, 2 layers, {cfg.n_img_tokens} image + 64 "
+        f"text positions: the card's final hidden state == the CPU's (max "
+        f"|diff| {err:.3e} <= {XCHECK_ATOL}); a causal mask misses it by "
+        f"{bad_err:.3e}")
+    return {"max_abs_diff": err, "causal_max_abs_diff": bad_err}
+
+
+def family_whisper(tag, reps, g):
+    """[19c]: whisper-large-v3 at full width and depth (32 encoder + 32
+    decoder layers): the bf16 prefill at B 4, S 4096 with (B, S, D) stub
+    frame embeddings (the reference's ``input_specs``), the float32 check
+    on a 4 + 4-layer copy (``forward(tokens, enc_embeds)`` against
+    ``Engine.prefill`` after ``build_cross_caches``), and serving with
+    ``WHISPER_FRAMES`` encoder frames."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config(WHISPER_ARCH)
+    model, out = family_init(tag, cfg)
+    tokens = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_SEQ),
+                           generator=g, device="cuda")
+    frames = torch.randn((DENSE_BATCH, DENSE_SEQ, cfg.d_model), generator=g,
+                         device="cuda").to(cfg.cdtype)
+    out.update(batch=DENSE_BATCH, seq=DENSE_SEQ, frames=DENSE_SEQ,
+               **dense_prefill(tag, model, cfg, tokens, reps,
+                               enc_embeds=frames))
+    del tokens, frames
+    cfg4 = dataclasses.replace(cfg, n_layers=4, n_enc_layers=4,
+                               compute_dtype="float32")
+    prompt = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_XCHECK_SEQ),
+                           generator=g, device="cuda")
+    enc4 = torch.randn((DENSE_BATCH, DENSE_XCHECK_SEQ, cfg.d_model),
+                       generator=g, device="cuda")
+    with torch.no_grad():
+        out["xcheck_max_abs_diff"], out["xcheck_max_abs_logit"] = xcheck(
+            tag, first_layers(model, cfg4), cfg4, prompt, enc4)
+    try:
+        layers.check_q_len(1500)
+    except ValueError as e:
+        log(f"{tag} whisper's real 1,500 encoder frames (30 s of audio) "
+            f"are refused as the reference's chunk loop refuses them ({e}); "
+            f"serving takes {WHISPER_FRAMES} = 3 x 512")
+    else:
+        raise AssertionError(f"{tag} 1,500 encoder frames were not refused")
+    frames = torch.randn((DENSE_BATCH, WHISPER_FRAMES, cfg.d_model),
+                         generator=g, device="cuda").to(cfg.cdtype)
+    out.update(serve_check(tag, model, cfg, DENSE_BATCH, g, "softmax",
+                           enc=frames))
+    out["serve_frames"] = WHISPER_FRAMES
+    del model, frames
+    free_device_memory()
+    return out
+
+
+def kvq_draws(model, cfg, x0, c, pos, g):
+    """[19d]'s yardstick: the logits of a 1-layer parallel-block model at
+    decode position ``pos`` (its step's embedding ``x0``) over its float
+    cache ``c``, each cached key and value moved by a uniform draw within
+    half a quantization step (the row's int8 scale s, computed from the
+    float row as the int8 engine computes it: rounding to the nearest
+    step moves an element by at most s / 2), ``KVQ_DRAWS`` times; and
+    the same with no move (which must be the float engine's logits)."""
+    import torch
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.common import apply_norm
+
+    layer = model.layers[0]
+    n = pos + 1
+    h = apply_norm(layer.ln, x0, cfg)
+    mlp = layers.apply_mlp(layer.mlp, h, cfg)
+    scales = {k: layers._quantize_rows(c[k][:, :n])[1] for k in ("k", "v")}
+
+    def logits(move):
+        kv = {k: c[k][:, :n] + (move * (2 * torch.rand(
+            c[k][:, :n].shape, generator=g, device=x0.device) - 1)
+            * scales[k] / 2 if move else 0) for k in ("k", "v")}
+        a, _ = layers.attention_decode(
+            layer.attn, h, {**kv, "len": pos, "kv_len": n}, cfg,
+            use_rope=cfg.rope_theta > 0, cross=True)
+        return transformer._logits(model, x0 + a + mlp, cfg)[:, 0]
+
+    return logits(0), [logits(1) for _ in range(KVQ_DRAWS)]
+
+
+def kv_quant_check(tag, model, cfg, g):
+    """[19d] the int8 KV cache (``kv_quant``) on command-r's tensors: a
+    float32 1-layer copy (its layer 0, the parallel block) serves the
+    same ``KVQ_STEPS`` tokens through an int8 engine and a float one,
+    teacher-forced a token at a time. At every step every int8 row and
+    scale the engine writes equals ``_quantize_rows`` of the float
+    engine's row (the same layer input: one layer), exactly or +-1 at a
+    rounding tie; and the int8 engine's logits stay within the limit of
+    the module docstring, ``KVQ_RATIO`` x the size of the logit changes
+    that ``kvq_draws``' half-step moves of the float cache make. An
+    engine whose rows are read back without their scales must miss that
+    limit. Then bf16 serving at the 4 layers with ``kv_quant``, and the
+    cache bytes of both engines."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import layers, transformer
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1, compute_dtype="float32")
+    cfg1q = dataclasses.replace(cfg1, kv_quant=True)
+    m1, m1q = first_layers(model, cfg1), first_layers(model, cfg1q)
+    prompt = torch.randint(0, cfg.vocab, (DENSE_BATCH, KVQ_STEPS),
+                           generator=g, device="cuda")
+    v = cfg.vocab
+    quantize = layers._quantize_rows
+
+    def unscaled(x):
+        q, s = quantize(x)
+        return q, torch.ones_like(s)
+
+    def run(drop_scales):
+        eng = Engine(m1, cfg1, ServeConfig(DENSE_BATCH, KVQ_STEPS),
+                     device="cuda")
+        engq = Engine(m1q, cfg1q, ServeConfig(DENSE_BATCH, KVQ_STEPS),
+                      device="cuda")
+        draws = torch.Generator(device="cuda").manual_seed(191)
+        worst, ties, rows = 0.0, 0, 0
+        for t in range(KVQ_STEPS):
+            tok = prompt[:, t:t + 1]
+            lf = eng.prefill(tok)[:, 0, :v]
+            if drop_scales:
+                layers._quantize_rows = unscaled
+            try:
+                lq = engq.prefill(tok)[:, 0, :v]
+            finally:
+                layers._quantize_rows = quantize
+            c, cq = eng.cache[0], engq.cache[0]
+            for name in ("k", "v"):
+                row = c[name][:, t:t + 1]
+                want_q, want_s = quantize(row)
+                got_q, got_s = cq[name][:, t:t + 1], cq[name + "_scale"][
+                    :, t:t + 1]
+                if not drop_scales and not torch.equal(got_s, want_s):
+                    raise AssertionError(f"{tag} step {t}: {name}_scale "
+                                         "differs from _quantize_rows'")
+                off = (got_q.int() - want_q.int()).abs()
+                frac = (row.float() / want_s).abs().frac()
+                at_tie = (frac - 0.5).abs() <= 1e-5
+                if (off > 1).any() or ((off == 1) & ~at_tie).any():
+                    raise AssertionError(f"{tag} step {t}: an int8 {name} "
+                                         "row differs from _quantize_rows' "
+                                         "away from a rounding tie")
+                ties += int((off == 1).sum())
+                rows += row.numel()
+            x0 = transformer.embed_lookup(m1, tok, cfg1)
+            same, moved = kvq_draws(m1, cfg1, x0, c, t, draws)
+            if not torch.allclose(same[:, :v], lf, rtol=0, atol=1e-5):
+                raise AssertionError(f"{tag} step {t}: the yardstick's "
+                                     "unmoved logits are not the float "
+                                     "engine's")
+            moves = torch.stack([m[:, :v] - lf for m in moved])
+            diff = lq - lf
+            share = max(
+                float(diff.square().mean().sqrt()
+                      / moves.square().mean().sqrt()),
+                float(diff.abs().max() / moves.abs().max())) / KVQ_RATIO
+            if not drop_scales and share > 1:
+                raise AssertionError(
+                    f"{tag} step {t}: int8 logits off by rms "
+                    f"{float(diff.square().mean().sqrt()):.3e}, max "
+                    f"{float(diff.abs().max()):.3e}: {share:.2f} x the "
+                    "limit")
+            worst = max(worst, share)
+        return worst, ties, rows, float(diff.abs().max())
+
+    with torch.no_grad():
+        share, ties, rows, last = run(False)
+        bad, _, _, _ = run(True)
+    if not bad > 1:
+        raise AssertionError(f"{tag} an engine that drops the scales stays "
+                             f"within the limit ({bad:.2f} x)")
+    log(f"{tag} kv_quant, f32 1-layer copy of {cfg.name}, B {DENSE_BATCH}, "
+        f"{KVQ_STEPS} steps: every int8 row and scale == _quantize_rows of "
+        f"the float engine's ({rows:,} elements, {ties} +-1 at a tie); "
+        f"logits within {share:.3f} of the limit (last step max |diff| "
+        f"{last:.3e}); rows read without their scales: {bad:.1f} x the "
+        "limit")
+    out = {"rows": rows, "ties": ties, "limit_share": share,
+           "last_max_abs_diff": last, "dropped_scales_share": bad}
+    cfgq = dataclasses.replace(cfg, kv_quant=True)
+    out["serve"] = serve_check(tag, model, cfgq, DENSE_BATCH, g,
+                               "softmax")["serve"]
+
+    def cache_bytes(c):
+        return sum(v.numel() * v.element_size() for layer_c in c
+                   for v in layer_c.values() if isinstance(v, torch.Tensor))
+
+    full = dataclasses.replace(cfg, n_layers=64)
+    nb = {q: cache_bytes(transformer.init_cache(
+        dataclasses.replace(full, kv_quant=q), 1, 4096, device="cuda"))
+        for q in (False, True)}
+    out.update(cache_bytes_bf16=nb[False], cache_bytes_int8=nb[True])
+    log(f"{tag} the KV cache of one 4,096-token request at command-r's 64 "
+        f"layers: {nb[True] / 2**30:.3f} GiB int8 + scales against "
+        f"{nb[False] / 2**30:.3f} GiB bf16 ({nb[True] / nb[False]:.3f} x)")
+    return out
+
+
+def family_train(tag, reps, g):
+    """[19e]: two training steps of each at a depth that fits one card
+    (whisper on ``WHISPER_TRAIN_LAYERS`` + as many encoder layers, for
+    time), each from seed 0 (``train_run``), then its float32 copy stepped on
+    the card and on the CPU (``train_grad_check``), then the sharded
+    pair: command-r at ``CMDR_CUT`` and paligemma at full width on 2
+    layers over (data 2, model 2), with the copy that drops the sum
+    after ``wo`` failing; whisper on 2 + 2 layers over (data 2)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import OptimizerConfig, SyntheticLM, init_state
+
+    out = {}
+    cmdr, pali, whisper = (get_config(a) for a in (CMDR_ARCH, PALI_ARCH,
+                                                   WHISPER_ARCH))
+    runs = (
+        (CMDR_ARCH, dataclasses.replace(cmdr, n_layers=CMDR_TRAIN_LAYERS), 1,
+         OptimizerConfig(name="adafactor", total_steps=FAMILY_TRAIN_STEPS,
+                         warmup_steps=1)),
+        (PALI_ARCH, pali, TRAIN_BATCH, None),
+        (WHISPER_ARCH, dataclasses.replace(
+            whisper, n_layers=WHISPER_TRAIN_LAYERS,
+            n_enc_layers=WHISPER_TRAIN_LAYERS), TRAIN_BATCH, None))
+    for arch, cfg, batch, ocfg in runs:
+        state, out[arch] = train_run(tag, cfg, batch, TRAIN_SEQ,
+                                     FAMILY_TRAIN_STEPS, ocfg=ocfg)
+        if arch != CMDR_ARCH:
+            out[arch]["grad"] = train_grad_check(
+                tag, cfg, state, 2,
+                PALI_GRAD_SEQ if arch == PALI_ARCH else FAMILY_GRAD_SEQ)
+        del state
+        free_device_memory()
+    cut = dataclasses.replace(cmdr, n_layers=2, **CMDR_CUT)
+    state = init_state(cut, train_ocfg(1), 0, device="cuda")
+    out[CMDR_ARCH]["grad"] = train_grad_check(tag, cut, state, 2,
+                                              FAMILY_GRAD_SEQ)
+    del state
+    free_device_memory()
+    out["shard"] = {}
+    for arch, cfg, seq in ((CMDR_ARCH, cut, FAMILY_GRAD_SEQ),
+                           (PALI_ARCH, pali, PALI_GRAD_SEQ)):
+        out["shard"][arch], _ = shard_f32_check(tag, cfg, shard_ctx(
+            SHARD_MESH), batch=2, seq=seq)
+        free_device_memory()
+    cfg2 = dataclasses.replace(whisper, n_layers=2, n_enc_layers=2,
+                               compute_dtype="float32")
+    data = SyntheticLM(cfg2, 2, FAMILY_GRAD_SEQ, seed=1,
+                       device="cuda").next()
+    rec, _, _ = shard_step_pair(tag, cfg2, shard_ctx((2, 1)), data)
+    out["shard"][WHISPER_ARCH] = rec
+    log(f"{tag} {WHISPER_ARCH} f32 2 + 2 layers (B 2, S {FAMILY_GRAD_SEQ}) "
+        f"over (data 2, model 1) == one device: {rec['leaves']} leaves "
+        f"within {rec['grad_share']:.3f} of the limit, loss "
+        f"{rec['loss_sharded']:.6f} / {rec['loss_single']:.6f}")
+    free_device_memory()
+    return out
+
+
+def phase_families(report, reps):
+    """[19] The other families (no port kernel on this path):
+    command-r-plus-104b ([19a]) with the int8 KV cache on its tensors
+    ([19d]), paligemma-3b ([19b]), whisper-large-v3 ([19c]), and a
+    training step of each, single-device and sharded ([19e])."""
+    import torch
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(19)
+    out = {}
+    for tag, key, run in (("[19a], [19d]", CMDR_ARCH, family_cmdr),
+                          ("[19b]", PALI_ARCH, family_pali),
+                          ("[19c]", WHISPER_ARCH, family_whisper),
+                          ("[19e]", "train", family_train)):
+        t1 = time.perf_counter()
+        out[key] = run(tag.split(",")[0], reps, g)
+        log(f"{tag} took {time.perf_counter() - t1:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
+    report["families"] = out
+    log(f"[19] passed in {out['seconds']:.1f} s")
+
+
 def kernels_record(per_kernel, launches, errs):
     """The ``kernels`` JSON line: ``per_kernel`` maps each kernel to its
     per-mode timing rows and a note of the tensor they were timed at."""
@@ -5335,10 +5883,12 @@ def main(argv=None) -> int:
     times14, launches14, err14 = phase_dist(kmt, t, factors, coo8, twitch,
                                             report, args.reps)
     del coo8, twitch
-    phase_dense(report, args.reps)
+    lm_reps = min(args.reps, LM_REPS)
+    phase_dense(report, lm_reps)
     wbwd, lbwd = phase_train(kw6, klru, report, args.reps)
     launches17 = phase_shard(report, args.reps)
-    phase_moe(report, args.reps)
+    phase_moe(report, lm_reps)
+    phase_families(report, lm_reps)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [

@@ -1,40 +1,37 @@
-"""Registry of the ported architectures, and ``smoke`` configs.
+"""Registry of the ten architectures, and ``smoke`` configs.
 
-The reference registers ten architectures; the port has the ones whose
-block kinds it runs: the dense attention family (tinyllama-1.1b,
-olmo-1b, qwen2.5-3b), the MoE family (olmoe-1b-7b,
-qwen3-moe-235b-a22b), recurrentgemma-9b and rwkv6-3b. ``smoke()``
-returns a reduced same-family config for CPU tests, by the reference's
-rules.
+The reference's ten, all ported: the dense attention family
+(tinyllama-1.1b, olmo-1b, qwen2.5-3b, and command-r-plus-104b with its
+parallel block), the MoE family (olmoe-1b-7b, qwen3-moe-235b-a22b),
+recurrentgemma-9b, rwkv6-3b, paligemma-3b (prefix-LM over stub image
+embeddings) and whisper-large-v3 (encoder-decoder over stub frame
+embeddings). ``smoke()`` returns a reduced same-family config for CPU
+tests, by the reference's rules.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from ..models.common import ModelConfig
+from .command_r_plus_104b import CONFIG as COMMAND_R_PLUS_104B
 from .olmo_1b import CONFIG as OLMO_1B
 from .olmoe_1b_7b import CONFIG as OLMOE_1B_7B
+from .paligemma_3b import CONFIG as PALIGEMMA_3B
 from .qwen2_5_3b import CONFIG as QWEN2_5_3B
 from .qwen3_moe_235b_a22b import CONFIG as QWEN3_MOE_235B
 from .recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
 from .rwkv6_3b import CONFIG as RWKV6_3B
 from .tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
+from .whisper_large_v3 import CONFIG as WHISPER_LARGE_V3
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in [OLMO_1B, QWEN2_5_3B, TINYLLAMA_1_1B, OLMOE_1B_7B,
-                        QWEN3_MOE_235B, RECURRENTGEMMA_9B, RWKV6_3B]}
-
-#: The reference's other architectures: their block kinds and features
-#: (the parallel block, prefix attention, encoder-decoder) are ROADMAP
-#: Queue A item 12.4b.
-NOT_PORTED = ("command-r-plus-104b", "paligemma-3b", "whisper-large-v3")
+    c.name: c for c in [
+        COMMAND_R_PLUS_104B, OLMO_1B, QWEN2_5_3B, TINYLLAMA_1_1B,
+        RECURRENTGEMMA_9B, QWEN3_MOE_235B, OLMOE_1B_7B, PALIGEMMA_3B,
+        WHISPER_LARGE_V3, RWKV6_3B]}
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue A item 12.4b); the "
-            f"port has {sorted(ARCHS)}")
     return ARCHS[name]
 
 

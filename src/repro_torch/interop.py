@@ -31,12 +31,20 @@ def factors_from_numpy(factors: Sequence, lam=None, device="cuda"):
     return fs, _to(lam, np.float32, device)
 
 
+def _stacked(key: str) -> bool:
+    """Whether a top-level key of a reference params tree holds stacked
+    layers: a decoder stage (``stage{i}``) or the encoder (``enc``)."""
+    return key.startswith("stage") or key == "enc"
+
+
 def model_params_from_numpy(tree, cfg, device="cuda"):
     """The port's ``Model`` from the reference's ``init_model`` pytree
     with numpy leaves: each stage's stacked blocks
     (``tree["stage{i}"]["b{j}"][name][c]``) are unstacked into the layers
-    in order, every other leaf is copied as it is (dtype kept): ``embed``
-    and ``head``, or a CPD model's ``embed_cpd/{A,B,C}``."""
+    in order, and the encoder's (``tree["enc"]["b0"][name][c]``) into
+    ``enc``; every other leaf is copied as it is (dtype kept): ``embed``,
+    ``head``, ``ln_f``, ``enc_ln_f``, or a CPD model's
+    ``embed_cpd/{A,B,C}``."""
     from repro_torch.models.common import device_of
     from repro_torch.models.transformer import Model
 
@@ -53,7 +61,10 @@ def model_params_from_numpy(tree, cfg, device="cuda"):
         for c in range(rep):
             layers.extend(conv(tree[f"stage{i}"][f"b{j}"], c)
                           for j in range(len(pat)))
-    rest = {k: conv(v) for k, v in tree.items() if not k.startswith("stage")}
+    rest = {k: conv(v) for k, v in tree.items() if not _stacked(k)}
+    if "enc" in tree:
+        rest["enc"] = [conv(tree["enc"]["b0"], c)
+                       for c in range(cfg.n_enc_layers)]
     return Model(cfg, {**rest, "layers": layers})
 
 
@@ -61,7 +72,8 @@ def train_state_from_numpy(params_tree, opt_tree, step, cfg, device="cuda"):
     """The port's train state (``training.init_state``'s layout) from a
     reference train state's ``params`` and ``opt`` trees with numpy
     leaves and its ``step``: every leaf under a ``stage{i}`` key (stacked
-    over the stage's cycles) becomes the list of its slices, as
+    over the stage's cycles) or the ``enc`` key (over the encoder's
+    layers) becomes the list of its slices, as
     ``model_params_from_numpy`` unstacks the layers; AdamW's ``m``/``v``
     follow the params, and Adafactor's factored ``r``/``c`` of a stacked
     leaf of rank >= 3 are unstacked alike (a stacked rank-2 leaf's ``c``
@@ -83,14 +95,14 @@ def train_state_from_numpy(params_tree, opt_tree, step, cfg, device="cuda"):
 
     def conv(node, stacked=False):
         if isinstance(node, dict):
-            return {k: conv(v, stacked or k.startswith("stage"))
+            return {k: conv(v, stacked or _stacked(k))
                     for k, v in node.items()}
         a = np.asarray(node)
         return [tensor(x) for x in a] if stacked else tensor(a)
 
     def factored(f, p, stacked=False):
         if isinstance(p, dict):
-            return {k: factored(f[k], p[k], stacked or k.startswith("stage"))
+            return {k: factored(f[k], p[k], stacked or _stacked(k))
                     for k in p}
         if stacked and np.asarray(p).ndim >= 3:
             return {k: [tensor(x) for x in np.asarray(v)]

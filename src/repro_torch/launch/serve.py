@@ -9,12 +9,13 @@
       --arch olmo-1b                                    # on the card
 
 ``--arch`` is any of ``configs.ARCHS``: tinyllama-1.1b, olmo-1b,
-qwen2.5-3b, olmoe-1b-7b, qwen3-moe-235b-a22b, recurrentgemma-9b,
-rwkv6-3b (``--arch olmoe-1b-7b --smoke --device cpu`` runs the MoE
-family here). ``--max-len`` sizes the
-attention layers' KV caches (a local layer keeps at most its window); a
-causal layer's must hold the prompt and the new tokens, or the engine
-refuses the request.
+qwen2.5-3b, command-r-plus-104b, olmoe-1b-7b, qwen3-moe-235b-a22b,
+recurrentgemma-9b, rwkv6-3b, paligemma-3b, whisper-large-v3 (``--arch
+whisper-large-v3 --smoke --device cpu`` runs the encoder-decoder here;
+its requests take 64 stub frame embeddings, standard normal from
+``--seed``). ``--max-len`` sizes the attention layers' KV caches (a local
+layer keeps at most its window); a causal layer's must hold the prompt
+and the new tokens, or the engine refuses the request.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from ..configs import get_config, smoke
 from ..models import init_model
+from ..models.common import device_of
 from ..serving.engine import Engine, ServeConfig
 
 
@@ -43,11 +45,16 @@ def main(argv=None):
 
     cfg = smoke(args.arch) if args.smoke else get_config(args.arch)
     params = init_model(cfg, args.seed, device=args.device)
+    gen = torch.Generator(device=device_of(args.device)).manual_seed(
+        args.seed)
+    enc = None
+    if cfg.kind == "audio":     # stub frame embeddings
+        enc = torch.randn((args.batch, 64, cfg.d_model), generator=gen,
+                          device=gen.device).to(cfg.cdtype)
     eng = Engine(params, cfg,
                  ServeConfig(batch=args.batch, max_len=args.max_len,
                              temperature=args.temperature),
-                 device=args.device)
-    gen = torch.Generator(device=eng.device).manual_seed(args.seed)
+                 device=args.device, enc_embeds=enc)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=eng.device)
     t0 = time.monotonic()

@@ -1,17 +1,19 @@
-"""Attention (GQA/MQA, causal/sliding-window/prefix/bidirectional,
-prefill + decode), MLP and RoPE: the branches of the reference's
-``models/layers.py`` that the ported configs take.
+"""Attention (GQA/MQA, causal/sliding-window/prefix/bidirectional/cross,
+prefill + decode), MLP and RoPE: the reference's ``models/layers.py``.
 
 The prefill attention loops over query chunks in Python, as the
 reference's does, and for a sliding window touches only the (window +
 chunk) band of keys a chunk can see. Where autograd records, each chunk
 is recomputed in backward (the reference's ``jax.checkpoint`` of a
-chunk), so that one chunk's f32 logits are live at a time. Decode keeps a windowed layer's
-keys and values in a ring buffer. The int8 KV cache (``kv_quant``) and
-cross-attention decode raise ``NotImplementedError`` naming their ROADMAP
-item; the reference's ``shard(...)`` hints and ``set_cost_mode`` (an XLA
-cost-measurement switch) are dropped. ``p`` is a layer's parameter module
-(the reference's keys as attributes).
+chunk), so that one chunk's f32 logits are live at a time. Decode keeps a
+windowed layer's keys and values in a ring buffer; cross-attention
+(whisper's decoder) reads a cache of the encoder's keys and values that
+``models.transformer.build_cross_caches`` fills once. With ``kv_quant``
+the self-attention cache holds int8 rows and a float32 scale a (position,
+head) (:func:`_quantize_rows`), read back as ``int8 * scale`` in the
+compute dtype. The reference's ``shard(...)`` hints and ``set_cost_mode``
+(an XLA cost-measurement switch) are dropped. ``p`` is a layer's
+parameter module (the reference's keys as attributes).
 
 Tensor parallelism (``models.transformer.apply_block_tp``): shard ``j`` of
 the model axis runs these same functions on its slice of the weights and
@@ -33,8 +35,6 @@ from torch.utils.checkpoint import checkpoint
 from .common import ModelConfig, Node, dense_init
 
 _NEG = -1e30
-_KV_QUANT = "kv_quant (the int8 KV cache) is ROADMAP Queue A item 12.4b"
-_CROSS = ("cross-attention decode (whisper) is ROADMAP Queue A item 12.4b")
 
 
 def gelu(x):
@@ -71,7 +71,10 @@ def apply_rope(x, pos, theta: float):
 # --------------------------------------------------------------------------
 # Attention
 # --------------------------------------------------------------------------
-def init_attention(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init_attention(cfg: ModelConfig, generator: torch.Generator,
+                   cross: bool = False) -> dict:
+    """Self- or cross-attention parameters: the same leaves (``cross``
+    changes nothing, as in the reference)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev, pdt = generator.device, cfg.pdtype
     p = {"wq": dense_init((d, h, hd), pdt, generator=generator),
@@ -137,22 +140,23 @@ def check_q_len(sq: int, q_chunk: int = 512) -> None:
 
 
 def attention_full(p, xq, cfg: ModelConfig, *, mask: str = "causal",
-                   q_offset: int = 0, prefix_len: int = 0,
+                   xkv=None, q_offset: int = 0, prefix_len: int = 0,
                    use_rope: bool = True, q_chunk: int = 512):
-    """Prefill self-attention, chunked over queries in a Python loop. For
-    ``mask="window"`` with more keys than window + chunk, each chunk
-    touches only the (window + chunk) band of keys it can see. (The
-    reference's ``xkv``, cross-attention for whisper, is ROADMAP Queue A
-    item 12.4b.)"""
+    """Prefill attention, chunked over queries in a Python loop. The keys
+    and values come from ``xkv`` (cross-attention: the encoder's output,
+    of any length) or, without it, from ``xq``. For ``mask="window"``
+    with more keys than window + chunk, each chunk touches only the
+    (window + chunk) band of keys it can see."""
     b, sq, _ = xq.shape
     check_q_len(sq, q_chunk)
-    skv = sq
+    xkv = xq if xkv is None else xkv
+    skv = xkv.shape[1]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kvh
     dev = xq.device
     q_pos_all = q_offset + torch.arange(sq, device=dev)
     kv_pos_all = torch.arange(skv, device=dev)
-    q, k, v = _qkv(p, xq, xq, cfg, q_pos_all, kv_pos_all, use_rope)
+    q, k, v = _qkv(p, xq, xkv, cfg, q_pos_all, kv_pos_all, use_rope)
     if g > 1:  # grouped KV expanded to every head, as the reference does
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
@@ -252,22 +256,21 @@ def mlp_split(p, cfg: ModelConfig) -> bool:
 def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
                      mask: str = "causal", use_rope: bool = True,
                      cross: bool = False):
-    """One-token decode. cache: {"k", "v": (B, Smax, KV, hd), "len": int}.
-    Writes the new key and value at ``len`` (modulo Smax for a windowed
-    layer: a ring buffer) into copies; returns (out, new cache). A full
-    causal cache raises (the reference clamps the write to its last
-    slot)."""
-    if cross:
-        raise NotImplementedError(_CROSS)
-    if "k_scale" in cache:
-        raise NotImplementedError(_KV_QUANT)
+    """One-token decode. cache: {"k", "v": (B, Smax, KV, hd), "len": int}
+    (with ``kv_quant`` int8 ``k`` / ``v`` and float32 ``k_scale`` /
+    ``v_scale`` of (B, Smax, KV, 1)). Self-attention writes the new key
+    and value at ``len`` (modulo Smax for a windowed layer: a ring
+    buffer) into copies; returns (out, new cache). A full causal cache
+    raises (the reference clamps the write to its last slot).
+    Cross-attention (``cross``) reads the encoder's keys and values, the
+    first ``kv_len`` of them, and writes nothing."""
     b = xq.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kvh
     dt = cfg.cdtype
     pos = cache["len"]
     smax = cache["k"].shape[1]
-    if mask != "window" and pos >= smax:
+    if not cross and mask != "window" and pos >= smax:
         raise ValueError(f"attention_decode: the causal KV cache holds "
                          f"{smax} positions and is full (position {pos})")
     posv = torch.full((b, 1), pos, device=xq.device)
@@ -279,20 +282,33 @@ def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
         q = rms_head_norm(q, p.q_scale)
     if use_rope:
         q = apply_rope(q, posv, cfg.rope_theta)
-    knew, vnew = _proj(xq, p.wk, dt), _proj(xq, p.wv, dt)
-    if hasattr(p, "bk"):
-        knew = knew + p.bk.to(dt)
-        vnew = vnew + p.bv.to(dt)
-    if hasattr(p, "k_scale"):
-        knew = rms_head_norm(knew, p.k_scale)
-    if use_rope:
-        knew = apply_rope(knew, posv, cfg.rope_theta)
-    slot = pos % smax if mask == "window" else pos
-    k, v = cache["k"].clone(), cache["v"].clone()
-    k[:, slot] = knew[:, 0].to(dt)
-    v[:, slot] = vnew[:, 0].to(dt)
-    new_cache = {**cache, "k": k, "v": v, "len": pos + 1}
-    n_valid = min(pos + 1, smax) if mask == "window" else pos + 1
+    if cross:
+        k, v = cache["k"], cache["v"]
+        n_valid = cache.get("kv_len", smax)
+        new_cache = cache
+    else:
+        knew, vnew = _proj(xq, p.wk, dt), _proj(xq, p.wv, dt)
+        if hasattr(p, "bk"):
+            knew = knew + p.bk.to(dt)
+            vnew = vnew + p.bv.to(dt)
+        if hasattr(p, "k_scale"):
+            knew = rms_head_norm(knew, p.k_scale)
+        if use_rope:
+            knew = apply_rope(knew, posv, cfg.rope_theta)
+        slot = pos % smax if mask == "window" else pos
+        new_cache = {**cache, "len": pos + 1}
+        if "k_scale" in cache:                          # int8 KV cache
+            for name, row in (("k", knew), ("v", vnew)):
+                rq, rs = _quantize_rows(row)
+                new_cache[name] = _write(cache[name], slot, rq)
+                new_cache[f"{name}_scale"] = _write(cache[f"{name}_scale"],
+                                                    slot, rs)
+            k, v = ((new_cache[n].float() * new_cache[f"{n}_scale"]).to(dt)
+                    for n in ("k", "v"))
+        else:
+            k = new_cache["k"] = _write(cache["k"], slot, knew.to(dt))
+            v = new_cache["v"] = _write(cache["v"], slot, vnew.to(dt))
+        n_valid = min(pos + 1, smax) if mask == "window" else pos + 1
     valid = torch.arange(smax, device=xq.device) < n_valid
 
     qg = q.reshape(b, kvh, g, hd)                    # heads as (n, g)
@@ -304,15 +320,39 @@ def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
     return o @ p.wo.to(dt).flatten(0, 1), new_cache
 
 
+def _write(buf, slot: int, row):
+    """A copy of ``buf`` (B, Smax, ...) with ``row`` (B, 1, ...) at
+    ``slot``."""
+    out = buf.clone()
+    out[:, slot] = row[:, 0]
+    return out
+
+
 def make_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                     windowed: bool = False) -> dict:
-    if cfg.kv_quant:
-        raise NotImplementedError(_KV_QUANT)
     size = min(max_len, cfg.window) if windowed and cfg.window else max_len
     shape = (batch, size, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_quant:  # int8 rows + per-(position, head) scales
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3] + (1,), dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3] + (1,), dtype=torch.float32,
+                                       device=device),
+                "len": 0}
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "len": 0}
+
+
+def _quantize_rows(x):
+    """x (B, 1, KV, hd) -> int8 rows and float32 scales (B, 1, KV, 1):
+    the scale is the row's largest |x| over 127 (at least 1e-8), the row
+    ``x / scale`` rounded half to even and clipped to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
 
 
 # --------------------------------------------------------------------------

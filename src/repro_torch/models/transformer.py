@@ -2,17 +2,27 @@
 step) and the one-token ``decode_step`` over a per-layer cache, for the
 block kinds
 
-  attn   pre-norm GQA causal attention + MLP (tinyllama, olmo, qwen2.5)
+  attn   pre-norm GQA attention + MLP (tinyllama, olmo, qwen2.5;
+         ``parallel_block``: one shared norm, attention || MLP, as
+         command-r; a ``vlm`` attends with a prefix mask over its image
+         tokens, as paligemma)
   moe    GQA causal attention + the top-k MoE FFN (olmoe, qwen3-moe;
          ``models.moe``)
   rwkv   RWKV-6 time-mix + channel-mix (rwkv6-3b)
   rec    RG-LRU recurrent block + MLP (griffin: recurrentgemma-9b)
   local  sliding-window attention + MLP (griffin attention layers)
+  enc    bidirectional attention + MLP (whisper's encoder)
+  dec    causal self-attention + cross-attention + MLP (whisper's
+         decoder)
 
 and either a dense embedding table or the CPD-factorized one
 (``cfg.cpd_embedding``: ``tensorized.cpd_embed`` for the lookup, whose
 backward is the spMTTKRP of the token batch, and ``cpd_logits`` for the
-tied head).
+tied head). A ``vlm`` prepends stub image embeddings to the tokens'; an
+encoder-decoder (``n_enc_layers``) runs its encoder once over stub frame
+embeddings, and its decoder's cross-attention reads the result
+(:func:`build_cross_caches` fills the decode caches from it). Where
+``rope_theta`` is 0 the positions are absolute and sinusoidal.
 
 The reference stacks the layers of a stage and drives them with one
 ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in a loop,
@@ -22,9 +32,8 @@ backward as ``cfg.remat`` says, like the reference's ``_remat``. The
 model functions take a ``Model`` or a ``Node`` tree of the same keys
 (:func:`unstack_layers`: the train step's trees of tensors that require
 grad); :func:`stack_layers` gives a model's tree the reference's
-stage layout. Other block kinds and model features raise
-``NotImplementedError`` naming their ROADMAP item; the reference's
-``shard(...)`` hints are dropped.
+stage layout (and the encoder's layers the reference's ``enc`` stage).
+The reference's ``shard(...)`` hints are dropped.
 
 Tensor parallelism over a mesh's model axis (:func:`forward_tp`, which
 the sharded train step runs for each position of the dp axes): shard
@@ -37,13 +46,16 @@ once a sublayer. A vocab-split ``embed`` is a masked lookup a shard,
 summed (``sum_vocab``). A ``moe`` block's FFN is expert parallel instead
 (``moe.apply_moe_tp``: shard ``j`` holds E/m experts, its slice of the
 sequence goes to every expert's owner and back, and the slices are
-gathered into every replica). Only the ``attn`` and ``moe`` kinds have
-this path; a model axis above 1 with ``rwkv``, ``rec`` or ``local``
-layers raises ``NotImplementedError`` naming its ROADMAP item.
+gathered into every replica). A parallel block adds its attention and
+MLP partials before one sum over the axis. Only the ``attn`` and ``moe``
+kinds have this path; a model axis above 1 with ``rwkv``, ``rec``,
+``local``, ``enc`` or ``dec`` layers raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 from torch import nn
@@ -57,12 +69,11 @@ from . import layers, moe, rglru, rwkv
 from .common import (ModelConfig, Node, Params, apply_norm, as_node,
                      dense_init, device_of, init_norm, param)
 
-_NOT_PORTED = "ROADMAP Queue A item 12.4b (LM side: the other families)"
-_NO_TP = ("tensor parallelism (a model axis above 1) of the rwkv, rec and "
-          "local blocks is ROADMAP Queue A item 12.3b; train these on a "
-          "mesh whose model axis is 1 (dp + fsdp)")
-#: Block kinds the port runs.
-PORTED_KINDS = ("attn", "moe", "rwkv", "rec", "local")
+_NO_TP = ("tensor parallelism (a model axis above 1) of the rwkv, rec, "
+          "local, enc and dec blocks is ROADMAP Queue A item 12.3b; train "
+          "these on a mesh whose model axis is 1 (dp + fsdp)")
+#: The block kinds (the reference's).
+KINDS = ("attn", "moe", "rwkv", "rec", "local", "enc", "dec")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -71,20 +82,23 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
             for kind in pat]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    other = sorted(set(layer_kinds(cfg)) - set(PORTED_KINDS))
-    if other or cfg.n_enc_layers:
-        raise NotImplementedError(
-            f"block kinds {other or ['enc']} are {_NOT_PORTED}")
-    if cfg.parallel_block:
-        raise NotImplementedError(f"parallel_block (command-r) is "
-                                  f"{_NOT_PORTED}")
-    if cfg.kind == "vlm":
-        raise NotImplementedError(f"prefix attention and image embeddings "
-                                  f"(paligemma) are {_NOT_PORTED}")
-    if cfg.rope_theta == 0:
-        raise NotImplementedError(f"sinusoidal positions (whisper) are "
-                                  f"{_NOT_PORTED}")
+def _check_cfg(cfg: ModelConfig) -> None:
+    """Refuse what the reference cannot run either: an unknown block
+    kind, and a parallel block with a MoE FFN (its parallel branch reads
+    an ``mlp`` that a ``moe`` block lacks)."""
+    kinds = set(layer_kinds(cfg))
+    for kind in sorted(kinds):
+        _check_kind(kind)
+    if cfg.parallel_block and "moe" in kinds:
+        raise ValueError(f"{cfg.name}: a parallel block has no MoE FFN")
+
+
+def _layer_list(layers_):
+    """A list of layer trees from a list, or from a ``ModuleList``'s tree
+    (``tree_of``: keyed "0", "1", ...)."""
+    if isinstance(layers_, dict):
+        return [layers_[str(i)] for i in range(len(layers_))]
+    return list(layers_)
 
 
 class Model(nn.Module):
@@ -92,28 +106,36 @@ class Model(nn.Module):
     layers unstacked: ``embed`` (or, with ``cfg.cpd_embedding``,
     ``embed_cpd`` holding ``A``, ``B``, ``C``), ``layers[i]`` (the
     reference's ``stage*/b*`` slice of layer i), ``ln_f`` and ``head``
-    (absent when the head is tied or CPD)."""
+    (absent when the head is tied or CPD); with an encoder, ``enc[i]``
+    (the reference's ``enc/b0`` slice of encoder layer i) and
+    ``enc_ln_f``."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        _check_ported(cfg)
+        _check_cfg(cfg)
         self.cfg = cfg
         if cfg.cpd_embedding:
             self.embed_cpd = Params(tree["embed_cpd"])
         else:
             self.embed = param(tree["embed"])
-        self.layers = nn.ModuleList(Params(b) for b in tree["layers"])
+        self.layers = nn.ModuleList(Params(b)
+                                    for b in _layer_list(tree["layers"]))
         self.ln_f = Params(tree["ln_f"])
         if "head" in tree:
             self.head = param(tree["head"])
+        if "enc" in tree:
+            self.enc = nn.ModuleList(Params(b)
+                                     for b in _layer_list(tree["enc"]))
+            self.enc_ln_f = Params(tree["enc_ln_f"])
 
 
 # --------------------------------------------------------------------------
 # Blocks
 # --------------------------------------------------------------------------
 def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind!r}; the kinds are "
+                         f"{KINDS}")
 
 
 def init_block(cfg: ModelConfig, kind: str, generator) -> dict:
@@ -129,8 +151,18 @@ def init_block(cfg: ModelConfig, kind: str, generator) -> dict:
                 "rec": rglru.init_rglru(cfg, generator),
                 "ln2": init_norm(cfg, dev),
                 "mlp": layers.init_mlp(cfg, generator)}
-    p = {"attn": layers.init_attention(cfg, generator),
-         "ln1": init_norm(cfg, dev), "ln2": init_norm(cfg, dev)}
+    if kind == "dec":
+        return {"ln1": init_norm(cfg, dev),
+                "attn": layers.init_attention(cfg, generator),
+                "lnx": init_norm(cfg, dev),
+                "xattn": layers.init_attention(cfg, generator, cross=True),
+                "ln2": init_norm(cfg, dev),
+                "mlp": layers.init_mlp(cfg, generator)}
+    p = {"attn": layers.init_attention(cfg, generator)}
+    if cfg.parallel_block:
+        p["ln"] = init_norm(cfg, dev)
+    else:
+        p["ln1"], p["ln2"] = init_norm(cfg, dev), init_norm(cfg, dev)
     if kind == "moe":
         p["moe"] = moe.init_moe(cfg, generator)
     else:
@@ -138,14 +170,21 @@ def init_block(cfg: ModelConfig, kind: str, generator) -> dict:
     return p
 
 
-def _mask_kind(kind: str) -> str:
-    """A ``local`` layer attends within its window, an ``attn`` layer
-    causally (the reference's ``_attn_mask_kind`` for the ported
-    kinds)."""
-    return "window" if kind == "local" else "causal"
+def _attn_mask_kind(cfg: ModelConfig, kind: str) -> tuple[str, int]:
+    """(mask, prefix length) of a block's self-attention in the prefill:
+    ``enc`` bidirectional, ``local`` within its window, a ``vlm``'s a
+    prefix mask over its image tokens, causal otherwise (the
+    reference's; a ``dec`` block's is causal, :func:`apply_block`)."""
+    if kind == "enc":
+        return "bidir", 0
+    if kind == "local":
+        return "window", 0
+    if cfg.kind == "vlm":
+        return "prefix", cfg.n_img_tokens
+    return "causal", 0
 
 
-def apply_block(params, x, cfg: ModelConfig, kind: str):
+def apply_block(params, x, cfg: ModelConfig, kind: str, enc_out=None):
     _check_kind(kind)
     if kind == "rwkv":
         x = x + rwkv.time_mix(params, apply_norm(params.ln1, x, cfg), cfg)
@@ -155,30 +194,47 @@ def apply_block(params, x, cfg: ModelConfig, kind: str):
         x = x + rglru.apply_rglru(params.rec,
                                   apply_norm(params.ln1, x, cfg), cfg)
         return x + _mlp_part(params, x, cfg)
+    if cfg.parallel_block and kind != "dec":   # command-r: attn || mlp
+        return x + _attn_part(params, x, cfg, kind) + _mlp_part(params, x,
+                                                                cfg)
     x = x + _attn_part(params, x, cfg, kind)
+    if kind == "dec":   # cross-attention on the encoder's output, no RoPE
+        x = x + layers.attention_full(params.xattn,
+                                      apply_norm(params.lnx, x, cfg), cfg,
+                                      mask="bidir", xkv=enc_out,
+                                      use_rope=False)
     if kind == "moe":
         return x + moe.apply_moe(params.moe, apply_norm(params.ln2, x, cfg),
                                  cfg)
     return x + _mlp_part(params, x, cfg)
 
 
+def _norm_in(p, x, cfg: ModelConfig, name: str):
+    """A sublayer's normed input: the parallel block's shared ``ln``, or
+    the block's own ``name`` (``ln1`` before attention, ``ln2`` before
+    the MLP)."""
+    return apply_norm(p.ln if hasattr(p, "ln") else getattr(p, name), x, cfg)
+
+
 def _attn_part(p, x, cfg: ModelConfig, kind: str, j: int | None = None):
-    """The attention sublayer's output (before the residual). Under
+    """The self-attention sublayer's output (before the residual). Under
     tensor parallelism (model shard ``j``), where the heads are split, it
     is shard ``j``'s partial output of ``wo``; where they are not, the
     whole output."""
     attn, cj = p.attn, cfg
     if j is not None and layers.heads_split(p.attn, cfg):
         attn, cj = layers.attention_shard(p.attn, cfg, j)
-    return layers.attention_full(attn, apply_norm(p.ln1, x, cfg), cj,
-                                 mask=_mask_kind(kind),
+    mask, prefix = (("causal", 0) if kind == "dec"
+                    else _attn_mask_kind(cfg, kind))
+    return layers.attention_full(attn, _norm_in(p, x, cfg, "ln1"), cj,
+                                 mask=mask, prefix_len=prefix,
                                  use_rope=cfg.rope_theta > 0)
 
 
 def _mlp_part(p, x, cfg: ModelConfig):
     """The MLP sublayer's output (before the residual): a partial output
     of ``w_down`` where the model axis splits ``d_ff``."""
-    return layers.apply_mlp(p.mlp, apply_norm(p.ln2, x, cfg), cfg)
+    return layers.apply_mlp(p.mlp, _norm_in(p, x, cfg, "ln2"), cfg)
 
 
 def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
@@ -198,10 +254,28 @@ def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
         x = x + layers.apply_mlp(params.mlp, apply_norm(params.ln2, x, cfg),
                                  cfg)
         return x, rec_cache
+    if kind == "dec":
+        h = apply_norm(params.ln1, x, cfg)
+        o, sc = layers.attention_decode(params.attn, h, cache["self"], cfg,
+                                        use_rope=use_rope)
+        x = x + o
+        h = apply_norm(params.lnx, x, cfg)
+        o, _ = layers.attention_decode(params.xattn, h, cache["cross"], cfg,
+                                       use_rope=False, cross=True)
+        x = x + o
+        x = x + layers.apply_mlp(params.mlp, apply_norm(params.ln2, x, cfg),
+                                 cfg)
+        return x, {**cache, "self": sc}
+    # a vlm decodes causally, as the reference does (no prefix mask here)
+    mask = "window" if kind == "local" else "causal"
+    if cfg.parallel_block:
+        h = apply_norm(params.ln, x, cfg)
+        o, new_cache = layers.attention_decode(params.attn, h, cache, cfg,
+                                               mask=mask, use_rope=use_rope)
+        return x + o + layers.apply_mlp(params.mlp, h, cfg), new_cache
     h = apply_norm(params.ln1, x, cfg)
     o, new_cache = layers.attention_decode(params.attn, h, cache, cfg,
-                                           mask=_mask_kind(kind),
-                                           use_rope=use_rope)
+                                           mask=mask, use_rope=use_rope)
     x = x + o
     h = apply_norm(params.ln2, x, cfg)
     ffn = (moe.apply_moe(params.moe, h, cfg) if kind == "moe"
@@ -218,8 +292,9 @@ sum_vocab = sharding.psum      # the vocab-split embedding lookup
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
     """Refuse a model axis above 1 for the block kinds without a tensor
-    parallel path, and one that does not divide the experts."""
-    kinds = set(layer_kinds(cfg))
+    parallel path (an encoder's layers are ``enc``), and one that does
+    not divide the experts."""
+    kinds = set(layer_kinds(cfg)) | ({"enc"} if cfg.n_enc_layers else set())
     other = sorted(kinds - {"attn", "moe"})
     if tp > 1 and other:
         raise NotImplementedError(f"{cfg.name}: {_NO_TP} (kinds {other})")
@@ -236,13 +311,27 @@ def apply_block_tp(ps, xs, cfg: ModelConfig, kind: str):
     backward as ``cfg.remat`` says, apart from the other shards' (a
     recompute stays on one device: the autograd engine runs each
     device's backward on its own thread), and the sums and exchanges
-    over the model axis sit between them."""
+    over the model axis sit between them. A parallel block's attention
+    and MLP both read the block's input: where both are split, each
+    shard adds its two partials and one sum (``sum_heads``) takes
+    both."""
     if kind not in ("attn", "moe"):
         raise NotImplementedError(f"block kind {kind!r}: {_NO_TP}")
     attn, mlp = _remat(_attn_part, cfg), _remat(_mlp_part, cfg)
     outs = [attn(p, x, cfg, kind, j)
             for j, (p, x) in enumerate(zip(ps, xs))]
-    if layers.heads_split(ps[0].attn, cfg):
+    heads = layers.heads_split(ps[0].attn, cfg)
+    if cfg.parallel_block:
+        ffs = [mlp(p, x, cfg) for p, x in zip(ps, xs)]
+        split = layers.mlp_split(ps[0].mlp, cfg)
+        if heads and split:
+            outs = sum_heads([a + f for a, f in zip(outs, ffs)])
+        else:
+            outs = sum_heads(outs) if heads else outs
+            ffs = sum_ff(ffs) if split else ffs
+            outs = [a + f for a, f in zip(outs, ffs)]
+        return [x + o for x, o in zip(xs, outs)]
+    if heads:
         outs = sum_heads(outs)
     xs = [x + o for x, o in zip(xs, outs)]
     if kind == "moe":
@@ -257,7 +346,10 @@ def apply_block_tp(ps, xs, cfg: ModelConfig, kind: str):
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
-                     max_len: int | None, device) -> dict:
+                     max_len: int | None, device, enc_len: int = 0) -> dict:
+    """A layer's decode cache; a ``dec`` layer's holds its ``self`` KV
+    cache and the ``cross`` cache of ``enc_len`` encoder positions that
+    :func:`build_cross_caches` fills."""
     _check_kind(kind)
     if kind == "rwkv":
         return rwkv.make_rwkv_cache(cfg, batch, device)
@@ -265,6 +357,10 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
         return rglru.make_rglru_cache(cfg, batch, device)
     if max_len is None:
         raise ValueError(f"a {kind!r} layer's KV cache needs max_len")
+    if kind == "dec":
+        return {"self": layers.make_attn_cache(cfg, batch, max_len, device),
+                "cross": {**layers.make_attn_cache(cfg, batch, enc_len,
+                                                   device), "kv_len": 0}}
     return layers.make_attn_cache(cfg, batch, max_len, device,
                                   windowed=(kind == "local"))
 
@@ -275,7 +371,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     """Random parameters on ``device``, drawn from a
     ``torch.Generator`` on that device seeded with ``seed``."""
-    _check_ported(cfg)
+    _check_cfg(cfg)
     gen = torch.Generator(device=device_of(device)).manual_seed(seed)
     d = cfg.d_model
     if cfg.cpd_embedding:  # the paper's technique as the embedding layer
@@ -290,7 +386,24 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     if not cfg.tie_embeddings and not cfg.cpd_embedding:
         tree["head"] = dense_init((d, cfg.vocab_padded), cfg.pdtype,
                                   generator=gen)
+    if cfg.n_enc_layers:
+        tree["enc"] = [init_block(cfg, "enc", gen)
+                       for _ in range(cfg.n_enc_layers)]
+        tree["enc_ln_f"] = init_norm(cfg, gen.device)
     return Model(cfg, tree)
+
+
+def sinusoidal_pos(seq: int, d: int, offset: int = 0, device=None):
+    """(seq, d) float32 absolute positions from ``offset``: sin in the
+    even columns, cos in the odd, at frequencies 10000^(-i/d) (the
+    reference's)."""
+    pos = offset + torch.arange(seq, device=device)[:, None].float()
+    div = torch.exp(torch.arange(0, d, 2, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((seq, d), device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def embed_lookup(params, ids, cfg: ModelConfig):
@@ -376,45 +489,95 @@ def _remat(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-def _cycle(x, cfg: ModelConfig, kinds, *cycle_layers):
+def _cycle(x, cfg: ModelConfig, kinds, enc_out, *cycle_layers):
     for layer, kind in zip(cycle_layers, kinds):
-        x = apply_block(layer, x, cfg, kind)
+        x = apply_block(layer, x, cfg, kind, enc_out)
     return x
 
 
-def forward(params, cfg: ModelConfig, tokens, return_hidden: bool = False):
+def _check_lengths(cfg: ModelConfig, tokens, embeds, enc_embeds) -> None:
+    """Refuse, before any work, a sequence (image prefix included) or an
+    encoder input that the attention layers' query chunks cannot take,
+    and an encoder-decoder without its encoder input."""
+    s = tokens.shape[1]
+    if cfg.kind == "vlm" and embeds is not None:
+        s += embeds.shape[1]
+    if {"attn", "local", "moe", "dec", "enc"} & set(layer_kinds(cfg)):
+        layers.check_q_len(s)
+    if cfg.n_enc_layers:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: the encoder needs enc_embeds")
+        layers.check_q_len(enc_embeds.shape[1])
+
+
+def _embed_inputs(x, cfg: ModelConfig, embeds):
+    """The token embeddings ``x`` with a ``vlm``'s image embeddings
+    prepended and, where ``rope_theta`` is 0, sinusoidal positions
+    added."""
+    if cfg.kind == "vlm" and embeds is not None:
+        x = torch.cat([embeds.to(x.device, cfg.cdtype), x], dim=1)
+    if cfg.rope_theta == 0:     # whisper: absolute sinusoidal positions
+        x = x + sinusoidal_pos(x.shape[1], cfg.d_model,
+                               device=x.device).to(cfg.cdtype)
+    return x
+
+
+def encode(params, enc_embeds, cfg: ModelConfig):
+    """The encoder over (stub) frame embeddings (B, S_enc, D): sinusoidal
+    positions, the ``enc`` layers, ``enc_ln_f``."""
+    x = enc_embeds.to(cfg.cdtype)
+    x = x + sinusoidal_pos(x.shape[1], cfg.d_model,
+                           device=x.device).to(cfg.cdtype)
+    run = _remat(_cycle, cfg)
+    for layer in params.enc:
+        x = run(x, cfg, ("enc",), None, layer)
+    return apply_norm(params.enc_ln_f, x, cfg)
+
+
+def forward(params, cfg: ModelConfig, tokens, embeds=None, enc_embeds=None,
+            return_hidden: bool = False):
     """Teacher-forced forward (the prefill step): tokens (B, S) -> logits
-    (B, S, Vp) in the compute dtype (Vp = V1 * V2 under the CPD
+    (B, S', Vp) in the compute dtype (Vp = V1 * V2 under the CPD
     embedding), or with ``return_hidden`` the final normed hidden state
-    (B, S, D) (the chunked loss owns the head). Runs ``wkv6`` once per
-    ``rwkv`` layer and ``lru_scan`` once per ``rec`` layer. A length that
-    the attention layers' query chunks cannot take is refused before any
-    work."""
-    if {"attn", "local", "moe"} & set(layer_kinds(cfg)):
-        layers.check_q_len(tokens.shape[1])
-    x = embed_lookup(params, tokens, cfg)
+    (B, S', D) (the chunked loss owns the head). A ``vlm``'s ``embeds``
+    (B, P, D) are prepended (S' = P + S); an encoder-decoder's
+    ``enc_embeds`` (B, S_enc, D) go through the encoder once, and every
+    ``dec`` layer's cross-attention reads its output. Runs ``wkv6`` once
+    per ``rwkv`` layer and ``lru_scan`` once per ``rec`` layer. A length
+    that the attention layers' query chunks cannot take is refused
+    before any work."""
+    _check_lengths(cfg, tokens, embeds, enc_embeds)
+    x = _embed_inputs(embed_lookup(params, tokens, cfg), cfg, embeds)
+    enc_out = encode(params, enc_embeds, cfg) if cfg.n_enc_layers else None
     run = _remat(_cycle, cfg)
     i = 0
     for pat, rep in cfg.stages():
         for _ in range(rep):
-            x = run(x, cfg, pat, *params.layers[i:i + len(pat)])
+            x = run(x, cfg, pat, enc_out, *params.layers[i:i + len(pat)])
             i += len(pat)
     if return_hidden:
         return apply_norm(params.ln_f, x, cfg)
     return _logits(params, x, cfg)
 
 
-def forward_tp(ps, cfg: ModelConfig, tokens):
+def forward_tp(ps, cfg: ModelConfig, tokens, embeds=None, enc_embeds=None):
     """:func:`forward` with ``return_hidden`` over the model axis: ``ps``
     one params view a shard (``unstack_layers`` of its working copies),
-    ``tokens`` one (B, S) tensor a shard; returns each shard's replica of
+    ``tokens`` (and a ``vlm``'s ``embeds``, an encoder-decoder's
+    ``enc_embeds``) one tensor a shard; returns each shard's replica of
     the final normed hidden state (the loss owns the head). One shard is
     :func:`forward` itself."""
     if len(ps) == 1:
-        return [forward(ps[0], cfg, tokens[0], return_hidden=True)]
+        return [forward(ps[0], cfg, tokens[0],
+                        embeds=None if embeds is None else embeds[0],
+                        enc_embeds=None if enc_embeds is None
+                        else enc_embeds[0], return_hidden=True)]
     check_tp(cfg, len(ps))
-    layers.check_q_len(tokens[0].shape[1])
+    _check_lengths(cfg, tokens[0], None if embeds is None else embeds[0],
+                   None)
     xs = embed_lookup_tp(ps, tokens, cfg)
+    xs = [_embed_inputs(x, cfg, None if embeds is None else embeds[j])
+          for j, x in enumerate(xs)]
     for i, kind in enumerate(layer_kinds(cfg)):
         xs = apply_block_tp([p.layers[i] for p in ps], xs, cfg, kind)
     return [apply_norm(p.ln_f, x, cfg) for p, x in zip(ps, xs)]
@@ -437,10 +600,8 @@ def stack_layers(cfg: ModelConfig, tree: dict) -> dict:
     reference's stage layout, ``stage{i}/b{j}/...``, each leaf the list of
     that block's tensors over the stage's cycles (the reference's leading
     scan axis, unstacked). The tensors are shared, not copied."""
-    layer_list = tree["layers"]
-    if isinstance(layer_list, dict):                 # a ModuleList's tree
-        layer_list = [layer_list[str(i)] for i in range(len(layer_list))]
-    out = {k: v for k, v in tree.items() if k != "layers"}
+    layer_list = _layer_list(tree["layers"])
+    out = {k: v for k, v in tree.items() if k not in ("layers", "enc")}
     i = 0
     for s, (pat, rep) in enumerate(cfg.stages()):
         n = len(pat)
@@ -448,6 +609,8 @@ def stack_layers(cfg: ModelConfig, tree: dict) -> dict:
                                            for c in range(rep)])
                             for j in range(n)}
         i += rep * n
+    if "enc" in tree:
+        out["enc"] = {"b0": _zip(_layer_list(tree["enc"]))}
     return out
 
 
@@ -456,27 +619,47 @@ def unstack_layers(cfg: ModelConfig, tree: dict) -> Node:
     ``layers`` in order, which the model functions take in place of a
     ``Model`` (the tensors are shared, not copied)."""
     out = as_node({k: v for k, v in tree.items()
-                   if not k.startswith("stage")})
+                   if not k.startswith("stage") and k != "enc"})
     out["layers"] = [as_node(_pick(tree[f"stage{s}"][f"b{j}"], c))
                      for s, (pat, rep) in enumerate(cfg.stages())
                      for c in range(rep) for j in range(len(pat))]
+    if "enc" in tree:
+        out["enc"] = [as_node(_pick(tree["enc"]["b0"], c))
+                      for c in range(cfg.n_enc_layers)]
     return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
-               device="cuda") -> list[dict]:
+               device="cuda", enc_len: int = 0) -> list[dict]:
     """One cache per layer (the reference stacks them per stage).
     ``max_len`` sizes the attention layers' KV caches (an ``attn`` layer
     keeps ``max_len`` positions, a ``local`` one at most ``window``);
-    recurrent states need none."""
+    recurrent states need none. A ``dec`` layer's cross cache holds
+    ``enc_len`` encoder positions (:func:`build_cross_caches` fills
+    it)."""
     dev = device_of(device)
-    return [init_block_cache(cfg, kind, batch, max_len, dev)
+    return [init_block_cache(cfg, kind, batch, max_len, dev, enc_len)
             for kind in layer_kinds(cfg)]
+
+
+def _first_cache_len(cache) -> int:
+    """The first layer's cache position (its ``self`` cache's for a
+    ``dec`` layer; 0 for a cache without one, as a recurrent state), the
+    reference's offset of a decode step's sinusoidal position."""
+    if not cache:
+        return 0
+    c = cache[0]
+    if "self" in c:
+        return c["self"]["len"]
+    return c.get("len", 0)
 
 
 def decode_step(params, cache, cfg: ModelConfig, token):
     """token: (B, 1) int -> (logits (B, 1, Vp), new cache)."""
     x = embed_lookup(params, token, cfg)
+    if cfg.rope_theta == 0:
+        x = x + sinusoidal_pos(1, cfg.d_model, offset=_first_cache_len(cache),
+                               device=x.device).to(cfg.cdtype)[None]
     new_cache = []
     for layer, c, kind in zip(params.layers, cache, layer_kinds(cfg)):
         x, c = apply_block_decode(layer, x, c, cfg, kind)
@@ -484,8 +667,30 @@ def decode_step(params, cache, cfg: ModelConfig, token):
     return _logits(params, x, cfg), new_cache
 
 
+def build_cross_caches(params, cfg: ModelConfig, enc_embeds, cache):
+    """Run the encoder once and fill every ``dec`` layer's cross cache
+    with its ``xattn`` keys and values of the encoder's output (and
+    ``kv_len``, the encoder's length); returns the new cache list."""
+    enc_out = encode(params, enc_embeds, cfg)
+    dt = cfg.cdtype
+    new_cache = list(cache)
+    for i, (layer, kind) in enumerate(zip(params.layers, layer_kinds(cfg))):
+        if kind != "dec":
+            continue
+        xp = layer.xattn
+        k, v = layers._proj(enc_out, xp.wk, dt), layers._proj(enc_out,
+                                                              xp.wv, dt)
+        if hasattr(xp, "bk"):
+            k, v = k + xp.bk.to(dt), v + xp.bv.to(dt)
+        cross = {**cache[i]["cross"], "k": k, "v": v,
+                 "kv_len": enc_out.shape[1]}
+        new_cache[i] = {**cache[i], "cross": cross}
+    return new_cache
+
+
 __all__ = ["Model", "apply_block", "apply_block_decode", "apply_block_tp",
-           "check_tp", "decode_step", "embed_lookup", "embed_lookup_tp",
-           "forward", "forward_tp", "head_matrix", "init_block",
-           "init_cache", "init_model", "layer_kinds", "stack_layers",
+           "build_cross_caches", "check_tp", "decode_step", "embed_lookup",
+           "embed_lookup_tp", "encode", "forward", "forward_tp",
+           "head_matrix", "init_block", "init_cache", "init_model",
+           "layer_kinds", "sinusoidal_pos", "stack_layers",
            "unstack_layers", "vocab_split"]

@@ -2,7 +2,9 @@
 
 Prefill teacher-forces the prompt through the same one-token
 ``decode_step`` as decoding, as the reference does, so one code path
-fills every cache. Decoding is greedy, or sampled at a temperature from
+fills every cache. An encoder-decoder (whisper) first runs its encoder
+once over the request's ``enc_embeds`` and fills every decoder layer's
+cross cache (``build_cross_caches``). Decoding is greedy, or sampled at a temperature from
 an explicit ``torch.Generator``; a row stops (emits 0) after it emitted
 ``eos_id``. A request that would run past a causal layer's KV cache
 (``max_len`` positions) is refused before any work; the reference's
@@ -16,7 +18,8 @@ from typing import Optional
 import torch
 
 from ..models.common import ModelConfig, device_of
-from ..models.transformer import decode_step, init_cache, layer_kinds
+from ..models.transformer import (build_cross_caches, decode_step,
+                                  init_cache, layer_kinds)
 
 
 @dataclasses.dataclass
@@ -29,7 +32,7 @@ class ServeConfig:
 
 class Engine:
     def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig,
-                 device="cuda"):
+                 device="cuda", enc_embeds: Optional[torch.Tensor] = None):
         self.device = device_of(device)
         where = next(params.parameters()).device
         if where != self.device:
@@ -38,14 +41,24 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
-        self.cache = init_cache(cfg, scfg.batch, scfg.max_len,
-                                device=self.device)
+        self.cache = init_cache(
+            cfg, scfg.batch, scfg.max_len, device=self.device,
+            enc_len=0 if enc_embeds is None else enc_embeds.shape[1])
+        if cfg.n_enc_layers:
+            if enc_embeds is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder engine "
+                                 "needs enc_embeds")
+            with torch.no_grad():
+                self.cache = build_cross_caches(
+                    params, cfg, enc_embeds.to(self.device), self.cache)
 
     def _check_fits(self, n: int) -> None:
         """Refuse ``n`` more positions where a causal layer's KV cache
-        cannot hold them (windowed and recurrent caches never fill)."""
+        cannot hold them (windowed and recurrent caches never fill; a
+        ``dec`` layer's self-attention cache does)."""
         for c, kind in zip(self.cache, layer_kinds(self.cfg)):
-            if kind in ("attn", "moe"):
+            if kind not in ("local", "rwkv", "rec"):
+                c = c["self"] if kind == "dec" else c
                 if c["len"] + n > c["k"].shape[1]:
                     raise ValueError(
                         f"Engine: {n} more positions after {c['len']} do "

@@ -155,20 +155,38 @@ def chunked_xent(x, head, targets, vocab: int, cfg, chunk: int = 512):
     return nll / torch.clamp(cnt, min=1.0)
 
 
+def _model_inputs(cfg: ModelConfig, batch) -> dict:
+    """The batch's inputs to ``forward`` besides the tokens: a ``vlm``'s
+    ``embeds``, an ``audio`` model's ``enc_embeds``."""
+    if cfg.kind == "vlm":
+        return {"embeds": batch["embeds"]}
+    if cfg.kind == "audio":
+        return {"enc_embeds": batch["enc_embeds"]}
+    return {}
+
+
+def _text_only(cfg: ModelConfig, x):
+    """``x`` (B, S', ...) without a ``vlm``'s image-prefix positions,
+    which carry no loss."""
+    return x[:, cfg.n_img_tokens:] if cfg.kind == "vlm" else x
+
+
 def make_loss_fn(cfg: ModelConfig) -> Callable:
     """``loss_fn(params, batch)``; ``params`` a ``Model`` or a ``Node``
     view (``transformer.unstack_layers``)."""
 
     def loss_fn(params, batch):
         targets = batch["targets"]
+        kw = _model_inputs(cfg, batch)
         if cfg.cpd_embedding:
             # CPD head: logits come factored (never a dense (V, D) table)
-            logits = transformer.forward(params, cfg, batch["tokens"])
-            return softmax_xent(logits, targets, cfg.vocab)
+            logits = transformer.forward(params, cfg, batch["tokens"], **kw)
+            return softmax_xent(_text_only(cfg, logits), targets, cfg.vocab)
         x = transformer.forward(params, cfg, batch["tokens"],
-                                return_hidden=True)
-        return chunked_xent(x, transformer.head_matrix(params, cfg),
-                            targets, cfg.vocab, cfg)
+                                return_hidden=True, **kw)
+        return chunked_xent(_text_only(cfg, x),
+                            transformer.head_matrix(params, cfg), targets,
+                            cfg.vocab, cfg)
     return loss_fn
 
 
@@ -179,7 +197,10 @@ def loss_sums_tp(cfg: ModelConfig, views, batches):
     head) computes the loss on the first shard only."""
     tokens = [b["tokens"] for b in batches]
     targets = [b["targets"] for b in batches]
-    hs = transformer.forward_tp(views, cfg, tokens)
+    kw = {k: [_model_inputs(cfg, b)[k] for b in batches]
+          for k in _model_inputs(cfg, batches[0])}
+    hs = [_text_only(cfg, h)
+          for h in transformer.forward_tp(views, cfg, tokens, **kw)]
     if cfg.cpd_embedding:  # CPD head: factored logits on the first shard
         return _softmax_sums(cpd_logits(views[0].embed_cpd, hs[0]),
                              targets[0], cfg.vocab)

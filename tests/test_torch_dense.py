@@ -345,19 +345,55 @@ def test_engine_takes_the_device_of_a_cpd_model():
     ("paligemma-3b", "prefix attention"),
     ("whisper-large-v3", "kinds \\['dec'\\]")])
 def test_unported_archs_name_their_roadmap_item(arch, match):
-    with pytest.raises(NotImplementedError, match="item 12.4b"):
-        configs.get_config(arch)
-    jcfg = jconfigs.smoke(arch)
-    cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
-                         for f in dataclasses.fields(JModelConfig)})
-    with pytest.raises(NotImplementedError, match=match):
-        transformer.init_model(cfg, device="cpu")
+    """The three archs once refused here (ROADMAP item 12.4b, now
+    ported; ``tests/test_torch_families.py`` holds them to the
+    reference): each config is the reference's, field by field, and its
+    smoke model builds with the feature that was refused (``match``): the
+    parallel block's one shared norm, the prefix mask over 256 image
+    tokens, the encoder's layers and each decoder layer's
+    cross-attention."""
+    jcfg = jconfigs.get_config(arch)
+    assert configs.get_config(arch) == ModelConfig(
+        **{f.name: getattr(jcfg, f.name)
+           for f in dataclasses.fields(JModelConfig)})
+    cfg = configs.smoke(arch)
+    model = transformer.init_model(cfg, device="cpu")
+    layer = model.layers[0]
+    if match == "parallel_block":
+        assert hasattr(layer, "ln") and not hasattr(layer, "ln1")
+    elif match == "prefix attention":
+        full = configs.get_config(arch)
+        assert transformer._attn_mask_kind(full, "attn") == ("prefix", 256)
+    else:
+        assert transformer.layer_kinds(cfg) == ["dec"] * cfg.n_layers
+        assert len(model.enc) == cfg.n_enc_layers == 2
+        assert hasattr(layer, "xattn") and hasattr(layer, "lnx")
 
 
 def test_sinusoidal_positions_are_refused():
-    cfg = dataclasses.replace(configs.smoke("olmo-1b"), rope_theta=0.0)
-    with pytest.raises(NotImplementedError, match="sinusoidal.*12.4b"):
-        transformer.init_model(cfg, device="cpu")
+    """Once refused (ROADMAP item 12.4b, now ported): olmo's smoke config
+    with ``rope_theta`` 0 takes absolute sinusoidal positions in place of
+    RoPE, in ``forward`` and in 4 decode steps (each at its cache
+    position), against the reference."""
+    kw = dict(rope_theta=0.0, compute_dtype="float32")
+    jcfg = dataclasses.replace(jconfigs.smoke("olmo-1b"), **kw)
+    tcfg = dataclasses.replace(configs.smoke("olmo-1b"), **kw)
+    tree = perturb(jax.tree.map(np.asarray, jtr.init_model(
+        jcfg, jax.random.PRNGKey(1))), 5)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    model = interop.model_params_from_numpy(tree, tcfg, device="cpu")
+    tok = np.random.default_rng(13).integers(0, tcfg.vocab, (2, 32))
+    _close(transformer.forward(model, tcfg, torch.from_numpy(tok)),
+           jtr.forward(jparams, jcfg, jnp.asarray(tok, jnp.int32)), SCAN_TOL)
+    jcache = jtr.init_cache(jcfg, 2, 8)
+    tcache = transformer.init_cache(tcfg, 2, 8, device="cpu")
+    for i in range(4):
+        t = tok[:, i:i + 1]
+        want, jcache = jtr.decode_step(jparams, jcache, jcfg,
+                                       jnp.asarray(t, jnp.int32))
+        got, tcache = transformer.decode_step(model, tcache, tcfg,
+                                              torch.from_numpy(t))
+        _close(got, want, SAME_TOL)
 
 
 @pytest.mark.parametrize("arch", DENSE)

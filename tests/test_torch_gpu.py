@@ -18,7 +18,11 @@ and the dense attention family on the card against the CPU, and training
 (the ``wkv6`` and ``lru_scan`` backward kernels against their plain
 versions in float64, a train step on the card against the CPU's), and
 the MoE family (a layer at full width, a smoke ``forward`` and
-``Engine.prefill``, the expert-parallel sharded step).
+``Engine.prefill``, the expert-parallel sharded step), and the other
+families (command-r's parallel block, paligemma's prefix-LM, whisper's
+encoder-decoder: ``forward`` and ``Engine.prefill``, the int8 KV cache,
+a train step and the sharded step, each against the CPU or the single
+device).
 Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
@@ -48,7 +52,8 @@ against their plain versions computed in float64: ``wkv6_bwd`` rtol =
 atol = 1e-4 (float32 sums over up to 4096 steps of states of size ~10-100,
 the plain version's sums exact to float64; du, a sum over T that cancels,
 is summed in double by the kernel), ``lru_scan_bwd`` rtol = atol = 1e-5
-(one FMA a step, gradients below ~30).
+(one FMA a step, gradients below ~30). The other families: as the MoE
+family's and sharded training's (stated at each test).
 """
 import numpy as np
 import pytest
@@ -1828,5 +1833,228 @@ def test_sharded_moe_step_on_the_card(cuda, shape):
     for a, b, m in zip(leaves(got["params"]), leaves(one["params"]),
                        leaves(one["opt"]["m"])):
         d = (a - b).abs()
+        assert float(d.max()) <= 2e-3
+        assert float(torch.where(m.abs() >= 1e-7, d, 0).max()) <= 1e-6
+
+
+# --------------------------------------------------------------------------
+# The other families (command-r, paligemma, whisper) and the int8 KV cache
+# --------------------------------------------------------------------------
+FAMILIES = ("command-r-plus-104b", "paligemma-3b", "whisper-large-v3")
+
+
+def _family_inputs(cfg, b, seed):
+    """A smoke config's extra model inputs (float32, on the CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.kind == "vlm":
+        return {"embeds": torch.randn((b, cfg.n_img_tokens, cfg.d_model),
+                                      generator=gen)}
+    if cfg.kind == "audio":
+        return {"enc_embeds": torch.randn((b, 48, cfg.d_model),
+                                          generator=gen)}
+    return {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_forward_and_engine_on_the_card(cuda, arch):
+    """float32 (TF32 off) ``forward`` of a smoke config on the card
+    against the CPU on the same weights (paligemma's 4 image embeddings
+    prepended, whisper's 48 frames encoded) at B 2, S 64, rtol = atol =
+    1e-4; the decode path (``Engine.prefill``; whisper's engine builds
+    its cross caches from the same frames) against ``forward``'s last
+    position on the card. paligemma decodes causally, as the reference
+    does: its engine is held to the copy without image tokens."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = dataclasses.replace(smoke(arch), compute_dtype="float32")
+    model = transformer.init_model(cfg, 0, device="cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 64),
+                        generator=torch.Generator().manual_seed(1))
+    kw = _family_inputs(cfg, 2, 2)
+    with torch.no_grad():
+        want = transformer.forward(model, cfg, tok, **kw)
+    ecfg = dataclasses.replace(cfg, n_img_tokens=0)
+    enc = kw.get("enc_embeds")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = model.to(cuda)
+        ckw = {k: v.to(cuda) for k, v in kw.items()}
+        with torch.no_grad():
+            got = transformer.forward(model, cfg, tok.to(cuda), **ckw)
+            last = transformer.forward(
+                model, ecfg, tok.to(cuda),
+                enc_embeds=ckw.get("enc_embeds"))[:, -1]
+            pre = Engine(model, ecfg, ServeConfig(2, 64),
+                         enc_embeds=None if enc is None else enc.to(cuda)
+                         ).prefill(tok.to(cuda))[:, -1]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(pre, last, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_kv_quant_decode_on_the_card(cuda, arch):
+    """16 float32 decode steps (TF32 off) of a 1-layer copy of a smoke
+    config with ``kv_quant`` on the card and on the CPU from the same
+    weights, in lockstep. One decoder layer: the row a step writes
+    depends only on its token (and whisper's encoder output, which the
+    cross cache keeps in float), so the two sides' float32 rows differ
+    by ~1e-7 at every step and a difference never carries into later
+    rows. Every int8 row is within one step of the CPU's and at most 1%
+    of them are off (a row element whose x / s lies within float32
+    rounding, ~1e-5, of a half-integer rounds to either side); the
+    scales rtol 1e-5. While the two int8 caches are equal, the step's
+    logits rtol = atol = 1e-4; from the first flip on, atol 1e-2: a
+    flipped element moves one cached value by one step, s (1/127 of
+    its row's largest), which moves an attention logit by ~s |q_i| /
+    sqrt(hd) and the logits by ~1e-3 at these widths (9.2e-4 was seen
+    on an H100)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(smoke(arch), compute_dtype="float32",
+                              kv_quant=True, n_layers=1)
+    model = transformer.init_model(cfg, 0, device="cpu")
+    card = transformer.init_model(cfg, 0, device="cpu").to(cuda)
+    kw = _family_inputs(cfg, 2, 3)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(4))
+    enc_len = 48 if cfg.n_enc_layers else 0
+
+    def start(m, dev):
+        cache = transformer.init_cache(cfg, 2, 16, device=dev,
+                                       enc_len=enc_len)
+        if cfg.n_enc_layers:
+            cache = transformer.build_cross_caches(
+                m, cfg, kw["enc_embeds"].to(dev), cache)
+        return cache
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flipped, off, n = False, 0, 0
+    try:
+        with torch.no_grad():
+            wc, gc = start(model, "cpu"), start(card, cuda)
+            for t in range(16):
+                want, wc = transformer.decode_step(model, wc, cfg,
+                                                   toks[:, t:t + 1])
+                got, gc = transformer.decode_step(
+                    card, gc, cfg, toks[:, t:t + 1].to(cuda))
+                off = n = 0
+                for a, b in zip(gc, wc):
+                    a, b = a.get("self", a), b.get("self", b)
+                    for name in ("k", "v"):
+                        assert a[name].dtype == torch.int8
+                        d = (a[name].cpu().int() - b[name].int()).abs()
+                        assert int(d.max()) <= 1
+                        off, n = off + int((d > 0).sum()), n + d.numel()
+                        torch.testing.assert_close(
+                            a[name + "_scale"].cpu(), b[name + "_scale"],
+                            rtol=1e-5, atol=0)
+                flipped = flipped or off > 0
+                torch.testing.assert_close(
+                    got.cpu(), want, rtol=1e-4,
+                    atol=1e-2 if flipped else 1e-4)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert off <= 0.01 * n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shape", [("command-r-plus-104b", (2, 2)),
+                                        ("paligemma-3b", (2, 2)),
+                                        ("whisper-large-v3", (2, 1))])
+def test_family_sharded_step_on_the_card(cuda, arch, shape):
+    """One float32 (TF32 off) sharded step of a smoke config over shards
+    of ``cuda:0`` (command-r's parallel block and paligemma's prefix
+    mask over the model axis; whisper over 2 data shards) against the
+    single-device step on the card from the same state: as
+    ``test_sharded_train_step_on_the_card``."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.configs import smoke
+    from repro_torch.launch import specs
+    from repro_torch.training import (OptimizerConfig, SyntheticLM,
+                                      init_state, make_train_step)
+    from repro_torch.training.tree import leaves
+
+    cfg = dataclasses.replace(smoke(arch), compute_dtype="float32",
+                              remat="full")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    ctx = _card_ctx(shape)
+    one = init_state(cfg, ocfg, 0, device="cuda")
+    two = specs.place_state(one, ctx)
+    batch = SyntheticLM(cfg, 4, 64, device="cuda").next()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, m1 = make_train_step(cfg, ocfg)(one, dict(batch))
+        with sharding.use(ctx):
+            two, m2 = make_train_step(cfg, ocfg)(two, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-5)
+    got = sharding.gather(two)
+    for a, b in zip(leaves(got["opt"]["m"]), leaves(one["opt"]["m"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-7)
+    for a, b, m in zip(leaves(got["params"]), leaves(one["params"]),
+                       leaves(one["opt"]["m"])):
+        d = (a - b).abs()
+        assert float(d.max()) <= 2e-3
+        assert float(torch.where(m.abs() >= 1e-7, d, 0).max()) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_step_on_the_card(cuda, arch):
+    """One float32 (TF32 off) AdamW step of a smoke config on the card
+    against the CPU's from the same state and batch: loss rtol 1e-5,
+    every gradient (the first moment) rtol 1e-4 / atol 1e-7 (whisper's
+    key biases have a zero gradient but for rounding, ~1e-12 on each
+    side), parameters within 2 lr, and within 1e-6 wherever |m| >=
+    1e-7."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.training import (OptimizerConfig, SyntheticLM,
+                                      init_state, make_train_step)
+    from repro_torch.training.tree import leaves
+
+    cfg = dataclasses.replace(smoke(arch), compute_dtype="float32")
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    state = init_state(cfg, ocfg, 0, device="cpu")
+    on_card = init_state(cfg, ocfg, 0, device="cuda")
+    for a, b in zip(leaves(on_card["params"]), leaves(state["params"])):
+        a.copy_(b)
+    batch = SyntheticLM(cfg, 2, 32, device="cpu").next()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, m2 = make_train_step(cfg, ocfg)(
+            on_card, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want, m1 = make_train_step(cfg, ocfg)(state, batch)
+    assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-5)
+    for a, b in zip(leaves(got["opt"]["m"]), leaves(want["opt"]["m"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-7)
+    for a, b, m in zip(leaves(got["params"]), leaves(want["params"]),
+                       leaves(want["opt"]["m"])):
+        d = (a.cpu() - b).abs()
         assert float(d.max()) <= 2e-3
         assert float(torch.where(m.abs() >= 1e-7, d, 0).max()) <= 1e-6

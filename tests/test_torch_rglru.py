@@ -432,13 +432,10 @@ def test_configs_match_reference():
     cfg = configs.get_config(ARCH)
     assert transformer.layer_kinds(cfg).count("rec") == 26
     assert transformer.layer_kinds(cfg).count("local") == 12
-    assert set(configs.NOT_PORTED) | set(configs.ARCHS) == set(jconfigs.ARCHS)
-    assert not set(configs.NOT_PORTED) & set(configs.ARCHS)
-    assert sorted(configs.NOT_PORTED) == [
-        "command-r-plus-104b", "paligemma-3b", "whisper-large-v3"]
-    for name in configs.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="Queue A item 12"):
-            configs.get_config(name)
+    assert set(configs.ARCHS) == set(jconfigs.ARCHS)
+    for name in jconfigs.ARCHS:       # all ten, field by field
+        assert dataclasses.asdict(configs.get_config(name)) == \
+            dataclasses.asdict(jconfigs.get_config(name))
 
 
 def _five_layers(mod):
@@ -526,26 +523,65 @@ def test_default_device_is_the_card():
         interop.model_params_from_numpy(tree, cfg)
 
 
+def _variant_parity(steps=3, **kw):
+    """``forward`` (S 32) and ``steps`` decode steps of the smoke config
+    with ``kw`` replaced, against the reference."""
+    jcfg = _f32(dataclasses.replace(jconfigs.smoke(ARCH), **kw))
+    tcfg = _f32(dataclasses.replace(configs.smoke(ARCH), **kw))
+    _, jparams, model = _pair(jcfg, tcfg, seed=2)
+    tok = np.random.default_rng(21).integers(0, tcfg.vocab, (2, 32))
+    want = jtr.forward(jparams, jcfg, jnp.asarray(tok, jnp.int32))
+    _close(transformer.forward(model, tcfg, torch.from_numpy(tok)), want,
+           SCAN_TOL)
+    jcache = jtr.init_cache(jcfg, 2, 8)
+    tcache = transformer.init_cache(tcfg, 2, 8, device="cpu")
+    for i in range(steps):
+        t = tok[:, i:i + 1]
+        want, jcache = jtr.decode_step(jparams, jcache, jcfg,
+                                       jnp.asarray(t, jnp.int32))
+        got, tcache = transformer.decode_step(model, tcache, tcfg,
+                                              torch.from_numpy(t))
+        _close(got, want, SAME_TOL)
+    return model, tcfg
+
+
 def test_unported_paths_name_their_roadmap_item():
+    """What this test once refused (ROADMAP item 12.4b, now ported),
+    against the reference: a ``dec`` block beside ``rec`` and ``local``
+    layers in a model without an encoder (the reference's prefill then
+    cross-attends to the block's own input, its decode to an empty
+    encoder cache: the port does the same), the parallel block's shared
+    norm on the ``local`` layers, the int8 ring buffer (20 steps wrap
+    its 16 slots), and a cross-attention decode over a cache without
+    ``kv_len`` (all its slots read). Still refused: an attention layer's
+    KV cache without ``max_len``."""
     cfg = configs.smoke(ARCH)
     for kinds in (("rec", "dec"), ("local", "dec")):
-        with pytest.raises(NotImplementedError, match="Queue A item 12"):
-            transformer.init_model(
-                dataclasses.replace(cfg, block_pattern=kinds), device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        transformer.init_cache(dataclasses.replace(cfg, kv_quant=True), 2,
-                               16, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel_block"):
-        transformer.init_model(dataclasses.replace(cfg, parallel_block=True),
-                               device="cpu")
+        model, tcfg = _variant_parity(block_pattern=kinds)
+        assert "dec" in transformer.layer_kinds(tcfg)
+    model, tcfg = _variant_parity(parallel_block=True)
+    assert hasattr(model.layers[2], "ln") and hasattr(model.layers[0], "ln1")
+    _variant_parity(steps=20, kv_quant=True)
     with pytest.raises(ValueError, match="needs max_len"):
         transformer.init_cache(cfg, 2, device="cpu")
-    model = transformer.init_model(cfg, device="cpu")
-    cache = layers.make_attn_cache(cfg, 1, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        layers.attention_decode(model.layers[2].attn,
-                                torch.zeros((1, 1, cfg.d_model)), cache, cfg,
-                                cross=True)
+    jcfg, tcfg = _f32(jconfigs.smoke(ARCH)), _f32(cfg)
+    tree, jparams, model = _pair(jcfg, tcfg)
+    rng = np.random.default_rng(22)
+    k, v = (rng.standard_normal((1, 8, tcfg.n_kv_heads, tcfg.hd))
+            .astype(np.float32) for _ in range(2))
+    x = rng.standard_normal((1, 1, tcfg.d_model)).astype(np.float32)
+    want, _ = jlayers.attention_decode(
+        jax.tree.map(lambda a: jnp.asarray(a[0]),
+                     tree["stage0"]["b2"]["attn"]),
+        jnp.asarray(x), {"k": jnp.asarray(k), "v": jnp.asarray(v),
+                         "len": jnp.zeros((), jnp.int32)}, jcfg,
+        use_rope=False, cross=True)
+    cache = {"k": torch.from_numpy(k), "v": torch.from_numpy(v), "len": 0}
+    got, new = layers.attention_decode(model.layers[2].attn,
+                                       torch.from_numpy(x), cache, tcfg,
+                                       use_rope=False, cross=True)
+    _close(got, want, SAME_TOL)
+    assert new is cache
 
 
 def test_serve_cli_on_the_cpu(capsys):

@@ -180,9 +180,23 @@ def test_synthetic_lm_bitwise_reference():
 
 
 def test_synthetic_lm_refuses_other_families():
-    cfg = dataclasses.replace(configs.smoke("tinyllama-1.1b"), kind="vlm")
-    with pytest.raises(NotImplementedError, match="12.4b"):
-        SyntheticLM(cfg, 2, 16, device="cpu")
+    """The batches once refused here (ROADMAP item 12.4b, now ported):
+    the ``vlm`` kind on tinyllama's smoke config (4 image tokens: 12
+    tokens and (2, 4, 128) bf16 ``embeds`` of 16 positions) and the
+    ``audio`` kind ((2, 16, 128) ``enc_embeds``), bitwise the
+    reference's."""
+    for kind, key, n in (("vlm", "embeds", 4), ("audio", "enc_embeds", 16)):
+        kw = dict(kind=kind, n_img_tokens=4 if kind == "vlm" else 0)
+        cfg = dataclasses.replace(configs.smoke("tinyllama-1.1b"), **kw)
+        jcfg = dataclasses.replace(jconfigs.smoke("tinyllama-1.1b"), **kw)
+        a = SyntheticLM(cfg, 2, 16, seed=3, device="cpu").next()
+        b = JSyntheticLM(jcfg, 2, 16, seed=3).next()
+        assert a["tokens"].shape == (2, 16 - (n if kind == "vlm" else 0))
+        np.testing.assert_array_equal(a["targets"].numpy(),
+                                      np.asarray(b["targets"]))
+        assert a[key].shape == (2, n, 128) and a[key].dtype == torch.bfloat16
+        np.testing.assert_array_equal(a[key].view(torch.int16).numpy(),
+                                      np.asarray(b[key]).view(np.int16))
 
 
 @pytest.mark.parametrize("s,vp", [(24, 640), (7, 512)])
