@@ -134,10 +134,16 @@ times the kernels at each path's shapes.
        under ``torch.profiler``; a float32 2-layer copy the same way, and
        the copy without the sum over the model axis after ``wo``, which
        must fail; [17b] rwkv6-3b and recurrentgemma-9b at full width on
-       4 layers, (data 2, model 1), against the single-device step, with
-       ``wkv6`` / ``wkv6_bwd`` / ``lru_scan`` / ``lru_scan_bwd`` launched
-       on each shard; [17c] the float32 state saved on (2, 2) and
-       restored onto (2, 1), bitwise; [17d] ``cp_als(mesh=ctx)`` at nell1
+       4 layers over (data 2, model 2) (the time mix's heads and the
+       RG-LRU's channels over the model axis), against the single-device
+       step, with ``wkv6`` / ``wkv6_bwd`` / ``lru_scan`` /
+       ``lru_scan_bwd`` launched on each of the 4 shards, a timed step,
+       peak memory and one step under ``torch.profiler``; the four
+       kernels at a model shard's shapes (BH 20 x T 4096; (1, 4096,
+       2048)) against their plain versions, timed; each arch's float32
+       2-layer copy, and the copy without the sum after ``w_out_t`` or
+       ``w_out_rec``, which must fail; [17c] the float32 state saved on
+       (2, 2) and restored onto (2, 1), bitwise; [17d] ``cp_als(mesh=ctx)`` at nell1
        0.01 against ``cp_als(mesh=Mesh)``; [17e] ``pipeline_apply`` over
        4 stages and ``compressed_grad_sync`` over 4 pods of the card
   [18] the MoE family (``models/moe.py``; no port kernel on this path:
@@ -193,7 +199,8 @@ times the kernels at each path's shapes.
        command-r (at a width cut to fit the pair: d 3072, 24 / 2 heads,
        d_ff 8448, vocab 32,000) and paligemma (2 layers) over (data 2,
        model 2) with the copy that drops the sum after ``wo`` failing,
-       whisper (2 + 2 layers) over (data 2)
+       whisper (2 + 2 layers) over (data 2, model 2) with the copy that
+       drops the sum after the cross-attention's ``wo`` failing
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -345,9 +352,20 @@ function on absolute inputs) and ``u = 2**-24``:
     ``SHARD_PARAM_ATOL`` = 1e-6 (times |p| above 1) where its
     gradient's sign is sure (|m|
     at least twice the gradient limit, |g| >= 1e-5) and within 2 lr
-    elsewhere (Adam's first step is sign-like); the float32
+    elsewhere (Adam's first step is sign-like); in [17b] each leaf's
+    limit is at least ``SHARD_ROUND_K`` = 5 times how far the
+    single-device bf16 step's leaf lies from the single-device float32
+    step's: rwkv6-3b's gradients of ``u`` and ``mu`` are so
+    ill-conditioned that bf16 rounding alone moves them by up to ~21x
+    ``SHARD_GRAD_RTOL`` of their largest, and the sharded step up to
+    ~81x, while in float64 the sharded step equals the single-device one
+    to ~3e-6 of the limit (``experiments/torch_tp_bf16_noise.py``,
+    ``experiments/torch_tp_f64_witness.py``); the float32
     2-layer copy (TF32 off) at ``GRAD_RTOL`` and 1e-4 relative on the
-    loss, held against a step that drops the sum after ``wo``; the
+    loss, held against a step that drops the sum after ``wo`` ([17a]),
+    ``w_out_t`` (rwkv6-3b) or ``w_out_rec`` (recurrentgemma-9b); the
+    recurrence kernels at a model shard's shapes at [2c]'s, [2d]'s,
+    [16c]'s and [16d]'s limits, with their mutants; the
     elastic restore bitwise; ``cp_als(mesh=ctx)`` within ``FIT_ATOL``;
     the pipeline within 1e-5 of its sequential stages, a full-rank
     compressed sync within 1e-4 of the mean, its error feedback the
@@ -4411,14 +4429,8 @@ def train_rwkv(tag, kw6, reps):
     from repro_torch.models import rwkv
 
     cfg = get_config(RWKV_ARCH)
-
-    def prepare(state):
-        g = torch.Generator(device="cuda").manual_seed(1)
-        for w in state["params"]["stage0"]["b0"]["wb_lora"]:
-            w.normal_(0.0, WB_LORA_STD, generator=g)
-
     state, out = train_run(tag, cfg, RWKV_TRAIN_BATCH, TRAIN_SEQ,
-                           RWKV_TRAIN_STEPS, prepare,
+                           RWKV_TRAIN_STEPS, draw_wb_lora,
                            profile=("wkv6_bwd", "wkv6"))
     want = {"wkv6": 2 * cfg.n_layers * RWKV_TRAIN_STEPS,
             "wkv6_bwd": cfg.n_layers * RWKV_TRAIN_STEPS}
@@ -4661,6 +4673,11 @@ SHARD_PARAM_ATOL = 1e-6                # x max(1, |p|) where g's sign is sure
 SHARD_G_FLOOR = 1e-5                   # |g| above it: eps out of the step
 SHARD_F32_LAYERS, SHARD_F32_SEQ = 2, 256
 SHARD_REC_LAYERS = 4                   # [17b]'s depth, each model
+SHARD_REC_HOOKS = {"rwkv6-3b": "sum_tmix",       # [17b]'s float32 mutants
+                   "recurrentgemma-9b": "sum_rec"}
+SHARD_ROUND_K = 5                      # [17b]: a bf16 leaf's limit is at
+#                                        least this x how far bf16 rounding
+#                                        moves the single-device step's leaf
 PIPE_D, PIPE_BATCH, PIPE_MICRO = 1024, 64, 8
 COMPRESS_SHAPE, COMPRESS_RANK = (4096, 1024), 32
 
@@ -4675,7 +4692,7 @@ def shard_ctx(shape):
 
 
 def shard_step_pair(tag, cfg, ctx, batch, prepare=None, rtol=GRAD_RTOL,
-                    loss_atol=None):
+                    loss_atol=None, rounding=None):
     """One step from the same state and batch on one device and sharded
     over ``ctx`` (the state placed by a copy before
     the single-device step updates it in place): the losses within
@@ -4686,8 +4703,14 @@ def shard_step_pair(tag, cfg, ctx, batch, prepare=None, rtol=GRAD_RTOL,
     least twice that limit and |g| at least ``SHARD_G_FLOOR`` (there g
     has one sign on both sides and Adam's first step, lr g / (|g| +
     eps), is the same to float32 rounding), within 2 lr elsewhere (the
-    step is sign-like where g is rounding noise). Returns the numbers,
-    the sharded state and the kernels' launches in the sharded step."""
+    step is sign-like where g is rounding noise). Given ``rounding`` (the
+    single-device float32 step's first moments from the same state and
+    batch, on the host), a leaf's limit is at least ``SHARD_ROUND_K``
+    times the largest |m - rounding| of that leaf: how far bf16 rounding
+    alone moves the single-device step there. Returns the numbers (the
+    five largest shares of a leaf's limit under ``worst``, the largest of
+    ``rtol``'s alone under ``grad_share_of_rtol``), the sharded state and
+    the kernels' launches in the sharded step."""
     import torch
     from repro_torch import sharding
     from repro_torch.kernels import lru_scan as klru
@@ -4718,7 +4741,7 @@ def shard_step_pair(tag, cfg, ctx, batch, prepare=None, rtol=GRAD_RTOL,
     if not abs(l1 - l2) <= lim:
         raise AssertionError(f"{tag} sharded loss {l2} against the single "
                              f"device's {l1} (limit {lim:.1e})")
-    share, pmax, ptight, held = 0.0, 0.0, 0.0, 0
+    share, plain, pmax, ptight, held, shares = 0.0, 0.0, 0.0, 0.0, 0, []
     floor = (1 - ocfg.b1) * SHARD_G_FLOOR
     top = max(float(b.abs().max()) for b in leaves(one["opt"]["m"]))
     pairs = zip(leaves(two["opt"]["m"]), leaves(one["opt"]["m"]),
@@ -4727,10 +4750,16 @@ def shard_step_pair(tag, cfg, ctx, batch, prepare=None, rtol=GRAD_RTOL,
         a = sharding.gather_tensor(a)
         glim = leaf_limit(rtol, b, top)
         err = float((a - b).abs().max())
+        plain = max(plain, err / glim)
+        if rounding is not None:
+            glim = max(glim, SHARD_ROUND_K * float(
+                (b - rounding[i].to(b.device)).abs().max()))
+        shares.append((err / glim, i, tuple(b.shape)))
         if not err <= glim:
-            raise AssertionError(f"{tag} gradient leaf {i} "
-                                 f"{tuple(b.shape)} off by {err:.3e} "
-                                 f"(limit {glim:.3e})")
+            raise AssertionError(
+                f"{tag} gradient leaf {i} {tuple(b.shape)} off by "
+                f"{err:.3e} (limit {glim:.3e}); the largest shares so far "
+                f"(share, leaf, shape): {sorted(shares, reverse=True)[:8]}")
         share = max(share, err / glim)
         d = (sharding.gather_tensor(pa) - pb).abs()
         sure = (b.abs() >= 2 * glim) & (b.abs() >= floor)
@@ -4746,20 +4775,26 @@ def shard_step_pair(tag, cfg, ctx, batch, prepare=None, rtol=GRAD_RTOL,
     del one
     free_device_memory()
     return {"loss_single": l1, "loss_sharded": l2, "grad_share": share,
+            "grad_share_of_rtol": plain,
+            "worst": [[s, i, list(shape)] for s, i, shape
+                      in sorted(shares, reverse=True)[:5]],
             "param_max_diff": pmax, "param_sure_diff": ptight,
             "param_sure_count": held, "first_step_ms": first_ms,
             "leaves": len(leaves(two["params"]))}, two, launches
 
 
 def shard_f32_check(tag, cfg, ctx, hook=("transformer", "sum_heads"),
-                    batch=TRAIN_BATCH, seq=SHARD_F32_SEQ):
+                    batch=TRAIN_BATCH, seq=SHARD_F32_SEQ, prepare=None,
+                    keep_state=False):
     """A float32 copy (TF32 off) of the first ``SHARD_F32_LAYERS`` layers
-    at B ``batch``, S ``seq``: the sharded step against the single-device
-    step at ``GRAD_RTOL``, the losses within 1e-4 relative; the same
-    check must fail a sharded step that drops ``hook`` (a module of
-    ``repro_torch.models`` and its sum or exchange over the model axis:
-    by default the sum after ``wo``). Returns the numbers and the
-    sharded state (for [17c])."""
+    at B ``batch``, S ``seq`` (its state made by ``prepare``, as
+    :func:`shard_step_pair` takes it): the sharded step against the
+    single-device step at ``GRAD_RTOL``, the losses within 1e-4
+    relative; the same check must fail a sharded step that drops
+    ``hook`` (a module of ``repro_torch.models`` and its sum or exchange
+    over the model axis: by default the sum after ``wo``). Returns the
+    numbers and, with ``keep_state``, the sharded state (for [17c]; else
+    it is freed before the mutant's step)."""
     import dataclasses
     import importlib
 
@@ -4768,21 +4803,24 @@ def shard_f32_check(tag, cfg, ctx, hook=("transformer", "sum_heads"),
     cfg2 = dataclasses.replace(cfg, n_layers=SHARD_F32_LAYERS,
                                compute_dtype="float32")
     data = SyntheticLM(cfg2, batch, seq, seed=1, device="cuda").next()
-    out, state, _ = shard_step_pair(tag, cfg2, ctx, data)
+    out, state, _ = shard_step_pair(tag, cfg2, ctx, data, prepare)
+    if not keep_state:
+        state = None
+        free_device_memory()
     module = importlib.import_module(f"repro_torch.models.{hook[0]}")
-    keep = getattr(module, hook[1])
+    saved = getattr(module, hook[1])
     setattr(module, hook[1], lambda parts: parts)
     try:
-        shard_step_pair(tag, cfg2, ctx, data)
+        shard_step_pair(tag, cfg2, ctx, data, prepare)
     except AssertionError as e:
         out["dropped_" + hook[1]] = str(e)
     else:
         raise AssertionError(f"{tag} the float32 check does not catch a "
                              f"sharded step that drops {hook[1]}")
     finally:
-        setattr(module, hook[1], keep)
-    log(f"{tag} float32 copy ({SHARD_F32_LAYERS} layers, B {batch}, "
-        f"S {seq}, TF32 off) sharded on {SHARD_MESH} == one "
+        setattr(module, hook[1], saved)
+    log(f"{tag} {cfg.name} float32 copy ({SHARD_F32_LAYERS} layers, B "
+        f"{batch}, S {seq}, TF32 off) sharded on {SHARD_MESH} == one "
         f"device: {out['leaves']} leaves (max {out['grad_share']:.3f} of "
         f"the limit {GRAD_RTOL} x the leaf's largest; params within "
         f"{out['param_sure_diff']:.2e} at {out['param_sure_count']:,} sure "
@@ -4816,7 +4854,7 @@ def shard_tinyllama(tag, reps):
                            ("copy", "elementwise")))
     del state
     free_device_memory()
-    out["f32"], f32_state = shard_f32_check(tag, cfg, ctx)
+    out["f32"], f32_state = shard_f32_check(tag, cfg, ctx, keep_state=True)
     return out, f32_state
 
 
@@ -4886,58 +4924,168 @@ def shard_timed(tag, cfg, ctx, data, state, steps, kernel):
     return out
 
 
-def shard_recurrent(tag):
-    """[17b]: rwkv6-3b and recurrentgemma-9b at full width, depth cut to
-    ``SHARD_REC_LAYERS``, on a (data 2, model 1) mesh of ``cuda:0``
-    (these kinds have no tensor-parallel path): one step against the
-    single-device step, and the recurrence kernels' launches on the
-    shards (forward and recompute on each shard, one backward)."""
+def draw_wb_lora(state):
+    """rwkv6-3b's ``wb_lora`` drawn non-zero in a stage-layout state
+    (zero at init makes every decay constant), as [10] draws it."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for w in state["params"]["stage0"]["b0"]["wb_lora"]:
+        w.normal_(0.0, WB_LORA_STD, generator=g)
+
+
+def single_f32_moments(cfg, batch, prepare=None):
+    """The first moments (on the host) of one single-device float32 step
+    (TF32 off) of ``cfg`` from :func:`shard_step_pair`'s state and
+    ``batch``: the bf16 step's rounding floor."""
     import dataclasses
 
-    import torch
+    from repro_torch.training import init_state, make_train_step
+    from repro_torch.training.tree import leaves
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ocfg = train_ocfg(1)
+    state = init_state(cfg32, ocfg, 0, device="cuda")
+    if prepare is not None:
+        prepare(state)
+    state, _ = make_train_step(cfg32, ocfg)(
+        state, {k: v.clone() for k, v in batch.items()})
+    out = [m.cpu() for m in leaves(state["opt"]["m"])]
+    del state
+    free_device_memory()
+    return out
+
+
+def shard_recurrent(tag, reps):
+    """[17b]: rwkv6-3b and recurrentgemma-9b at full width, depth cut to
+    ``SHARD_REC_LAYERS``, on a (data 2, model 2) mesh of ``cuda:0``: one
+    bf16 step against the single-device step at [17a]'s limits, each
+    gradient leaf's at least ``SHARD_ROUND_K`` times how far the
+    single-device float32 step's is from the bf16 one's
+    (:func:`single_f32_moments`), the
+    recurrence kernels' launches on the 4 shards (forward and recompute
+    on each shard, one backward), ``SHARD_STEPS`` timed steps and one
+    profiled (:func:`shard_timed`); each arch's kernel and its backward
+    at a model shard's shapes (:func:`shard_kernels`); the float32
+    2-layer copy and its mutant without the sum after ``w_out_t`` or
+    ``w_out_rec`` (:func:`shard_f32_check`)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.training import SyntheticLM
 
-    out, launches = {}, {}
-    ctx = shard_ctx((2, 1))
+    out, launches, kernels = {}, {}, {}
+    ctx = shard_ctx(SHARD_MESH)
+    shards = math.prod(SHARD_MESH)
     for arch, kernel in ((RWKV_ARCH, "wkv6"), (RG_ARCH, "lru_scan")):
         free_device_memory()
         cfg = dataclasses.replace(get_config(arch),
                                   n_layers=SHARD_REC_LAYERS)
-
-        def prepare(state, arch=arch):
-            if arch != RWKV_ARCH:
-                return
-            g = torch.Generator(device="cuda").manual_seed(1)
-            for w in state["params"]["stage0"]["b0"]["wb_lora"]:
-                w.normal_(0.0, WB_LORA_STD, generator=g)
-
-        batch = SyntheticLM(cfg, RWKV_TRAIN_BATCH, TRAIN_SEQ, seed=0,
-                            device="cuda").next()
+        prepare = draw_wb_lora if arch == RWKV_ARCH else None
+        data = SyntheticLM(cfg, RWKV_TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                           device="cuda")
+        batch = data.next()
+        rounding = single_f32_moments(cfg, batch, prepare)
         rec, state, got = shard_step_pair(
             tag, cfg, ctx, batch, prepare, rtol=SHARD_GRAD_RTOL,
-            loss_atol=SHARD_LOSS_ATOL)
-        del state
+            loss_atol=SHARD_LOSS_ATOL, rounding=rounding)
+        del rounding
         n = transformer.layer_kinds(cfg).count(
             "rwkv" if kernel == "wkv6" else "rec")
-        want = {kernel: 2 * n * 2, kernel + "_bwd": n * 2}
+        want = {kernel: 2 * n * shards, kernel + "_bwd": n * shards}
         got = {k: got[k] for k in want}
         if got != want:
             raise AssertionError(f"{tag} {arch} launches {got}, expected "
-                                 f"{want} (two shards: forward, recompute "
-                                 "and backward a layer each)")
+                                 f"{want} ({shards} shards: forward, "
+                                 "recompute and backward a layer each)")
         rec["launches"] = got
         launches.update(got)
-        out[arch] = rec
         log(f"{tag} {arch} ({SHARD_REC_LAYERS} layers) at B "
-            f"{RWKV_TRAIN_BATCH}, S {TRAIN_SEQ} on (data 2, model 1): loss "
-            f"{rec['loss_sharded']:.5f} / {rec['loss_single']:.5f}, "
-            f"{rec['leaves']} leaves within {rec['grad_share']:.3f} of the "
-            f"limit, params within {rec['param_sure_diff']:.2e} at "
-            f"{rec['param_sure_count']:,} sure elements; launches {got}")
+            f"{RWKV_TRAIN_BATCH}, S {TRAIN_SEQ} on {SHARD_MESH} (data, "
+            f"model): loss {rec['loss_sharded']:.5f} / "
+            f"{rec['loss_single']:.5f} (limit {SHARD_LOSS_ATOL}), "
+            f"{rec['leaves']} gradient leaves within "
+            f"{rec['grad_share']:.3f} of the limit (the larger of "
+            f"{SHARD_GRAD_RTOL} x the leaf's largest and {SHARD_ROUND_K} x "
+            f"its bf16 rounding; largest shares, leaf, shape: "
+            f"{rec['worst']}; of the first alone "
+            f"{rec['grad_share_of_rtol']:.3f}), params within "
+            f"{rec['param_sure_diff']:.2e} at {rec['param_sure_count']:,} "
+            f"sure elements; launches {got}; first step "
+            f"{rec['first_step_ms']:.0f} ms")
+        rec.update(shard_timed(tag, cfg, ctx, data, state, SHARD_STEPS,
+                               (kernel + "_bwd", kernel)))
+        dev = (rec["profile"]["device_ms"] or {})
+        rec["profile_ms_a_launch"] = {
+            k: dev[k] / want[k] if k in dev else None for k in want}
+        del state
+        free_device_memory()
+        rec["kernels"] = shard_kernels(tag, cfg, kernel, reps)
+        kernels.update(rec["kernels"])
+        free_device_memory()
+        rec["f32"], _ = shard_f32_check(
+            tag, cfg, ctx, ("transformer", SHARD_REC_HOOKS[arch]),
+            prepare=prepare)
+        out[arch] = rec
     free_device_memory()
-    return out, launches
+    return out, launches, kernels
+
+
+def shard_kernels(tag, cfg, kernel, reps):
+    """[17b]: ``kernel`` (``wkv6`` or ``lru_scan``) and its backward at
+    the shapes one model shard of a (data 2, model 2) step gives them (B
+    ``RWKV_TRAIN_BATCH`` / 2; ``wkv6`` on the shard's half of the heads,
+    ``lru_scan`` on its half of the channels), on [2c] / [2d]'s random
+    inputs, against their plain versions at [2c]'s, [2d]'s, [16c]'s and
+    [16d]'s limits, each limit held against its mutants; each timed
+    beside its plain version and its bound."""
+    import torch
+    from repro_torch.kernels import lru_scan as klru
+    from repro_torch.kernels import wkv6 as kw6
+
+    dp, tp = SHARD_MESH
+    b = RWKV_TRAIN_BATCH // dp
+    gen = torch.Generator(device="cuda").manual_seed(172)
+    if kernel == "wkv6":
+        shape = (b * cfg.d_model // 64 // tp, TRAIN_SEQ, 64, 64)
+        args = wkv_case(*shape, seed=171)
+        fwd_err = wkv_check(kw6, args, tag)
+        fwd = kernel_timing(lambda: kw6.wkv6(*args),
+                            lambda: kw6.wkv6_plain(*args),
+                            *wkv_bound(args), reps)
+        dy = torch.randn(args[3].shape, device="cuda", generator=gen)
+        bwd_err = wkv_bwd_check(kw6, args, dy, tag)
+        bwd = kernel_timing(lambda: kw6.wkv6_backward(*args, dy),
+                            lambda: kw6.wkv6_backward_plain(*args, dy),
+                            *wkv_bwd_bound(args), reps)
+        del args, dy
+    else:
+        shape = (b, TRAIN_SEQ, (cfg.lru_width or cfg.d_model) // tp)
+        a, x = lru_case(*shape, seed=173, dtype=torch.float32)
+        fwd_err = lru_check(klru, a, x, tag)
+        n = a.numel()
+        fwd = kernel_timing(lambda: klru.lru_scan(a, x),
+                            lambda: klru.lru_scan_plain(a, x),
+                            12 * n, 2 * n, reps)
+        with torch.no_grad():
+            h = klru.lru_scan(a, x)
+        dh = torch.randn(a.shape, device="cuda", generator=gen)
+        bwd_err = lru_bwd_check(klru, a, h, dh, tag)
+        bwd = kernel_timing(lambda: klru.lru_scan_backward(a, h, dh),
+                            lambda: klru.lru_scan_backward_plain(a, h, dh),
+                            20 * n, 3 * n, reps)
+        del a, x, h, dh
+    out = {}
+    for name, rec, (err, share) in ((kernel, fwd, fwd_err),
+                                    (kernel + "_bwd", bwd, bwd_err)):
+        rec.update(max_abs_err=err, limit_share=share, shape=list(shape))
+        out[name] = rec
+        log(f"{tag} {name} at a model shard's {shape} == plain (max err "
+            f"{err:.3e}, {share:.3f} of the limit; its mutants fail it): "
+            f"{rec['ms']:.3f} ms a launch (plain {rec['plain_ms']:.1f}, "
+            f"bound {rec['bound_ms']:.4f} by {rec['bound_by']})")
+    return out
 
 
 def shard_reshard(tag, state):
@@ -5082,15 +5230,15 @@ def shard_primitives(tag):
 
 def phase_shard(report, reps):
     """[17] Sharded training on the card (``sharding.py``, the sharded
-    ``make_train_step``): [17a] tinyllama-1.1b at full width and depth on
-    (data 2, model 2), [17b] rwkv6-3b and recurrentgemma-9b on (data 2,
-    model 1), [17c] the elastic restore, [17d] ``cp_als(mesh=ctx)``,
-    [17e] the pipeline and the compressed sync. Returns the kernels'
-    launches in the sharded paths."""
+    ``make_train_step``): [17a] tinyllama-1.1b at full width on (data 2,
+    model 2), [17b] rwkv6-3b and recurrentgemma-9b on (data 2, model 2),
+    [17c] the elastic restore, [17d] ``cp_als(mesh=ctx)``, [17e] the
+    pipeline and the compressed sync. Returns the kernels' launches in
+    the sharded paths and [17b]'s per-shard kernel records."""
     t0 = time.perf_counter()
     out = {}
     out["tinyllama"], f32_state = shard_tinyllama("[17a]", reps)
-    out["recurrent"], launches = shard_recurrent("[17b]")
+    out["recurrent"], launches, kernels = shard_recurrent("[17b]", reps)
     out["reshard"] = shard_reshard("[17c]", f32_state)
     del f32_state
     free_device_memory()
@@ -5100,7 +5248,7 @@ def phase_shard(report, reps):
     report["shard"] = out
     free_device_memory()
     log(f"[17] passed in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, kernels
 
 
 # --------------------------------------------------------------------------
@@ -5672,11 +5820,13 @@ def family_train(tag, reps, g):
     the card and on the CPU (``train_grad_check``), then the sharded
     pair: command-r at ``CMDR_CUT`` and paligemma at full width on 2
     layers over (data 2, model 2), with the copy that drops the sum
-    after ``wo`` failing; whisper on 2 + 2 layers over (data 2)."""
+    after ``wo`` failing; whisper on 2 + 2 layers over (data 2, model
+    2), with the copy that drops the sum after the cross-attention's
+    ``wo`` failing."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.training import OptimizerConfig, SyntheticLM, init_state
+    from repro_torch.training import OptimizerConfig, init_state
 
     out = {}
     cmdr, pali, whisper = (get_config(a) for a in (CMDR_ARCH, PALI_ARCH,
@@ -5710,16 +5860,10 @@ def family_train(tag, reps, g):
         out["shard"][arch], _ = shard_f32_check(tag, cfg, shard_ctx(
             SHARD_MESH), batch=2, seq=seq)
         free_device_memory()
-    cfg2 = dataclasses.replace(whisper, n_layers=2, n_enc_layers=2,
-                               compute_dtype="float32")
-    data = SyntheticLM(cfg2, 2, FAMILY_GRAD_SEQ, seed=1,
-                       device="cuda").next()
-    rec, _, _ = shard_step_pair(tag, cfg2, shard_ctx((2, 1)), data)
-    out["shard"][WHISPER_ARCH] = rec
-    log(f"{tag} {WHISPER_ARCH} f32 2 + 2 layers (B 2, S {FAMILY_GRAD_SEQ}) "
-        f"over (data 2, model 1) == one device: {rec['leaves']} leaves "
-        f"within {rec['grad_share']:.3f} of the limit, loss "
-        f"{rec['loss_sharded']:.6f} / {rec['loss_single']:.6f}")
+    out["shard"][WHISPER_ARCH], _ = shard_f32_check(
+        tag, dataclasses.replace(whisper, n_enc_layers=SHARD_F32_LAYERS),
+        shard_ctx(SHARD_MESH), ("transformer", "sum_xattn"), batch=2,
+        seq=FAMILY_GRAD_SEQ)
     free_device_memory()
     return out
 
@@ -5886,7 +6030,7 @@ def main(argv=None) -> int:
     lm_reps = min(args.reps, LM_REPS)
     phase_dense(report, lm_reps)
     wbwd, lbwd = phase_train(kw6, klru, report, args.reps)
-    launches17 = phase_shard(report, args.reps)
+    launches17, kernels17 = phase_shard(report, args.reps)
     phase_moe(report, lm_reps)
     phase_families(report, lm_reps)
     kernels = kernels_record(per_kernel,
@@ -5911,6 +6055,11 @@ def main(argv=None) -> int:
     dist_record(kernels, times14, launches14, err14)
     for rec in kernels:
         rec["sharded_launches"] = launches17.get(rec["name"], 0)
+        if rec["name"] in kernels17:
+            rec["model_shard"] = {
+                k: kernels17[rec["name"]][k]
+                for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "max_abs_err")}
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

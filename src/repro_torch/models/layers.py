@@ -18,8 +18,9 @@ parameter module (the reference's keys as attributes).
 Tensor parallelism (``models.transformer.apply_block_tp``): shard ``j`` of
 the model axis runs these same functions on its slice of the weights and
 a narrowed config (:func:`attention_shard`: ``n_heads / tp`` query heads
-and the KV heads they read); the caller sums the partial outputs of
-``wo`` and ``w_down`` over the model axis.
+and the KV heads they read; a cross-attention's keys and values from the
+shard's replica of the encoder's output); the caller sums the partial
+outputs of ``wo`` and ``w_down`` over the model axis.
 """
 from __future__ import annotations
 

@@ -13,13 +13,23 @@ layer; the reference evaluates the same recurrence with
 the two differ by float32 rounding only). Decode takes one fused step of
 plain tensor ops, as in the reference. ``p`` is a block's ``rec``
 parameter module (the reference's keys as attributes).
+
+Tensor parallelism (``models.transformer.apply_block_tp``): the model
+axis splits the W columns of ``w_in_rec`` and ``w_in_gate`` and the rows
+of ``w_out_rec``; ``conv_w``, ``conv_b``, ``w_a``, ``b_a``, ``w_x``,
+``b_x`` and ``lam`` are whole on every shard and sliced to its columns
+here. The gates of a shard's columns read the whole of u, so
+:func:`apply_rglru_tp` gathers u over the axis between the conv and the
+gates; each shard then scans its W / tp channels and returns its partial
+output of ``w_out_rec``, for the caller to sum.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import sharding
 from ..kernels.lru_scan import lru_scan
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, Node, dense_init
 from .layers import gelu
 
 _C = 8.0
@@ -49,14 +59,17 @@ def init_rglru(cfg: ModelConfig, generator: torch.Generator) -> dict:
     }
 
 
-def _gates(p, u, cfg: ModelConfig):
+def _gates(p, u, cfg: ModelConfig, own=None):
     """``(a, b)`` f32 of the recurrence h_t = a_t h_{t-1} + b_t; the gate
-    products run in the compute dtype, as in the reference."""
+    products run in the compute dtype, as in the reference. ``own``: the
+    columns of u whose gates ``p`` holds (``w_a`` / ``w_x`` columns, a
+    model shard's), where u is wider (whole)."""
     dt = cfg.cdtype
     r = torch.sigmoid(u @ p.w_a.to(dt) + p.b_a.to(dt)).float()
     i = torch.sigmoid(u @ p.w_x.to(dt) + p.b_x.to(dt)).float()
     log_lam = torch.log(p.lam.float())                    # < 0
     a = torch.exp(_C * log_lam * r)       # softplus folded into lam param
+    u = u if own is None else own
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * u.float()
     return a, b
 
@@ -97,6 +110,57 @@ def apply_rglru(p, x, cfg: ModelConfig):
     return (h * gate) @ p.w_out_rec.to(cfg.cdtype)
 
 
+def rec_split(p, cfg: ModelConfig) -> bool:
+    """Whether the model axis splits this shard's block (``w_in_rec``'s W
+    columns; the reference splits ``w_in_gate`` and ``w_out_rec``
+    alike)."""
+    return p.w_in_rec.shape[1] < (cfg.lru_width or cfg.d_model)
+
+
+def _columns(p, j: int) -> Node:
+    """Model shard ``j``'s pieces with the per-channel leaves sliced to
+    its n columns of W (n = its ``w_in_rec``'s width)."""
+    n = p.w_in_rec.shape[1]
+    c = slice(j * n, (j + 1) * n)
+    return Node(p, conv_w=p.conv_w[:, c], conv_b=p.conv_b[c],
+                w_a=p.w_a[:, c], b_a=p.b_a[c], w_x=p.w_x[:, c],
+                b_x=p.b_x[c], lam=p.lam[c])
+
+
+def _rec_in(p, x, cfg: ModelConfig, j: int):
+    """Model shard ``j``'s conv output u and gate (B, S, n)."""
+    dt = cfg.cdtype
+    q = _columns(p, j)
+    gate = gelu(x @ q.w_in_gate.to(dt))
+    u, _ = _conv1d(q, x @ q.w_in_rec.to(dt), cfg)
+    return u, gate
+
+
+def _rec_out(p, u_all, gate, cfg: ModelConfig, j: int):
+    """Model shard ``j``'s partial output of ``w_out_rec``: its columns'
+    gates from the whole of u, its channels scanned."""
+    q = _columns(p, j)
+    n = gate.shape[-1]
+    a, b = _gates(q, u_all, cfg, own=u_all[..., j * n:(j + 1) * n])
+    h = lru_scan(a.contiguous(), b.contiguous()).to(cfg.cdtype)
+    return (h * gate) @ q.w_out_rec.to(cfg.cdtype)
+
+
+def apply_rglru_tp(ps, xs, cfg: ModelConfig, remat=lambda fn: fn):
+    """:func:`apply_rglru` over the model axis where it splits the block
+    (:func:`rec_split`): ``ps`` holds each shard's ``rec`` params, ``xs``
+    its normed input (B, S, D); returns each shard's partial output of
+    ``w_out_rec``, for the caller to sum. Each shard's projections and
+    conv are one ``remat``-ed function; u is gathered over the axis; its
+    gates, ``lru_scan`` on (B, S, W / tp) and the output are the
+    second."""
+    proj = remat(_rec_in)
+    parts = [proj(p, x, cfg, j) for j, (p, x) in enumerate(zip(ps, xs))]
+    whole = sharding.all_gather([u for u, _ in parts], -1)
+    out = remat(_rec_out)
+    return [out(p, whole[j], parts[j][1], cfg, j) for j, p in enumerate(ps)]
+
+
 def apply_rglru_decode(p, x, cache: dict, cfg: ModelConfig):
     """Single-token step; cache: {"h": (B, W) f32, "conv": (B, width-1,
     W)}. Returns (out, new cache)."""
@@ -117,5 +181,5 @@ def make_rglru_cache(cfg: ModelConfig, batch: int, device) -> dict:
                                 dtype=cfg.cdtype, device=device)}
 
 
-__all__ = ["apply_rglru", "apply_rglru_decode", "init_rglru",
-           "make_rglru_cache", "scan_inputs"]
+__all__ = ["apply_rglru", "apply_rglru_decode", "apply_rglru_tp",
+           "init_rglru", "make_rglru_cache", "rec_split", "scan_inputs"]

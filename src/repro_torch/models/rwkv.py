@@ -7,12 +7,24 @@ same recurrence in chunked form (an XLA device, not ported). Decode runs
 the one-token recurrence as plain tensor ops with the ``(hd, hd)`` state
 cached, as in the reference. ``p`` is a block's parameter module (the
 reference's keys as attributes).
+
+Tensor parallelism (``models.transformer.apply_block_tp``): the model
+axis splits the D columns of ``wr``, ``wk_t``, ``wv_t`` and ``wg``, the
+rows of ``w_out_t``, ``wk_c``'s d_ff columns and ``wv_c``'s rows;
+``mu``, ``wa_lora``, ``wb_lora``, ``w0``, ``u``, ``ln_x``, ``mu_c`` and
+``wr_c`` are whole on every shard and sliced to its columns here.
+:func:`time_mix_tp` gives each shard's partial output of ``w_out_t``, and
+:func:`channel_mix` on a shard's pieces its partial of ``wv_c``; the
+caller sums each over the axis. A shard whose columns cut a head
+(``D / tp`` not a multiple of 64) gathers r, k, v and the decay over the
+axis and runs every head, then keeps its columns.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import sharding
 from ..kernels.wkv6 import wkv6
 from .common import ModelConfig, dense_init
 
@@ -64,11 +76,14 @@ def _mix(x, xs, mu_row):
     return x + mu_row.to(x.dtype) * (xs - x)
 
 
-def _decay(p, xw, cfg: ModelConfig):
-    """log w_t = -exp(w0 + tanh(x W_a) W_b)  (negative, data-dependent)."""
+def _decay(p, xw, cfg: ModelConfig, cols: slice | None = None):
+    """log w_t = -exp(w0 + tanh(x W_a) W_b)  (negative, data-dependent);
+    of the columns ``cols`` of D (all without them)."""
     dt = cfg.cdtype
-    lora = torch.tanh(xw @ p.wa_lora.to(dt)) @ p.wb_lora.to(dt)
-    return -torch.exp(p.w0.float() + lora.float())
+    wb, w0 = (p.wb_lora, p.w0) if cols is None \
+        else (p.wb_lora[:, cols], p.w0[cols])
+    lora = torch.tanh(xw @ p.wa_lora.to(dt)) @ wb.to(dt)
+    return -torch.exp(w0.float() + lora.float())
 
 
 def _heads(x, h):
@@ -85,43 +100,130 @@ def _headnorm(y, scale, h):
     return yf * scale.float()
 
 
-def wkv_inputs(p, x, cfg: ModelConfig):
-    """The projections of ``time_mix``: ``(r, k, w, v, u, g)``, with r, k,
-    w, v as ``(B*H, S, hd)`` f32 rows and ``u (B*H, hd)``, the arguments
-    of ``wkv6``; ``g (B, S, D)`` in the compute dtype."""
-    b, s, _ = x.shape
-    h = n_heads(cfg)
+def _projections(p, x, cfg: ModelConfig, cols: slice | None = None):
+    """``(r, k, v, g, lw)`` of the n columns that ``p``'s ``wr``,
+    ``wk_t``, ``wv_t`` and ``wg`` hold (``cols`` of D: all without it):
+    (B, S, n) each, r, k, v, g in the compute dtype, the log decay lw in
+    f32."""
     dt = cfg.cdtype
     xs = _shift(x)
     r = _mix(x, xs, p.mu[0]) @ p.wr.to(dt)
     k = _mix(x, xs, p.mu[1]) @ p.wk_t.to(dt)
     v = _mix(x, xs, p.mu[2]) @ p.wv_t.to(dt)
     g = _mix(x, xs, p.mu[3]) @ p.wg.to(dt)
-    lw = _decay(p, _mix(x, xs, p.mu[4]), cfg)               # (B, S, D) f32
-
-    def rows(t):
-        return _heads(t, h).float().reshape(b * h, s, HEAD_DIM).contiguous()
-
-    u = p.u.float().repeat(b, 1)                            # (B*H, hd)
-    return rows(r), rows(k), torch.exp(rows(lw)), rows(v), u, g
+    lw = _decay(p, _mix(x, xs, p.mu[4]), cfg, cols)           # f32
+    return r, k, v, g, lw
 
 
-def time_mix(p, x, cfg: ModelConfig, chunk: int | None = None):
-    """Full-sequence WKV6; x: (B, S, D). ``chunk`` only checks S as the
-    reference does (its chunked algebra needs ``S % min(chunk, S) == 0``):
-    the kernel itself takes any S."""
-    b, s, _ = x.shape
+def _rows(t, h):
+    """(B, S, h hd) -> the kernel's (B*h, S, hd) f32 rows."""
+    b, s, _ = t.shape
+    return _heads(t, h).float().reshape(b * h, s, HEAD_DIM).contiguous()
+
+
+def wkv_inputs(p, x, cfg: ModelConfig):
+    """The projections of ``time_mix``: ``(r, k, w, v, u, g)``, with r, k,
+    w, v as ``(B*H, S, hd)`` f32 rows and ``u (B*H, hd)``, the arguments
+    of ``wkv6``; ``g (B, S, D)`` in the compute dtype."""
+    h = n_heads(cfg)
+    r, k, v, g, lw = _projections(p, x, cfg)
+    u = p.u.float().repeat(x.shape[0], 1)                   # (B*H, hd)
+    return _rows(r, h), _rows(k, h), torch.exp(_rows(lw, h)), _rows(v, h), \
+        u, g
+
+
+def _wkv_normed(p, r, k, v, lw, cfg: ModelConfig, head0: int = 0):
+    """``wkv6`` over the heads of r, k, v, lw (B, S, n), the first of
+    them head ``head0`` of the layer (its rows of ``u`` and its columns
+    of ``ln_x``), then the per-head norm: (B, S, n) in the compute
+    dtype."""
+    b, s, n = r.shape
+    h = n // HEAD_DIM
+    u = p.u[head0:head0 + h].float().repeat(b, 1)
+    y = wkv6(_rows(r, h), _rows(k, h), torch.exp(_rows(lw, h)), _rows(v, h),
+             u).reshape(b, h, s, HEAD_DIM)
+    lo = head0 * HEAD_DIM
+    return _headnorm(y, p.ln_x[lo:lo + n], h).to(cfg.cdtype)
+
+
+def _check_seq(s: int, chunk: int | None) -> None:
+    """Refuse S as the reference does (its chunked algebra needs ``S %
+    min(chunk, S) == 0``): the kernel itself takes any S."""
     if chunk is None:
         chunk = 32 if s <= 512 else 256
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"time_mix: S={s} is not a multiple of the chunk "
                          f"{c}")
-    h = n_heads(cfg)
-    r, k, w, v, u, g = wkv_inputs(p, x, cfg)
-    y = wkv6(r, k, w, v, u).reshape(b, h, s, HEAD_DIM)
-    y = _headnorm(y, p.ln_x, h).to(cfg.cdtype)
+
+
+def time_mix(p, x, cfg: ModelConfig, chunk: int | None = None):
+    """Full-sequence WKV6; x: (B, S, D). ``chunk`` only checks S
+    (:func:`_check_seq`)."""
+    _check_seq(x.shape[1], chunk)
+    r, k, v, g, lw = _projections(p, x, cfg)
+    y = _wkv_normed(p, r, k, v, lw, cfg)
     return (y * F.silu(g)) @ p.w_out_t.to(cfg.cdtype)
+
+
+def tmix_split(p, cfg: ModelConfig) -> bool:
+    """Whether the model axis splits this shard's time mix (``wr``'s D
+    columns; the reference splits the five projections alike)."""
+    return p.wr.shape[1] < cfg.d_model
+
+
+def cmix_split(p, cfg: ModelConfig) -> bool:
+    """Whether the model axis splits this shard's channel mix (``wk_c``'s
+    d_ff columns and ``wv_c``'s rows): :func:`channel_mix` on its pieces
+    is then a partial output of ``wv_c``."""
+    return p.wk_c.shape[1] < cfg.d_ff
+
+
+def _tmix_in(p, x, cfg: ModelConfig, j: int):
+    """Model shard ``j``'s ``(r, k, v, lw, g)``: its n columns of each."""
+    n = p.wr.shape[1]
+    r, k, v, g, lw = _projections(p, x, cfg, slice(j * n, (j + 1) * n))
+    return r, k, v, lw, g
+
+
+def _tmix_out(p, r, k, v, lw, g, cfg: ModelConfig, j: int):
+    """Model shard ``j``'s partial output of ``w_out_t`` from ``g`` (its
+    n columns) and r, k, v, lw of its own whole heads (n columns too) or
+    of all D columns (gathered over the axis: every head runs, and the
+    shard keeps its columns of the normed output)."""
+    n = g.shape[-1]
+    if r.shape[-1] == n:
+        y = _wkv_normed(p, r, k, v, lw, cfg, head0=j * n // HEAD_DIM)
+    else:
+        y = _wkv_normed(p, r, k, v, lw, cfg)[..., j * n:(j + 1) * n]
+    return (y * F.silu(g)) @ p.w_out_t.to(cfg.cdtype)
+
+
+def _tmix_shard(p, x, cfg: ModelConfig, j: int):
+    return _tmix_out(p, *_tmix_in(p, x, cfg, j), cfg, j)
+
+
+def time_mix_tp(ps, xs, cfg: ModelConfig, remat=lambda fn: fn):
+    """:func:`time_mix` over the model axis where it splits the time mix
+    (:func:`tmix_split`): ``ps`` holds each shard's block params, ``xs``
+    its normed input (B, S, D); returns each shard's partial output of
+    ``w_out_t``, for the caller to sum. Where each shard's columns are
+    whole heads it runs ``wkv6`` on its heads alone, one ``remat``-ed
+    function a shard; where they cut a head, the projections (one
+    ``remat``-ed function) are followed by an all-gather of r, k, v and
+    the decay, and every head runs on every shard (the second
+    ``remat``-ed function)."""
+    _check_seq(xs[0].shape[1], None)
+    if ps[0].wr.shape[1] % HEAD_DIM == 0:
+        run = remat(_tmix_shard)
+        return [run(p, x, cfg, j) for j, (p, x) in enumerate(zip(ps, xs))]
+    proj = remat(_tmix_in)
+    parts = [proj(p, x, cfg, j) for j, (p, x) in enumerate(zip(ps, xs))]
+    whole = [sharding.all_gather([q[i] for q in parts], -1)
+             for i in range(4)]                               # r, k, v, lw
+    out = remat(_tmix_out)
+    return [out(p, *(w[j] for w in whole), parts[j][4], cfg, j)
+            for j, p in enumerate(ps)]
 
 
 def time_mix_decode(p, x, cache, cfg: ModelConfig):
@@ -172,6 +274,6 @@ def make_rwkv_cache(cfg: ModelConfig, batch: int, device) -> dict:
     }
 
 
-__all__ = ["HEAD_DIM", "LORA_DIM", "n_heads", "init_rwkv_block",
-           "wkv_inputs", "time_mix", "time_mix_decode", "channel_mix",
-           "make_rwkv_cache"]
+__all__ = ["HEAD_DIM", "LORA_DIM", "channel_mix", "cmix_split",
+           "init_rwkv_block", "make_rwkv_cache", "n_heads", "time_mix",
+           "time_mix_decode", "time_mix_tp", "tmix_split", "wkv_inputs"]

@@ -47,10 +47,16 @@ summed (``sum_vocab``). A ``moe`` block's FFN is expert parallel instead
 (``moe.apply_moe_tp``: shard ``j`` holds E/m experts, its slice of the
 sequence goes to every expert's owner and back, and the slices are
 gathered into every replica). A parallel block adds its attention and
-MLP partials before one sum over the axis. Only the ``attn`` and ``moe``
-kinds have this path; a model axis above 1 with ``rwkv``, ``rec``,
-``local``, ``enc`` or ``dec`` layers raises ``NotImplementedError``
-naming its ROADMAP item.
+MLP partials before one sum over the axis. A ``local`` or ``enc`` block
+is the ``attn`` path with its own mask; a ``dec`` block's
+cross-attention reads the encoder's output on each shard (the encoder
+runs over the axis first, :func:`encode_tp`) and its heads' partials of
+``xattn``'s ``wo`` are summed (``sum_xattn``). An ``rwkv`` block's time
+mix and a ``rec`` block's RG-LRU run their model-shard forms
+(``rwkv.time_mix_tp``, ``rglru.apply_rglru_tp``: the recurrence kernels
+on each shard's heads or channels), summed after ``w_out_t``
+(``sum_tmix``) and ``w_out_rec`` (``sum_rec``); the channel mix's
+partials of ``wv_c`` are summed by ``sum_cmix``.
 """
 from __future__ import annotations
 
@@ -69,9 +75,6 @@ from . import layers, moe, rglru, rwkv
 from .common import (ModelConfig, Node, Params, apply_norm, as_node,
                      dense_init, device_of, init_norm, param)
 
-_NO_TP = ("tensor parallelism (a model axis above 1) of the rwkv, rec, "
-          "local, enc and dec blocks is ROADMAP Queue A item 12.3b; train "
-          "these on a mesh whose model axis is 1 (dp + fsdp)")
 #: The block kinds (the reference's).
 KINDS = ("attn", "moe", "rwkv", "rec", "local", "enc", "dec")
 
@@ -288,41 +291,122 @@ def apply_block_decode(params, x, cache, cfg: ModelConfig, kind: str):
 sum_heads = sharding.psum      # after wo
 sum_ff = sharding.psum         # after w_down
 sum_vocab = sharding.psum      # the vocab-split embedding lookup
+sum_tmix = sharding.psum       # after an rwkv block's w_out_t
+sum_cmix = sharding.psum       # after an rwkv block's wv_c
+sum_rec = sharding.psum        # after a rec block's w_out_rec
+sum_xattn = sharding.psum      # after a dec block's xattn wo
 
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Refuse a model axis above 1 for the block kinds without a tensor
-    parallel path (an encoder's layers are ``enc``), and one that does
-    not divide the experts."""
-    kinds = set(layer_kinds(cfg)) | ({"enc"} if cfg.n_enc_layers else set())
-    other = sorted(kinds - {"attn", "moe"})
-    if tp > 1 and other:
-        raise NotImplementedError(f"{cfg.name}: {_NO_TP} (kinds {other})")
-    if "moe" in kinds and cfg.n_experts % tp:
+    """Refuse a model axis that does not divide the experts (each model
+    shard holds E / tp of them); every block kind has a model-axis
+    path."""
+    if "moe" in layer_kinds(cfg) and cfg.n_experts % tp:
         raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not "
                          f"divide over a model axis of {tp}")
 
 
-def apply_block_tp(ps, xs, cfg: ModelConfig, kind: str):
-    """One ``attn`` or ``moe`` block over the model axis: ``ps`` holds
-    each shard's layer params, ``xs`` its replica of the residual stream
-    (on its device); returns the new replicas. Each shard's sublayer (a
-    ``moe`` FFN's dispatch, experts and combine apart) is recomputed in
+def _xattn_part(p, x, enc_out, cfg: ModelConfig, j: int | None = None):
+    """A ``dec`` block's cross-attention sublayer on the encoder's output
+    ``enc_out`` (before the residual): shard ``j``'s partial output of
+    ``xattn``'s ``wo`` where the model axis splits its heads, else the
+    whole output."""
+    attn, cj = p.xattn, cfg
+    if j is not None and layers.heads_split(p.xattn, cfg):
+        attn, cj = layers.attention_shard(p.xattn, cfg, j)
+    return layers.attention_full(attn, apply_norm(p.lnx, x, cfg), cj,
+                                 mask="bidir", xkv=enc_out, use_rope=False)
+
+
+def _tmix_whole(p, x, cfg: ModelConfig):
+    return rwkv.time_mix(p, apply_norm(p.ln1, x, cfg), cfg)
+
+
+def _cmix_part(p, x, cfg: ModelConfig):
+    """The channel mix's output (before the residual): a partial output
+    of ``wv_c`` where the model axis splits d_ff."""
+    return rwkv.channel_mix(p, apply_norm(p.ln2, x, cfg), cfg)
+
+
+def _rec_whole(p, x, cfg: ModelConfig):
+    return rglru.apply_rglru(p.rec, apply_norm(p.ln1, x, cfg), cfg)
+
+
+def _residual(xs, outs):
+    return [x + o for x, o in zip(xs, outs)]
+
+
+def _each(fn, ps, xs, cfg: ModelConfig, *rest):
+    """``fn(p, x, cfg, *rest)`` on each shard, recomputed in backward as
+    ``cfg.remat`` says."""
+    run = _remat(fn, cfg)
+    return [run(p, x, cfg, *rest) for p, x in zip(ps, xs)]
+
+
+def _mlp_tp(ps, xs, cfg: ModelConfig):
+    """The MLP sublayer over the model axis, with its residual."""
+    outs = _each(_mlp_part, ps, xs, cfg)
+    if layers.mlp_split(ps[0].mlp, cfg):
+        outs = sum_ff(outs)
+    return _residual(xs, outs)
+
+
+def _rwkv_tp(ps, xs, cfg: ModelConfig):
+    """An ``rwkv`` block over the model axis: the time mix's partials of
+    ``w_out_t`` summed (``sum_tmix``), then the channel mix's of ``wv_c``
+    (``sum_cmix``); a sublayer the axis does not split runs whole on
+    every shard, unsummed."""
+    if rwkv.tmix_split(ps[0], cfg):
+        hs = [apply_norm(p.ln1, x, cfg) for p, x in zip(ps, xs)]
+        outs = sum_tmix(rwkv.time_mix_tp(ps, hs, cfg,
+                                         remat=lambda fn: _remat(fn, cfg)))
+    else:
+        outs = _each(_tmix_whole, ps, xs, cfg)
+    xs = _residual(xs, outs)
+    outs = _each(_cmix_part, ps, xs, cfg)
+    if rwkv.cmix_split(ps[0], cfg):
+        outs = sum_cmix(outs)
+    return _residual(xs, outs)
+
+
+def _rec_tp(ps, xs, cfg: ModelConfig):
+    """A ``rec`` block over the model axis: the RG-LRU's partials of
+    ``w_out_rec`` summed (``sum_rec``; whole on every shard, unsummed,
+    where the axis does not split W), then the MLP."""
+    if rglru.rec_split(ps[0].rec, cfg):
+        hs = [apply_norm(p.ln1, x, cfg) for p, x in zip(ps, xs)]
+        outs = sum_rec(rglru.apply_rglru_tp(
+            [p.rec for p in ps], hs, cfg, remat=lambda fn: _remat(fn, cfg)))
+    else:
+        outs = _each(_rec_whole, ps, xs, cfg)
+    return _mlp_tp(ps, _residual(xs, outs), cfg)
+
+
+def apply_block_tp(ps, xs, cfg: ModelConfig, kind: str, enc_outs=None):
+    """One block over the model axis: ``ps`` holds each shard's layer
+    params, ``xs`` its replica of the residual stream (on its device),
+    ``enc_outs`` (a ``dec`` block's) its replica of the encoder's output;
+    returns the new replicas. Each shard's sublayer (a ``moe`` FFN's
+    dispatch, experts and combine apart; an ``rwkv`` time mix or an
+    RG-LRU whose gather splits it in two, each part) is recomputed in
     backward as ``cfg.remat`` says, apart from the other shards' (a
     recompute stays on one device: the autograd engine runs each
-    device's backward on its own thread), and the sums and exchanges
-    over the model axis sit between them. A parallel block's attention
-    and MLP both read the block's input: where both are split, each
-    shard adds its two partials and one sum (``sum_heads``) takes
+    device's backward on its own thread), and the sums, gathers and
+    exchanges over the model axis sit between them. A parallel block's
+    attention and MLP both read the block's input: where both are split,
+    each shard adds its two partials and one sum (``sum_heads``) takes
     both."""
-    if kind not in ("attn", "moe"):
-        raise NotImplementedError(f"block kind {kind!r}: {_NO_TP}")
-    attn, mlp = _remat(_attn_part, cfg), _remat(_mlp_part, cfg)
+    _check_kind(kind)
+    if kind == "rwkv":
+        return _rwkv_tp(ps, xs, cfg)
+    if kind == "rec":
+        return _rec_tp(ps, xs, cfg)
+    attn = _remat(_attn_part, cfg)
     outs = [attn(p, x, cfg, kind, j)
             for j, (p, x) in enumerate(zip(ps, xs))]
     heads = layers.heads_split(ps[0].attn, cfg)
-    if cfg.parallel_block:
-        ffs = [mlp(p, x, cfg) for p, x in zip(ps, xs)]
+    if cfg.parallel_block and kind != "dec":
+        ffs = _each(_mlp_part, ps, xs, cfg)
         split = layers.mlp_split(ps[0].mlp, cfg)
         if heads and split:
             outs = sum_heads([a + f for a, f in zip(outs, ffs)])
@@ -330,19 +414,23 @@ def apply_block_tp(ps, xs, cfg: ModelConfig, kind: str):
             outs = sum_heads(outs) if heads else outs
             ffs = sum_ff(ffs) if split else ffs
             outs = [a + f for a, f in zip(outs, ffs)]
-        return [x + o for x, o in zip(xs, outs)]
+        return _residual(xs, outs)
     if heads:
         outs = sum_heads(outs)
-    xs = [x + o for x, o in zip(xs, outs)]
+    xs = _residual(xs, outs)
+    if kind == "dec":
+        xattn = _remat(_xattn_part, cfg)
+        outs = [xattn(p, x, e, cfg, j)
+                for j, (p, x, e) in enumerate(zip(ps, xs, enc_outs))]
+        if layers.heads_split(ps[0].xattn, cfg):
+            outs = sum_xattn(outs)
+        xs = _residual(xs, outs)
     if kind == "moe":
         hs = [apply_norm(p.ln2, x, cfg) for p, x in zip(ps, xs)]
         outs = moe.apply_moe_tp([p.moe for p in ps], hs, cfg,
                                 remat=lambda fn: _remat(fn, cfg))
-        return [x + o for x, o in zip(xs, outs)]
-    outs = [mlp(p, x, cfg) for p, x in zip(ps, xs)]
-    if layers.mlp_split(ps[0].mlp, cfg):
-        outs = sum_ff(outs)
-    return [x + o for x, o in zip(xs, outs)]
+        return _residual(xs, outs)
+    return _mlp_tp(ps, xs, cfg)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
@@ -522,12 +610,18 @@ def _embed_inputs(x, cfg: ModelConfig, embeds):
     return x
 
 
+def _enc_inputs(enc_embeds, cfg: ModelConfig):
+    """The encoder's input: the frame embeddings in the compute dtype
+    with sinusoidal positions added."""
+    x = enc_embeds.to(cfg.cdtype)
+    return x + sinusoidal_pos(x.shape[1], cfg.d_model,
+                              device=x.device).to(cfg.cdtype)
+
+
 def encode(params, enc_embeds, cfg: ModelConfig):
     """The encoder over (stub) frame embeddings (B, S_enc, D): sinusoidal
     positions, the ``enc`` layers, ``enc_ln_f``."""
-    x = enc_embeds.to(cfg.cdtype)
-    x = x + sinusoidal_pos(x.shape[1], cfg.d_model,
-                           device=x.device).to(cfg.cdtype)
+    x = _enc_inputs(enc_embeds, cfg)
     run = _remat(_cycle, cfg)
     for layer in params.enc:
         x = run(x, cfg, ("enc",), None, layer)
@@ -560,26 +654,40 @@ def forward(params, cfg: ModelConfig, tokens, embeds=None, enc_embeds=None,
     return _logits(params, x, cfg)
 
 
+def encode_tp(ps, enc_embeds, cfg: ModelConfig) -> list:
+    """:func:`encode` over the model axis: ``enc_embeds`` one tensor a
+    shard; the ``enc`` layers through :func:`apply_block_tp`
+    (bidirectional attention), then ``enc_ln_f`` on each replica."""
+    xs = [_enc_inputs(e, cfg) for e in enc_embeds]
+    for i in range(cfg.n_enc_layers):
+        xs = apply_block_tp([p.enc[i] for p in ps], xs, cfg, "enc")
+    return [apply_norm(p.enc_ln_f, x, cfg) for p, x in zip(ps, xs)]
+
+
 def forward_tp(ps, cfg: ModelConfig, tokens, embeds=None, enc_embeds=None):
     """:func:`forward` with ``return_hidden`` over the model axis: ``ps``
     one params view a shard (``unstack_layers`` of its working copies),
     ``tokens`` (and a ``vlm``'s ``embeds``, an encoder-decoder's
     ``enc_embeds``) one tensor a shard; returns each shard's replica of
     the final normed hidden state (the loss owns the head). One shard is
-    :func:`forward` itself."""
+    :func:`forward` itself. Lengths are checked as :func:`forward`
+    checks them, before any work."""
+    def first(t):
+        return None if t is None else t[0]
+
     if len(ps) == 1:
-        return [forward(ps[0], cfg, tokens[0],
-                        embeds=None if embeds is None else embeds[0],
-                        enc_embeds=None if enc_embeds is None
-                        else enc_embeds[0], return_hidden=True)]
+        return [forward(ps[0], cfg, tokens[0], embeds=first(embeds),
+                        enc_embeds=first(enc_embeds), return_hidden=True)]
     check_tp(cfg, len(ps))
-    _check_lengths(cfg, tokens[0], None if embeds is None else embeds[0],
-                   None)
+    _check_lengths(cfg, tokens[0], first(embeds), first(enc_embeds))
     xs = embed_lookup_tp(ps, tokens, cfg)
     xs = [_embed_inputs(x, cfg, None if embeds is None else embeds[j])
           for j, x in enumerate(xs)]
+    enc_outs = (encode_tp(ps, enc_embeds, cfg) if cfg.n_enc_layers
+                else [None] * len(ps))
     for i, kind in enumerate(layer_kinds(cfg)):
-        xs = apply_block_tp([p.layers[i] for p in ps], xs, cfg, kind)
+        xs = apply_block_tp([p.layers[i] for p in ps], xs, cfg, kind,
+                            enc_outs)
     return [apply_norm(p.ln_f, x, cfg) for p, x in zip(ps, xs)]
 
 
@@ -690,7 +798,7 @@ def build_cross_caches(params, cfg: ModelConfig, enc_embeds, cache):
 
 __all__ = ["Model", "apply_block", "apply_block_decode", "apply_block_tp",
            "build_cross_caches", "check_tp", "decode_step", "embed_lookup",
-           "embed_lookup_tp", "encode", "forward", "forward_tp",
+           "embed_lookup_tp", "encode", "encode_tp", "forward", "forward_tp",
            "head_matrix", "init_block", "init_cache", "init_model",
            "layer_kinds", "sinusoidal_pos", "stack_layers",
            "unstack_layers", "vocab_split"]

@@ -508,7 +508,7 @@ def _sharded(tcfg, fresh, shape):
 
 
 SHARDED = [("command-r-plus-104b", (2, 2)), ("paligemma-3b", (2, 2)),
-           ("whisper-large-v3", (2, 1))]
+           ("whisper-large-v3", (2, 1)), ("whisper-large-v3", (2, 2))]
 
 
 @pytest.mark.parametrize("arch,shape", SHARDED)
@@ -516,8 +516,11 @@ def test_sharded_step_matches_single_device_and_reference(arch, shape):
     """One AdamW step over (data 2, model 2) for command-r (one sum of
     the parallel block's two partials a layer; 4 heads and 2 KV heads
     split over the model axis) and paligemma (its one KV head replicated,
-    the prefix mask on each model shard), over (data 2) for whisper
-    (dp + fsdp, its encoder's leaves stacked): every gathered leaf
+    the prefix mask on each model shard), for whisper over (data 2)
+    (dp + fsdp, its encoder's leaves stacked) and over (data 2, model 2)
+    (the encoder's bidirectional blocks over the axis, each shard's
+    cross-attention on its replica of the encoder's output with 2 of
+    the 4 heads, their partials of ``wo`` summed): every gathered leaf
     against the single-device step, the loss against the reference's."""
     jcfg, tcfg, jstate, fresh = _states(arch, "adamw")
     one, m1, two, m2 = _sharded(tcfg, fresh, shape)
@@ -538,11 +541,13 @@ def test_sharded_step_matches_single_device_and_reference(arch, shape):
 
 @pytest.mark.parametrize("arch,hook", [
     ("command-r-plus-104b", "sum_heads"),
-    ("paligemma-3b", "sum_heads"), ("paligemma-3b", "sum_ff")])
+    ("paligemma-3b", "sum_heads"), ("paligemma-3b", "sum_ff"),
+    ("whisper-large-v3", "sum_heads"), ("whisper-large-v3", "sum_xattn")])
 def test_dropping_a_model_axis_sum_fails(arch, hook, monkeypatch):
     """Without the sum over the model axis the (2, 2) step's loss misses
     the single-device loss: command-r's one sum takes both partials of
-    its parallel block."""
+    its parallel block; whisper's ``sum_heads`` serves its encoder's and
+    decoder's self-attention, ``sum_xattn`` its cross-attention."""
     _, tcfg, _, fresh = _states(arch, "adamw")
     batch = SyntheticLM(tcfg, 4, 32, seed=0, device="cpu").next()
     ocfg = OptimizerConfig(**OKW)
@@ -567,17 +572,47 @@ def test_sharded_paligemma_needs_the_prefix_mask(monkeypatch):
 
 
 def test_model_axis_refuses_the_encoder_decoder():
-    """whisper on a model axis of 2 is refused, naming ROADMAP item
-    12.3b; command-r and paligemma are not."""
-    ocfg = OptimizerConfig()
+    """A model axis refuses none of the three: whisper under (model 2)
+    alone places its state and steps as the single device does (its
+    encoder over the axis), and ``check_tp`` passes command-r and
+    paligemma."""
+    _, tcfg, _, fresh = _states("whisper-large-v3", "adamw")
+    ocfg = OptimizerConfig(**OKW)
     with sharding.use(_ctx((1, 2))):
-        cfg = configs.smoke("whisper-large-v3")
-        with pytest.raises(NotImplementedError, match="item 12.3b"):
-            make_train_step(cfg, ocfg)
-        with pytest.raises(NotImplementedError, match="item 12.3b"):
-            init_state(cfg, ocfg, device="cpu")
-        for arch in ("command-r-plus-104b", "paligemma-3b"):
-            transformer.check_tp(configs.smoke(arch), 2)
+        placed = init_state(tcfg, ocfg, device="cpu")
+    assert sharding.is_sharded(placed["params"])
+    one, m1, two, m2 = _sharded(tcfg, fresh, (1, 2))
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-5)
+    gm = leaves(one["opt"]["m"])
+    for a, b in zip(leaves(two["opt"]["m"]), gm):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-7)
+    _check_params(two["params"], one["params"], [m / 0.1 for m in gm])
+    for arch in ("command-r-plus-104b", "paligemma-3b"):
+        transformer.check_tp(configs.smoke(arch), 2)
+
+
+def test_sharded_step_refuses_an_encoder_length_first(monkeypatch):
+    """A sharded whisper step whose encoder input (600 frames: more than
+    one 512-query chunk and no multiple of it) the chunk loop cannot
+    take is refused before any block runs, as the single-device
+    ``forward`` refuses it."""
+    _, tcfg, _, fresh = _states("whisper-large-v3", "adamw")
+    batch = SyntheticLM(tcfg, 4, 32, seed=0, device="cpu").next()
+    batch["enc_embeds"] = torch.zeros((4, 600, tcfg.d_model))
+    ran = []
+    block = transformer.apply_block_tp
+    monkeypatch.setattr(transformer, "apply_block_tp",
+                        lambda *a, **k: ran.append(1) or block(*a, **k))
+    with pytest.raises(ValueError, match="query chunk"):
+        transformer.forward(transformer.unstack_layers(
+            tcfg, fresh()["params"]), tcfg, batch["tokens"],
+            enc_embeds=batch["enc_embeds"])
+    with sharding.use(_ctx((2, 2))):
+        step = make_train_step(tcfg, OptimizerConfig(**OKW))
+        with pytest.raises(ValueError, match="query chunk"):
+            step(fresh(), batch)
+    assert ran == []
 
 
 def _norm(spec) -> tuple:

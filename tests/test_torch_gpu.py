@@ -732,12 +732,15 @@ def _wkv_args(bh, t, k, v, seed, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,t,k,v", [
     (2, 16, 8, 8), (4, 32, 16, 32), (1, 64, 64, 64), (160, 256, 64, 64),
-    (3, 37, 32, 16), (1, 1, 64, 64), (161, 4097, 64, 64), (2, 40, 8, 64)])
+    (3, 37, 32, 16), (1, 1, 64, 64), (161, 4097, 64, 64), (2, 40, 8, 64),
+    (20, 4096, 64, 64)])
 def test_wkv6_kernel_matches_plain(cuda, bh, t, k, v):
     """The shapes of the reference kernel tests, the model's rows at
     T = 256, T that are no multiple of the kernel's 16-step chunk (37,
     one step, the prefill's 4096 + 1), BH = 1 and 161 (no multiple of the
-    132 SMs), and K = 8 (two K slices) with V = 64 (four tiles)."""
+    132 SMs), K = 8 (two K slices) with V = 64 (four tiles), and a
+    rwkv6-3b model shard's rows in a (data 2, model 2) training step (B
+    1 times 20 of the 40 heads, T 4096)."""
     args = _wkv_args(bh, t, k, v, bh + t, cuda)
     before = kw6.LAUNCHES["wkv6"]
     got = kw6.wkv6(*args)
@@ -773,7 +776,7 @@ def test_wkv6_refuses_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,t", [(2, 16), (3, 37), (1, 1), (40, 513),
                                   (161, 300), (2, 5), (3, 13), (2, 24),
-                                  (133, 40), (80, 4096)])
+                                  (133, 40), (80, 4096), (20, 4096)])
 def test_wkv6_backward_kernel_matches_plain(cuda, bh, t):
     """``wkv6`` where autograd records: ``WKV6Fn`` launches the forward
     and the backward kernel once each; dr, dk, dw, dv, du against
@@ -782,7 +785,7 @@ def test_wkv6_backward_kernel_matches_plain(cuda, bh, t):
     chunk and a half (24), no multiple of either (37, 300, 513); BH 1
     and 2 (one cluster of 4 CTAs a bh: no wave filled), 133 (532 CTAs,
     more than 4 a SM on 132 SMs) and 161; the training step's BH 80 at T
-    4096."""
+    4096, and a model shard's BH 20 of it on (data 2, model 2)."""
     args = _wkv_args(bh, t, 64, 64, bh + t, cuda)
     dy = torch.randn((bh, t, 64), generator=torch.Generator().manual_seed(
         t)).to(cuda)
@@ -902,12 +905,15 @@ def _lru_args(b, t, d, seed, device, dtype=torch.float32):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,d", [
-    (1, 32, 8), (2, 64, 128), (2, 33, 130), (3, 1000, 4100), (4, 256, 4096)])
+    (1, 32, 8), (2, 64, 128), (2, 33, 130), (3, 1000, 4100), (4, 256, 4096),
+    (1, 4096, 2048)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 def test_lru_scan_kernel_matches_plain(cuda, b, t, d, dtype):
     """The reference kernel tests' shapes, T and D that are no multiple of
-    the kernel's 32-step buffer or 128-channel CTA, and the model's rows
-    at T = 256; float16 inputs are cast to float32 first."""
+    the kernel's 32-step buffer or 128-channel CTA, the model's rows at
+    T = 256, and a recurrentgemma-9b model shard's in a (data 2, model
+    2) training step (B 1, T 4096, 2048 of the 4096 channels); float16
+    inputs are cast to float32 first."""
     args = _lru_args(b, t, d, b + t + d, cuda, dtype)
     before = klru.LAUNCHES["lru_scan"]
     got = klru.lru_scan(*args)
@@ -933,12 +939,15 @@ def test_lru_scan_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,d", [
-    (1, 32, 8), (2, 33, 130), (3, 1000, 4100), (4, 256, 4096)])
+    (1, 32, 8), (2, 33, 130), (3, 1000, 4100), (4, 256, 4096),
+    (1, 4096, 2048)])
 def test_lru_scan_backward_kernel_matches_plain(cuda, b, t, d):
     """``lru_scan`` where autograd records: ``LRUScanFn`` launches the
     forward and the reverse-scan kernel once each; da and dx against
     ``lru_scan_backward_plain`` in float64 on the card (T and D no
-    multiple of the 32-step buffer or the 128-channel CTA included)."""
+    multiple of the 32-step buffer or the 128-channel CTA included; a
+    recurrentgemma-9b model shard's (1, 4096, 2048) on (data 2, model
+    2))."""
     a, x = _lru_args(b, t, d, b + t + d, cuda)
     dh = torch.randn((b, t, d), generator=torch.Generator().manual_seed(
         t)).to(cuda)
@@ -1546,16 +1555,20 @@ def _card_ctx(shape):
 @pytest.mark.parametrize("arch,shape", [("tinyllama-1.1b", (2, 2)),
                                         ("qwen2.5-3b", (1, 4)),
                                         ("rwkv6-3b", (2, 1)),
-                                        ("recurrentgemma-9b", (2, 1))])
+                                        ("recurrentgemma-9b", (2, 1)),
+                                        ("rwkv6-3b", (2, 2)),
+                                        ("recurrentgemma-9b", (2, 2))])
 def test_sharded_train_step_on_the_card(cuda, arch, shape):
     """One float32 (TF32 off) sharded step of a smoke config over shards
     of ``cuda:0`` against the single-device step on the card from the
     same state: losses rtol 1e-5, every gradient (the first moment)
     rtol 1e-4 / atol 1e-7, parameters within 1e-6 wherever |g| >= 1e-6
     and within 2 lr elsewhere (the first Adam step is sign-like where g
-    is float32 noise); the recurrence kernels launch on each dp shard
-    (forward, recompute, backward)."""
+    is float32 noise); the recurrence kernels launch on each shard
+    (forward, recompute, backward): over (data 2, model 2) on a model
+    shard's heads or channels."""
     import dataclasses
+    import math
 
     from repro_torch import sharding
     from repro_torch.configs import smoke
@@ -1585,11 +1598,11 @@ def test_sharded_train_step_on_the_card(cuda, arch, shape):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     kinds = transformer.layer_kinds(cfg)
-    dp = shape[0]
-    assert kw6.LAUNCHES == {"wkv6": 2 * dp * kinds.count("rwkv"),
-                            "wkv6_bwd": dp * kinds.count("rwkv")}
-    assert klru.LAUNCHES == {"lru_scan": 2 * dp * kinds.count("rec"),
-                             "lru_scan_bwd": dp * kinds.count("rec")}
+    n = math.prod(shape)
+    assert kw6.LAUNCHES == {"wkv6": 2 * n * kinds.count("rwkv"),
+                            "wkv6_bwd": n * kinds.count("rwkv")}
+    assert klru.LAUNCHES == {"lru_scan": 2 * n * kinds.count("rec"),
+                             "lru_scan_bwd": n * kinds.count("rec")}
     assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-5)
     got = sharding.gather(two)
     for a, b in zip(leaves(got["opt"]["m"]), leaves(one["opt"]["m"])):
@@ -1975,11 +1988,13 @@ def test_kv_quant_decode_on_the_card(cuda, arch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,shape", [("command-r-plus-104b", (2, 2)),
                                         ("paligemma-3b", (2, 2)),
-                                        ("whisper-large-v3", (2, 1))])
+                                        ("whisper-large-v3", (2, 1)),
+                                        ("whisper-large-v3", (2, 2))])
 def test_family_sharded_step_on_the_card(cuda, arch, shape):
     """One float32 (TF32 off) sharded step of a smoke config over shards
     of ``cuda:0`` (command-r's parallel block and paligemma's prefix
-    mask over the model axis; whisper over 2 data shards) against the
+    mask over the model axis; whisper over 2 data shards, and its
+    encoder and cross-attention over (data 2, model 2)) against the
     single-device step on the card from the same state: as
     ``test_sharded_train_step_on_the_card``."""
     import dataclasses

@@ -1,9 +1,9 @@
 """The port's sharded train step (``make_train_step`` under
 ``sharding.use(ctx)``: dp + fsdp over the data axes, tensor parallelism
-of the dense family and expert parallelism of the MoE family over the
-model axis) against the port's single-device step and the JAX
-reference's, on the CPU, on in-process meshes of CPU devices
-(``devices=["cpu"] * n``).
+of the dense family, RWKV-6 and RecurrentGemma and expert parallelism of
+the MoE family over the model axis) against the port's single-device
+step and the JAX reference's, on the CPU, on in-process meshes of CPU
+devices (``devices=["cpu"] * n``).
 
 Under a mesh each model shard routes its own slice of the tokens with
 the capacity of that slice (the reference's drop semantics), so a MoE
@@ -196,8 +196,9 @@ def test_sharded_step_matches_single_device_and_reference(arch, cpd, shape,
     tinyllama's one KV head and qwen2.5's do not divide the model axis
     (``wk`` / ``wv`` replicated, each shard slicing the head its queries
     read), olmo's four do; the CPD factors are replicated; rwkv6 and
-    recurrentgemma run dp + fsdp; olmoe's 8 experts go 4 or 2 a model
-    shard, at ``NO_DROPS``."""
+    recurrentgemma run dp + fsdp (over a model axis:
+    ``tests/test_torch_sharded_recurrent.py``); olmoe's 8 experts go 4
+    or 2 a model shard, at ``NO_DROPS``."""
     jcfg, tcfg, jstate, fresh = _states(
         arch, cpd, name, NO_DROPS if arch == "olmoe-1b-7b" else None)
     ocfg = OptimizerConfig(name=name, **OKW)
@@ -312,16 +313,25 @@ def test_sharded_grad_accum_matches_single_device():
     _check(one, m1, two, m2)
 
 
+_HOOK_ARCH = {"to_experts": "olmoe-1b-7b", "from_experts": "olmoe-1b-7b",
+              "sum_tmix": "rwkv6-3b", "sum_cmix": "rwkv6-3b",
+              "sum_rec": "recurrentgemma-9b",
+              "sum_xattn": "whisper-large-v3"}
+
+
 @pytest.mark.parametrize("hook", ["sum_heads", "sum_ff", "sum_vocab",
-                                  "to_experts", "from_experts"])
+                                  "to_experts", "from_experts", "sum_tmix",
+                                  "sum_cmix", "sum_rec", "sum_xattn"])
 def test_dropping_a_model_axis_sum_fails(hook, monkeypatch):
     """Each sum and each exchange over the model axis matters: without
     it the loss misses the single-device loss by far more than the bound
     (the exchanges: olmoe at ``NO_DROPS``, each shard then keeping its
-    own buffer, or its own experts' outputs)."""
+    own buffer, or its own experts' outputs; the sums after an rwkv
+    block's ``w_out_t`` and ``wv_c``, a rec block's ``w_out_rec`` and a
+    dec block's cross-attention ``wo``)."""
     exchange = hook in ("to_experts", "from_experts")
     _, tcfg, _, fresh = _states(
-        "olmoe-1b-7b" if exchange else "tinyllama-1.1b", False, "adamw",
+        _HOOK_ARCH.get(hook, "tinyllama-1.1b"), False, "adamw",
         NO_DROPS if exchange else None)
     ocfg = OptimizerConfig(**OKW)
     batch = SyntheticLM(tcfg, 4, 32, seed=0, device="cpu").next()
@@ -356,15 +366,24 @@ def test_sharded_step_has_no_host_sync(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
 def test_model_axis_refused_for_rwkv_and_rec(arch):
-    """A model axis above 1 raises for the kinds without a tensor
-    parallel path, naming their ROADMAP item; no silent replication."""
-    cfg = configs.smoke(arch)
-    ocfg = OptimizerConfig()
+    """A model axis above 1 is refused for no block kind: under (model 2)
+    alone ``init_state`` places the state and the step builds and equals
+    the single-device step (the model axis splits every rwkv and rec
+    leaf the reference splits; no dp shard)."""
+    _, tcfg, _, fresh = _states(arch, False, "adamw")
+    ocfg = OptimizerConfig(**OKW)
     with sharding.use(_ctx((1, 2))):
-        with pytest.raises(NotImplementedError, match="item 12.3b"):
-            make_train_step(cfg, ocfg)
-        with pytest.raises(NotImplementedError, match="item 12.3b"):
-            init_state(cfg, ocfg, device="cpu")
+        placed = init_state(tcfg, ocfg, device="cpu")
+    assert sharding.is_sharded(placed["params"])
+    _check(*_run_pair(tcfg, ocfg, fresh, (1, 2)))
+
+
+def test_no_port_file_names_item_12_3b():
+    """Item 12.3b (tensor parallelism of the rwkv, rec, local, enc and
+    dec blocks) is ported: no file of the port names it."""
+    hits = [str(p) for p in (REPO / "src" / "repro_torch").rglob("*.py")
+            if "12.3b" in p.read_text() or "_NO_TP" in p.read_text()]
+    assert hits == []
 
 
 _MOE_REFERENCE = r"""
