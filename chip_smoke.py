@@ -201,6 +201,15 @@ times the kernels at each path's shapes.
        model 2) with the copy that drops the sum after ``wo`` failing,
        whisper (2 + 2 layers) over (data 2, model 2) with the copy that
        drops the sum after the cross-attention's ``wo`` failing
+  [20] the dry-run's counts against the card (``analysis.cost``,
+       ``analysis.roofline``; ``launch.dryrun`` traces every cell of the
+       production mesh this way on the host): three calls the script
+       runs, [10]'s rwkv6-3b prefill (B 4, S 4096, 32 ``wkv6`` launches),
+       [15a]'s tinyllama-1.1b prefill and one [16a] tinyllama-1.1b AdamW
+       step, each traced on ``meta`` as a one-position cell and run on the
+       card: FLOPs, temporaries and the roofline bound against the
+       card's ``FlopCounterMode`` count, ``max_memory_allocated`` and
+       CUDA-event time
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -407,6 +416,22 @@ function on absolute inputs) and ``u = 2**-24``:
     and in largest |difference|; the same function of 4 draws is
     stable to a few percent at V 256,000. Rows read back without their
     scales (each element 1 / s times too large) must miss it.
+  * [20] each call's matmul FLOPs traced on ``meta`` equal
+    ``FlopCounterMode``'s count of the call on the card exactly: the
+    trace runs the same Python code, so the same aten ops on the same
+    shapes. The predicted temporaries (the trace's peak less its
+    arguments, with the CUDA kernels' own scratch of
+    ``analysis.cost._SCRATCH``) are within ``DRY_PEAK_RTOL`` = 2% of the
+    bytes the call allocates above what was allocated before it: the
+    two prefills matched to the byte and the step within 0.01% of its
+    9.37 GB on an H100; what is left is the allocator's 512-byte blocks and
+    any kernel scratch the table does not know, and 2% is 187 MB at the
+    step's 9.37 GB. A tracker that never frees (every storage the call makes)
+    is 100 times or more off and must miss it. The roofline's largest
+    term, the FLOPs (formulas and the kernels' charges) over 989 TFLOP/s
+    or the bytes (each op's inputs read once and outputs written once)
+    over 3.35 TB/s, must not exceed the call's CUDA-event time: a bound
+    above the measured time means a count is wrong.
 """
 from __future__ import annotations
 
@@ -1721,13 +1746,12 @@ def phase_wkv6(kw6):
 
 
 def wkv_bound(args):
-    """``(bytes, flops)`` the WKV function must move and do: r, k, w, v,
-    u read once, y written once; 5 K V flops a step (readout 2, decay 1,
-    outer product 1, update 1)."""
+    """``(bytes, flops)`` the WKV function must move and do
+    (``kernels.wkv6.wkv6_cost``, which the dry-run charges too)."""
+    from repro_torch.kernels import wkv6 as kw6
+
     r, _, _, v, _ = args
-    bh, t, k = r.shape
-    vd = v.shape[-1]
-    return 4 * (bh * t * (3 * k + 2 * vd) + bh * k), 5 * k * vd * t * bh
+    return kw6.wkv6_cost(*r.shape, v.shape[-1])
 
 
 def device_breakdown(fn, kernel="wkv6"):
@@ -2162,7 +2186,7 @@ def phase_rg(klru, report, reps):
         a, b, _ = rglru.scan_inputs(layer0.rec, x0, cfg)
         del x0
         err, share = lru_check(klru, a, b, "[11] layer 0")
-        nbytes, flops = 12 * a.numel(), 2 * a.numel()
+        nbytes, flops = klru.lru_scan_cost(*a.shape)
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, \
             1e3 * flops / F32_FLOP_PER_S
         lru = {"ms": cuda_ms(lambda: klru.lru_scan(a, b), reps),
@@ -4366,14 +4390,11 @@ def wkv_bwd_check(kw6, args, dy, tag):
 
 
 def wkv_bwd_bound(args):
-    """``(bytes, flops)`` the WKV backward must move and do: r, k, w, v, u
-    and dy read once, dr, dk, dw, dv and du written once; 14 flops an
-    element of S a step (the state recomputed 3, its gradient updated 3,
-    four products summed 8)."""
-    bh, t, kd = args[0].shape
-    vd = args[3].shape[-1]
-    return 4 * (bh * t * (4 * kd + 5 * vd) + 2 * bh * kd), \
-        14 * kd * vd * t * bh
+    """``(bytes, flops)`` the WKV backward must move and do
+    (``kernels.wkv6.wkv6_bwd_cost``, which the dry-run charges too)."""
+    from repro_torch.kernels import wkv6 as kw6
+
+    return kw6.wkv6_bwd_cost(*args[0].shape, args[3].shape[-1])
 
 
 def bwd_record(name, rec, per):
@@ -4535,10 +4556,9 @@ def train_rg(tag, klru, reps):
     dh = torch.randn(a.shape, device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(4))
     err, share = lru_bwd_check(klru, a, h, dh, tag)
-    n = a.numel()
     rec = kernel_timing(lambda: klru.lru_scan_backward(a, h, dh),
                         lambda: klru.lru_scan_backward_plain(a, h, dh),
-                        20 * n, 3 * n, reps)
+                        *klru.lru_scan_bwd_cost(*a.shape), reps)
     rec.update(max_abs_err=err, launches=got["lru_scan_bwd"])
     log(f"{tag} lru_scan_bwd at layer 0 {tuple(a.shape)} == float64 plain "
         f"(max err {err:.3e}, {share:.3f} of the limit); a dropped carry "
@@ -5064,17 +5084,16 @@ def shard_kernels(tag, cfg, kernel, reps):
         shape = (b, TRAIN_SEQ, (cfg.lru_width or cfg.d_model) // tp)
         a, x = lru_case(*shape, seed=173, dtype=torch.float32)
         fwd_err = lru_check(klru, a, x, tag)
-        n = a.numel()
         fwd = kernel_timing(lambda: klru.lru_scan(a, x),
                             lambda: klru.lru_scan_plain(a, x),
-                            12 * n, 2 * n, reps)
+                            *klru.lru_scan_cost(*a.shape), reps)
         with torch.no_grad():
             h = klru.lru_scan(a, x)
         dh = torch.randn(a.shape, device="cuda", generator=gen)
         bwd_err = lru_bwd_check(klru, a, h, dh, tag)
         bwd = kernel_timing(lambda: klru.lru_scan_backward(a, h, dh),
                             lambda: klru.lru_scan_backward_plain(a, h, dh),
-                            20 * n, 3 * n, reps)
+                            *klru.lru_scan_bwd_cost(*a.shape), reps)
         del a, x, h, dh
     out = {}
     for name, rec, (err, share) in ((kernel, fwd, fwd_err),
@@ -5943,6 +5962,174 @@ def dist_record(kernels, times, launches, err):
                      "own work table, summed")
 
 
+# --------------------------------------------------------------------------
+# [20] The dry-run's counts against the card.
+# --------------------------------------------------------------------------
+#: [20]'s calls: (tag of the phase that runs the call, arch, kind, B, S).
+DRY_CALLS = (("[10]", RWKV_ARCH, "prefill", RWKV_BATCH, RWKV_SEQ),
+             ("[15a]", "tinyllama-1.1b", "prefill", DENSE_BATCH, DENSE_SEQ),
+             ("[16a]", TRAIN_ARCH, "train", TRAIN_BATCH, TRAIN_SEQ))
+#: [20]'s limit on the predicted temporaries (peak less arguments) over
+#: the bytes the call allocates on the card above what was allocated
+#: before it: |ratio - 1| at most this (see the module docstring).
+DRY_PEAK_RTOL = 0.02
+
+
+def card_call(fn):
+    """One real call of ``fn`` on the card: its CUDA-event ms, the bytes it
+    allocates above what was allocated before it
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``, its
+    result held until the peak is read), and, in a second call, the
+    matmul FLOPs ``FlopCounterMode`` counts."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    rec = {"ms": start.elapsed_time(end), "base_bytes": base,
+           "temp_bytes": torch.cuda.max_memory_allocated() - base}
+    del out
+    with FlopCounterMode(display=False) as fc:
+        out = fn()
+        torch.cuda.synchronize()
+    del out
+    rec["matmul_flops"] = fc.get_total_flops()
+    return rec
+
+
+def dry_call(arch, kind, batch, seq, device):
+    """``(fn, argument bytes)`` of one of [20]'s calls on ``device``: a
+    bf16 prefill ``forward`` of the arch's model (``rwkv_model``'s
+    ``wb_lora`` draw on the card), or one ``make_train_step`` step of
+    [16a]'s AdamW on ``init_state``, with [16a]'s batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.training import SyntheticLM, init_state, make_train_step
+    from repro_torch.training.tree import leaves
+
+    cfg = get_config(arch)
+    if kind == "prefill":
+        model = (rwkv_model(cfg, 0) if arch == RWKV_ARCH and device == "cuda"
+                 else transformer.init_model(cfg, 0, device=device))
+        tokens = torch.empty((batch, seq), dtype=torch.int64, device=device)
+        if device != "meta":
+            tokens.random_(0, cfg.vocab)
+        args = list(model.parameters()) + [tokens]
+
+        def fn():
+            with torch.no_grad():
+                return transformer.forward(model, cfg, tokens)
+    else:
+        ocfg = train_ocfg(TRAIN_STEPS)
+        state = init_state(cfg, ocfg, 0, device=device)
+        if device != "meta":
+            b = SyntheticLM(cfg, batch, seq, seed=0, device=device).next()
+        else:
+            b = {k: torch.empty((batch, seq), dtype=torch.int32,
+                                device=device)
+                 for k in ("tokens", "targets")}
+        step = make_train_step(cfg, ocfg)
+        args = leaves(state["params"]) + leaves(state["opt"]["m"]) \
+            + leaves(state["opt"]["v"]) + list(b.values())
+
+        def fn():
+            return step(state, b)
+    return fn, sum(a.numel() * a.element_size() for a in args)
+
+
+def meta_trace(arch, kind, batch, seq):
+    """The same call traced on the ``meta`` device under
+    ``analysis.cost.CostMode`` (one position): its counts and memory
+    record."""
+    from repro_torch.analysis.cost import CostMode
+
+    with CostMode() as m:
+        fn, _ = dry_call(arch, kind, batch, seq, "meta")
+        m.mark_arguments()
+        out = fn()
+        mem = m.memory(out)
+        del out
+    return {"matmul_flops": m.matmul_flops, "flops": m.flops,
+            "bytes": m.bytes, "kernels": m.kernels, "ops": m.ops,
+            "allocated": m.allocated, **mem}
+
+
+def phase_dryrun(report):
+    """[20] The dry-run's counts (``analysis.cost``, the roofline of
+    ``analysis.roofline``) against the card, on three calls the script
+    runs: each traced on ``meta`` as a one-position cell and run on the
+    card (:func:`card_call`). The matmul FLOPs must equal the card's
+    ``FlopCounterMode`` count exactly; the predicted temporaries must be
+    within ``DRY_PEAK_RTOL`` of what the call allocates, and a tracker
+    that never frees must miss that; the roofline's largest term must not
+    exceed the call's CUDA-event time."""
+    import gc
+
+    import torch
+    from repro_torch.analysis.roofline import HW
+
+    t0 = time.perf_counter()
+    out = {}
+    for tag, arch, kind, batch, seq in DRY_CALLS:
+        free_device_memory()
+        meta = meta_trace(arch, kind, batch, seq)
+        fn, arg_bytes = dry_call(arch, kind, batch, seq, "cuda")
+        fn()                                  # warm: workspaces, kernels
+        card = card_call(fn)
+        del fn
+        gc.collect()
+        name = f"{tag} {arch} {kind} (B {batch}, S {seq})"
+        if meta["matmul_flops"] != card["matmul_flops"]:
+            raise AssertionError(f"[20] {name}: meta matmul FLOPs "
+                                 f"{meta['matmul_flops']:,} != the card's "
+                                 f"{card['matmul_flops']:,}")
+        pred = meta["peak"] - meta["argument"]
+        ratio = pred / card["temp_bytes"]
+        never = meta["allocated"] / card["temp_bytes"]
+        if abs(ratio - 1) > DRY_PEAK_RTOL:
+            raise AssertionError(f"[20] {name}: predicted temporaries "
+                                 f"{pred / 2**30:.3f} GiB against "
+                                 f"{card['temp_bytes'] / 2**30:.3f} GiB "
+                                 f"allocated: ratio {ratio:.4f}")
+        if abs(never - 1) <= DRY_PEAK_RTOL:
+            raise AssertionError(f"[20] {name}: a tracker that never frees "
+                                 f"({never:.4f}) passes the peak limit")
+        terms = {"compute": meta["flops"] / HW["peak_flops"],
+                 "memory": meta["bytes"] / HW["hbm_bw"]}
+        by = max(terms, key=terms.get)
+        bound_ms = 1e3 * terms[by]
+        if bound_ms > card["ms"]:
+            raise AssertionError(f"[20] {name}: roofline bound "
+                                 f"{bound_ms:.2f} ms ({by}) above the "
+                                 f"measured {card['ms']:.2f} ms")
+        full = meta["peak"] / (arg_bytes + card["temp_bytes"])
+        rec = {"meta": meta, "card": card, "argument_bytes_card": arg_bytes,
+               "temp_ratio": ratio, "never_free_ratio": never,
+               "peak_ratio": full, "bound_ms": bound_ms, "bound_by": by,
+               "terms_ms": {k: 1e3 * v for k, v in terms.items()},
+               "share": bound_ms / card["ms"]}
+        out[f"{tag} {arch} {kind}"] = rec
+        log(f"[20] {name}: matmul FLOPs {meta['matmul_flops']:,} == card; "
+            f"temporaries {pred / 2**30:.3f} GiB predicted / "
+            f"{card['temp_bytes'] / 2**30:.3f} GiB allocated = {ratio:.4f} "
+            f"(never-free {never:.2f}), peak with arguments {full:.4f}; "
+            f"bound {bound_ms:.2f} ms by {by} (compute "
+            f"{rec['terms_ms']['compute']:.2f}, memory "
+            f"{rec['terms_ms']['memory']:.2f}) <= {card['ms']:.2f} ms "
+            f"measured: share {rec['share']:.3f}")
+    report["dryrun"] = out
+    free_device_memory()
+    log(f"[20] passed in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6033,6 +6220,7 @@ def main(argv=None) -> int:
     launches17, kernels17 = phase_shard(report, args.reps)
     phase_moe(report, lm_reps)
     phase_families(report, lm_reps)
+    phase_dryrun(report)
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [

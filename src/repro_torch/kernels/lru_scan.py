@@ -10,8 +10,10 @@ contract of the reference's Pallas ``lru_scan``
 (``repro.kernels.ops.lru_scan``), without its ``chunk`` argument (the CUDA
 kernel reads its own chunks of steps and takes any T and D).
 
-On a CUDA tensor :func:`lru_scan` launches the kernel or raises; the plain
-version serves CPU tensors only, and is what ``chip_smoke.py`` holds the
+On a CUDA tensor :func:`lru_scan` launches the kernel or raises; on a
+``meta`` tensor it launches nothing and charges the kernel's work
+(:func:`lru_scan_cost`, ``kernels.charge``); the plain version serves
+CPU tensors only, and is what ``chip_smoke.py`` holds the
 kernel against on the card. ``LAUNCHES["lru_scan"]`` counts kernel
 launches; the wrapper adds one where it launches the kernel and nowhere
 else.
@@ -42,6 +44,41 @@ _MAX_ROWS = 65535   # grid.y limit: one row of CTAs per b
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def lru_scan_cost(b: int, t: int, d: int) -> tuple[int, int]:
+    """``(bytes, flops)`` of the scan: a and x read, h written (f32), a
+    multiply and an add an element."""
+    n = b * t * d
+    return 12 * n, 2 * n
+
+
+def lru_scan_bwd_cost(b: int, t: int, d: int) -> tuple[int, int]:
+    """``(bytes, flops)`` of the reverse scan: a, h and dh read, da and dx
+    written (f32), three flops an element."""
+    n = b * t * d
+    return 20 * n, 3 * n
+
+
+def _meta(a, x):
+    """The kernel's output on the ``meta`` device, its work charged."""
+    from repro_torch import kernels
+
+    h = torch.empty_like(a)
+    kernels.charge("lru_scan", *lru_scan_cost(*_shapes(a, x)))
+    return h
+
+
+def _meta_bwd(a, h, dh):
+    """The backward kernel's outputs on the ``meta`` device, its work
+    charged."""
+    from repro_torch import kernels
+
+    shape = _shapes(a, h)
+    _shapes(a, dh)
+    da, dx = torch.empty_like(a), torch.empty_like(a)
+    kernels.charge("lru_scan_bwd", *lru_scan_bwd_cost(*shape))
+    return da, dx
 
 
 def _shapes(a, x):
@@ -152,6 +189,8 @@ def lru_scan_backward(a, h, dh):
     to f32 and made contiguous first), the plain version on the CPU."""
     if a.device.type == "cpu":
         return lru_scan_backward_plain(a, h, dh.to(a.dtype))
+    if a.device.type == "meta":
+        return _meta_bwd(a, h, dh.to(torch.float32).contiguous())
     return _launch_bwd(a, h, dh.to(torch.float32).contiguous())
 
 
@@ -162,7 +201,7 @@ class LRUScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, x):
         h = (lru_scan_plain(a, x) if a.device.type == "cpu"
-             else _launch(a, x))
+             else _meta(a, x) if a.device.type == "meta" else _launch(a, x))
         ctx.save_for_backward(a, h)
         return h
 
@@ -181,9 +220,12 @@ def lru_scan(a, x):
         return LRUScanFn.apply(a, x)
     if a.device.type == "cpu" and x.device.type == "cpu":
         return lru_scan_plain(a, x)
+    if a.device.type == "meta":
+        return _meta(a, x)
     return _launch(a, x)
 
 
 __all__ = ["lru_scan", "lru_scan_plain", "lru_scan_steps",
            "lru_scan_backward", "lru_scan_backward_plain", "LRUScanFn",
+           "lru_scan_cost", "lru_scan_bwd_cost",
            "LAUNCHES", "STEPS", "reset_launch_counts"]

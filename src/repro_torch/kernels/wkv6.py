@@ -21,8 +21,10 @@ computed once a step, so ``y_t = b_t v_t + r_t^T S_{t-1}``.
 :func:`wkv6_grouped` computes the recurrence in that order on any device;
 the tests hold it against the reference, and the kernel against it.
 
-On a CUDA tensor :func:`wkv6` launches the kernel or raises; the plain
-version serves CPU tensors only, and is what ``chip_smoke.py`` holds the
+On a CUDA tensor :func:`wkv6` launches the kernel or raises; on a
+``meta`` tensor it launches nothing and charges the kernel's work
+(:func:`wkv6_cost`, ``kernels.charge``); the plain version serves CPU
+tensors only, and is what ``chip_smoke.py`` holds the
 kernel against on the card. ``LAUNCHES["wkv6"]`` counts kernel launches;
 the wrapper adds one where it launches the kernel and nowhere else.
 
@@ -63,6 +65,49 @@ BWD_CHUNK = 16
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def wkv6_cost(bh: int, t: int, kd: int, vd: int) -> tuple[int, int]:
+    """``(bytes, flops)`` the WKV function must move and do: r, k, w, v,
+    u read once, y written once (f32); 5 K V flops a step (readout 2,
+    decay 1, outer product 1, update 1)."""
+    return 4 * (bh * t * (3 * kd + 2 * vd) + bh * kd), 5 * kd * vd * t * bh
+
+
+def wkv6_bwd_cost(bh: int, t: int, kd: int, vd: int) -> tuple[int, int]:
+    """``(bytes, flops)`` the WKV backward must move and do: r, k, w, v,
+    u and dy read once, dr, dk, dw, dv and du written once (f32); 14
+    flops an element of S a step (the state recomputed 3, its gradient
+    updated 3, four products summed 8)."""
+    return 4 * (bh * t * (4 * kd + 5 * vd) + 2 * bh * kd), \
+        14 * kd * vd * t * bh
+
+
+def _meta(r, k, w, v, u):
+    """The kernel's output on the ``meta`` device, its work charged."""
+    from repro_torch import kernels
+
+    shape = _shapes(r, k, w, v, u)
+    y = torch.empty_like(v, dtype=torch.float32)
+    kernels.charge("wkv6", *wkv6_cost(*shape))
+    return y
+
+
+def _meta_bwd(r, k, w, v, u, dy):
+    """The backward kernel's outputs (and its scratch of saved states,
+    as :func:`_launch_bwd` allocates it) on the ``meta`` device, its
+    work charged."""
+    from repro_torch import kernels
+
+    bh, t, kd, vd = _shapes(r, k, w, v, u)
+    _check_bwd_shape(kd, vd)
+    states = torch.empty((bh * -(-t // BWD_CHUNK) * BWD_DIM * BWD_DIM,),
+                         dtype=torch.float32, device=r.device)
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    dv, du = torch.empty_like(v), torch.empty_like(u)
+    del states
+    kernels.charge("wkv6_bwd", *wkv6_bwd_cost(bh, t, kd, vd))
+    return dr, dk, dw, dv, du
 
 
 def _shapes(r, k, w, v, u):
@@ -318,6 +363,8 @@ def wkv6_backward(r, k, w, v, u, dy):
     tensors on the CPU."""
     if r.device.type == "cpu":
         return wkv6_backward_plain(r, k, w, v, u, dy.to(r.dtype))
+    if r.device.type == "meta":
+        return _meta_bwd(r, k, w, v, u, dy.to(torch.float32).contiguous())
     return _launch_bwd(r, k, w, v, u, dy.to(torch.float32).contiguous())
 
 
@@ -330,6 +377,8 @@ class WKV6Fn(torch.autograd.Function):
         ctx.save_for_backward(r, k, w, v, u)
         if r.device.type == "cpu":
             return wkv6_plain(r, k, w, v, u)
+        if r.device.type == "meta":
+            return _meta(r, k, w, v, u)
         return _launch(r, k, w, v, u)
 
     @staticmethod
@@ -350,10 +399,13 @@ def wkv6(r, k, w, v, u):
         return WKV6Fn.apply(*args)
     if r.device.type == "cpu":
         return wkv6_plain(*args)
+    if r.device.type == "meta":
+        return _meta(*args)
     return _launch(*args)
 
 
 __all__ = ["wkv6", "wkv6_plain", "wkv6_scan", "wkv6_grouped",
            "wkv6_backward", "wkv6_backward_plain", "WKV6Fn",
-           "kernel_groups", "slices", "LAUNCHES", "KERNEL_DIMS", "GROUPS",
+           "kernel_groups", "slices", "wkv6_cost", "wkv6_bwd_cost",
+           "LAUNCHES", "KERNEL_DIMS", "GROUPS",
            "BWD_DIM", "reset_launch_counts"]

@@ -1,11 +1,13 @@
-"""Sharding specs for the train state and the batch (the port of
-``repro.launch.specs``'s ``state_shardings`` and ``batch_shardings``).
+"""Sharding specs for the train state, the batch and the decode cache
+(the port of ``repro.launch.specs``).
 
 A spec is a plain tuple, one entry a dimension (``repro_torch.sharding``);
 ``None`` in place of a spec leaves that leaf where it is (the host-side
 step counters).
 """
 from __future__ import annotations
+
+import torch
 
 from .. import sharding as shlib
 from ..models.common import ModelConfig
@@ -49,6 +51,35 @@ def batch_shardings(cfg: ModelConfig, batch, ctx: shlib.ShardingCtx) -> dict:
     return {k: rule(v) for k, v in batch.items()}
 
 
+def cache_shardings(cache, ctx: shlib.ShardingCtx):
+    """Specs of a decode cache (``transformer.init_cache``'s list of
+    per-layer dicts), by the reference's rule leaf by leaf on the port's
+    per-layer leaves: ``k`` / ``v`` (B, S, KV, hd) take the dp axes on the
+    batch and the model axis on the sequence (flash-decode style), each
+    only where its mesh extent divides that dimension; ``state``,
+    ``conv``, ``last``, ``last_c`` and ``h`` take the dp axes on the batch
+    where they divide it; every other leaf (``k_scale`` / ``v_scale`` of
+    the int8 cache) is replicated, and the position counters (``len``,
+    ``kv_len``: Python ints) get ``None``."""
+    def rule(name, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return None
+        tags = [None] * leaf.dim()
+        if name in ("k", "v") and leaf.dim() == 4:
+            tags[0], tags[1] = "dp", "tp"
+        elif name in ("state", "conv", "last", "last_c", "h"):
+            tags[0] = "dp"
+        return ctx.resolve(*shlib.fit_tags(leaf.shape, tags, ctx))
+
+    def visit(node):
+        if isinstance(node, list):
+            return [visit(x) for x in node]
+        return {k: visit(v) if isinstance(v, dict) else rule(k, v)
+                for k, v in node.items()}
+
+    return visit(cache)
+
+
 def place_state(state, ctx: shlib.ShardingCtx, specs=None) -> dict:
     """``state`` placed over ``ctx``'s mesh by ``specs`` (default
     :func:`state_shardings`), the step counters kept as they are."""
@@ -64,4 +95,5 @@ def place_state(state, ctx: shlib.ShardingCtx, specs=None) -> dict:
     return go(state, specs)
 
 
-__all__ = ["batch_shardings", "place_state", "state_shardings"]
+__all__ = ["batch_shardings", "cache_shardings", "place_state",
+           "state_shardings"]

@@ -206,8 +206,19 @@ def dense_init(shape, dtype, scale: Optional[float] = None, *,
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    if t.device.type != "meta":
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
     return (t * std).to(dtype)
+
+
+class ShapeOnly:
+    """The stand-in for a ``torch.Generator`` on the ``meta`` device,
+    which has none: the init functions place every leaf on its
+    ``device`` and draw no values (a shape-only init, as the reference's
+    ``jax.eval_shape`` of ``init_model``)."""
+
+    device = torch.device("meta")
 
 
 def init_norm(cfg: ModelConfig, device, with_bias: bool = False) -> dict:
@@ -239,5 +250,6 @@ def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
     return xf.to(x.dtype)
 
 
-__all__ = ["ModelConfig", "Node", "Params", "apply_norm", "as_node",
-           "dense_init", "device_of", "init_norm", "param", "tree_of"]
+__all__ = ["ModelConfig", "Node", "Params", "ShapeOnly", "apply_norm",
+           "as_node", "dense_init", "device_of", "init_norm", "param",
+           "tree_of"]

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding
 from .common import ModelConfig, Node, dense_init
 
 _NEG = -1e30
@@ -321,11 +322,165 @@ def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
     return o @ p.wo.to(dt).flatten(0, 1), new_cache
 
 
-def _write(buf, slot: int, row):
-    """A copy of ``buf`` (B, Smax, ...) with ``row`` (B, 1, ...) at
-    ``slot``."""
+def owns_slot(j: int, slot: int, s_loc: int) -> bool:
+    """Whether model shard ``j``'s slice of a sequence-split cache
+    (``s_loc`` positions from ``j * s_loc``) holds ``slot``."""
+    return slot // s_loc == j
+
+
+def merge_partials(ms, ls, os_):
+    """The log-sum-exp merge of each model shard's partial attention over
+    its slice of the keys: ``ms`` its row maxima, ``ls`` its sums of
+    exponentials and ``os_`` its exponential-weighted values (float32).
+    With M the maximum over the axis (an all-reduce), every shard gets
+    ``sum_j o_j e^(m_j - M) / sum_j l_j e^(m_j - M)`` (two all-reduces):
+    the softmax-weighted values over every key."""
+    big = sharding.pmax(ms)
+    scale = [torch.exp(m - b) for m, b in zip(ms, big)]
+    ls = sharding.psum([l * c for l, c in zip(ls, scale)])
+    os_ = sharding.psum([o * c for o, c in zip(os_, scale)])
+    return [o / l for o, l in zip(os_, ls)]
+
+
+def _decode_queries(p, x, cfg: ModelConfig, j: int, split: bool, posv,
+                    use_rope: bool):
+    """Shard ``j``'s query heads of one token (all of them where
+    ``split`` is false): its ``wq`` columns and slice of ``bq``."""
+    dt = cfg.cdtype
+    q = _proj(x, p.wq, dt)
+    if hasattr(p, "bq"):
+        n = p.wq.shape[1]
+        q = q + (p.bq[j * n:(j + 1) * n] if split else p.bq).to(dt)
+    if hasattr(p, "q_scale"):
+        q = rms_head_norm(q, p.q_scale)
+    if use_rope:
+        q = apply_rope(q, posv, cfg.rope_theta)
+    return q
+
+
+def _decode_keys(p, x, cfg: ModelConfig, j: int, split: bool, posv,
+                 use_rope: bool):
+    """Shard ``j``'s new key and value heads of one token (all of them
+    where ``split`` is false)."""
+    dt = cfg.cdtype
+    k, v = _proj(x, p.wk, dt), _proj(x, p.wv, dt)
+    if hasattr(p, "bk"):
+        n = p.wk.shape[1]
+        sl = slice(j * n, (j + 1) * n) if split else slice(None)
+        k, v = k + p.bk[sl].to(dt), v + p.bv[sl].to(dt)
+    if hasattr(p, "k_scale"):
+        k = rms_head_norm(k, p.k_scale)
+    if use_rope:
+        k = apply_rope(k, posv, cfg.rope_theta)
+    return k, v
+
+
+def attention_decode_tp(ps, xs, caches, cfg: ModelConfig, *,
+                        mask: str = "causal", use_rope: bool = True,
+                        cross: bool = False, seq_split: bool = False,
+                        scale_rows: slice = slice(None)):
+    """:func:`attention_decode` over the model axis: ``ps`` each shard's
+    attention params (``wq`` / ``wo`` its heads where the axis splits
+    them, ``wk`` / ``wv`` its KV heads where it splits those), ``xs`` its
+    replica of the normed token (B, 1, D), ``caches`` its piece of the
+    cache: with ``seq_split`` shard ``j`` holds positions ``j * s`` to
+    ``(j + 1) * s`` of every KV head, else all of them.
+
+    Each shard's query heads (and new key and value heads) are gathered
+    over the axis where it splits them; the new key and value are
+    written only into the shard that owns position ``len``
+    (:func:`owns_slot`; modulo the cache for a ``"window"`` ring), into
+    copies; each shard attends over its slice for every head and the
+    partials meet by :func:`merge_partials` (a shard holding the whole
+    sequence needs none). Each shard then takes its heads' columns of
+    ``wo``. The int8 cache's scales are whole on every shard (the rule
+    replicates them): each shard reads its batch rows ``scale_rows`` and
+    its slice of positions, and every shard writes its rows' new scales
+    (the caller merges the dp slices' rows). Returns (each shard's
+    partial output of ``wo`` where the axis splits the heads, for the
+    caller to sum, else the whole output; the new caches). A full causal cache raises as :func:`attention_decode`
+    does; a cross-attention cache is read, never written."""
+    m = len(ps)
+    b = xs[0].shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kvh
+    dt = cfg.cdtype
+    pos = caches[0]["len"]
+    s_loc = caches[0]["k"].shape[1]
+    smax = s_loc * m if seq_split else s_loc
+    if not cross and mask != "window" and pos >= smax:
+        raise ValueError(f"attention_decode: the causal KV cache holds "
+                         f"{smax} positions and is full (position {pos})")
+    posvs = [torch.full((b, 1), pos, device=x.device) for x in xs]
+    q_split = ps[0].wq.shape[1] < h
+    qs = [_decode_queries(p, x, cfg, j, q_split, posv, use_rope)
+          for j, (p, x, posv) in enumerate(zip(ps, xs, posvs))]
+    if q_split:
+        qs = sharding.all_gather(qs, 2)                    # (B, 1, H, hd)
+    if cross:
+        n_valid = caches[0].get("kv_len", smax)
+        new_caches = list(caches)
+    else:
+        kv_split = ps[0].wk.shape[1] < kvh
+        new = [_decode_keys(p, x, cfg, j, kv_split, posv, use_rope)
+               for j, (p, x, posv) in enumerate(zip(ps, xs, posvs))]
+        knew, vnew = [k for k, _ in new], [v for _, v in new]
+        if kv_split:
+            knew, vnew = (sharding.all_gather(knew, 2),
+                          sharding.all_gather(vnew, 2))
+        slot = pos % smax if mask == "window" else pos
+        new_caches = []
+        for j, c in enumerate(caches):
+            nc = {**c, "len": pos + 1}
+            mine = not seq_split or owns_slot(j, slot, s_loc)
+            for name, row in (("k", knew[j]), ("v", vnew[j])):
+                if "k_scale" in c:                      # int8 KV cache
+                    row, rs = _quantize_rows(row)
+                    nc[f"{name}_scale"] = _write(c[f"{name}_scale"], slot,
+                                                 rs, scale_rows)
+                if mine:
+                    nc[name] = _write(c[name], slot % s_loc, row.to(
+                        c[name].dtype))
+            new_caches.append(nc)
+        n_valid = min(pos + 1, smax) if mask == "window" else pos + 1
+    ms, ls, os_ = [], [], []
+    for j, (q, c) in enumerate(zip(qs, new_caches)):
+        lo = j * s_loc if seq_split else 0
+        if "k_scale" in c and not cross:
+            k, v = ((c[n].float() * c[f"{n}_scale"][scale_rows,
+                                                    lo:lo + s_loc]).to(dt)
+                    for n in ("k", "v"))
+        else:
+            k, v = c["k"], c["v"]
+        valid = lo + torch.arange(s_loc, device=q.device) < n_valid
+        logits = (q.reshape(b, kvh, g, hd) @ k.permute(0, 2, 3, 1)).float()
+        logits = torch.where(valid, logits / math.sqrt(hd), _NEG)
+        if seq_split:
+            mx = logits.amax(-1, keepdim=True)
+            e = torch.exp(logits - mx)
+            ms.append(mx)
+            ls.append(e.sum(-1, keepdim=True))
+            os_.append((e.to(dt) @ v.transpose(1, 2)).float())
+        else:
+            probs = torch.softmax(logits, dim=-1).to(dt)
+            os_.append(probs @ v.transpose(1, 2))
+    if seq_split:
+        os_ = [o.to(dt) for o in merge_partials(ms, ls, os_)]
+    outs = []
+    for j, (p, o) in enumerate(zip(ps, os_)):
+        o = o.reshape(b, 1, h, hd)
+        if q_split:
+            n = p.wo.shape[0]
+            o = o[:, :, j * n:(j + 1) * n]
+        outs.append(o.flatten(2) @ p.wo.to(dt).flatten(0, 1))
+    return outs, new_caches
+
+
+def _write(buf, slot: int, row, rows: slice = slice(None)):
+    """A copy of ``buf`` (B, Smax, ...) with ``row`` (b, 1, ...) at
+    ``slot`` of its batch rows ``rows``."""
     out = buf.clone()
-    out[:, slot] = row[:, 0]
+    out[rows, slot] = row[:, 0]
     return out
 
 
@@ -383,6 +538,8 @@ def apply_mlp(p, x, cfg: ModelConfig):
     return hid @ p.w_down.to(dt)
 
 
-__all__ = ["apply_mlp", "apply_rope", "attention_decode", "attention_full",
-           "attention_shard", "check_q_len", "gelu", "heads_split",
-           "init_attention", "init_mlp", "make_attn_cache", "mlp_split"]
+__all__ = ["apply_mlp", "apply_rope", "attention_decode",
+           "attention_decode_tp", "attention_full", "attention_shard",
+           "check_q_len", "gelu", "heads_split", "init_attention",
+           "init_mlp", "make_attn_cache", "merge_partials", "mlp_split",
+           "owns_slot"]

@@ -53,10 +53,15 @@ def init_rglru(cfg: ModelConfig, generator: torch.Generator) -> dict:
         "w_x": dense((w, w)),
         "b_x": torch.zeros((w,), dtype=pdt, device=dev),
         # Lambda parameterized so a in ~(0.9, 0.999) at init
-        "lam": torch.empty((w,), dtype=torch.float32, device=dev).uniform_(
-            0.9, 0.999, generator=generator),
+        "lam": _uniform(w, 0.9, 0.999, generator),
         "w_out_rec": dense((w, d)),
     }
+
+
+def _uniform(n: int, lo: float, hi: float, generator):
+    t = torch.empty((n,), dtype=torch.float32, device=generator.device)
+    return t if t.device.type == "meta" else t.uniform_(lo, hi,
+                                                         generator=generator)
 
 
 def _gates(p, u, cfg: ModelConfig, own=None):
@@ -174,6 +179,38 @@ def apply_rglru_decode(p, x, cache: dict, cfg: ModelConfig):
     return out, {"h": h, "conv": conv_state}
 
 
+def apply_rglru_decode_tp(ps, xs, caches, cfg: ModelConfig):
+    """:func:`apply_rglru_decode` over the model axis: ``ps`` each
+    shard's ``rec`` params, ``xs`` its normed input (B, 1, D),
+    ``caches`` its cache (``h`` and ``conv`` whole on every shard: the
+    rule replicates them over the model axis). Where the axis splits the
+    block (:func:`rec_split`), each shard's columns of u are gathered
+    over the axis before the conv, every shard runs the conv, the gates
+    (whole on every shard) and the step on all W channels (the replicas
+    stay equal) and returns its partial output of ``w_out_rec`` from its
+    columns of h and its gate, for the caller to sum; otherwise each
+    shard runs :func:`apply_rglru_decode` whole. Returns (outputs, new
+    caches)."""
+    if not rec_split(ps[0], cfg):
+        res = [apply_rglru_decode(p, x, c, cfg)
+               for p, x, c in zip(ps, xs, caches)]
+        return [o for o, _ in res], [c for _, c in res]
+    dt = cfg.cdtype
+    whole = sharding.all_gather([x @ p.w_in_rec.to(dt)
+                                 for p, x in zip(ps, xs)], -1)
+    outs, new = [], []
+    for j, (p, x, c, u) in enumerate(zip(ps, xs, caches, whole)):
+        n = p.w_in_rec.shape[1]
+        gate = gelu(x @ p.w_in_gate.to(dt))               # (B, 1, n)
+        u, conv_state = _conv1d(p, u, cfg, state=c["conv"])
+        a, b = _gates(p, u, cfg)                          # (B, 1, W) f32
+        h = a[:, 0] * c["h"] + b[:, 0]
+        outs.append((h[:, None, j * n:(j + 1) * n].to(dt) * gate)
+                    @ p.w_out_rec.to(dt))
+        new.append({"h": h, "conv": conv_state})
+    return outs, new
+
+
 def make_rglru_cache(cfg: ModelConfig, batch: int, device) -> dict:
     w = cfg.lru_width or cfg.d_model
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
@@ -181,5 +218,6 @@ def make_rglru_cache(cfg: ModelConfig, batch: int, device) -> dict:
                                 dtype=cfg.cdtype, device=device)}
 
 
-__all__ = ["apply_rglru", "apply_rglru_decode", "apply_rglru_tp",
+__all__ = ["apply_rglru", "apply_rglru_decode", "apply_rglru_decode_tp",
+           "apply_rglru_tp",
            "init_rglru", "make_rglru_cache", "rec_split", "scan_inputs"]

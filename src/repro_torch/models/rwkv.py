@@ -226,31 +226,76 @@ def time_mix_tp(ps, xs, cfg: ModelConfig, remat=lambda fn: fn):
             for j, p in enumerate(ps)]
 
 
-def time_mix_decode(p, x, cache, cfg: ModelConfig):
-    """x: (B, 1, D); cache: {"state": (B,H,hd,hd), "last": (B,1,D)}."""
-    b = x.shape[0]
-    h = n_heads(cfg)
+def _decode_inputs(p, x, last, cfg: ModelConfig, cols: slice | None = None):
+    """A decode step's ``(r, k, v, g, lw)`` (B, 1, n) of the n columns
+    ``p``'s projections hold (``cols`` of D; all without it)."""
     dt = cfg.cdtype
-    xs = cache["last"].to(x.dtype)
+    xs = last.to(x.dtype)
     r = _mix(x, xs, p.mu[0]) @ p.wr.to(dt)
     k = _mix(x, xs, p.mu[1]) @ p.wk_t.to(dt)
     v = _mix(x, xs, p.mu[2]) @ p.wv_t.to(dt)
     g = _mix(x, xs, p.mu[3]) @ p.wg.to(dt)
-    lw = _decay(p, _mix(x, xs, p.mu[4]), cfg)
+    lw = _decay(p, _mix(x, xs, p.mu[4]), cfg, cols)
+    return r, k, v, g, lw
 
+
+def _decode_readout(p, r, k, v, lw, s0, cfg: ModelConfig):
+    """One step of the recurrence over every head: the normed readout
+    (B, 1, D) in the compute dtype and the new state."""
+    b = r.shape[0]
+    h = n_heads(cfg)
     rh = r.reshape(b, h, HEAD_DIM).float()
     kh = k.reshape(b, h, HEAD_DIM).float()
     vh = v.reshape(b, h, HEAD_DIM).float()
     wh = torch.exp(lw.reshape(b, h, HEAD_DIM))
     u = p.u.float()
-    s0 = cache["state"]
     kv = kh[..., :, None] * vh[..., None, :]                 # (B,H,hd,hd)
     y = torch.einsum("bhk,bhkv->bhv", rh * u[None], kv) \
         + torch.einsum("bhk,bhkv->bhv", rh, s0)
     state = wh[..., :, None] * s0 + kv
-    y = _headnorm(y[:, :, None, :], p.ln_x, h).to(dt)
-    out = (y * F.silu(g)) @ p.w_out_t.to(dt)
+    return _headnorm(y[:, :, None, :], p.ln_x, h).to(cfg.cdtype), state
+
+
+def time_mix_decode(p, x, cache, cfg: ModelConfig):
+    """x: (B, 1, D); cache: {"state": (B,H,hd,hd), "last": (B,1,D)}."""
+    r, k, v, g, lw = _decode_inputs(p, x, cache["last"], cfg)
+    y, state = _decode_readout(p, r, k, v, lw, cache["state"], cfg)
+    out = (y * F.silu(g)) @ p.w_out_t.to(cfg.cdtype)
     return out, {"state": state, "last": x}
+
+
+def time_mix_decode_tp(ps, xs, caches, cfg: ModelConfig):
+    """:func:`time_mix_decode` over the model axis: ``ps`` each shard's
+    block params, ``xs`` its normed input (B, 1, D), ``caches`` its
+    cache (the state whole on every shard: the rule replicates it over
+    the model axis). Where the axis splits the time mix
+    (:func:`tmix_split`), each shard's columns of r, k, v and the decay
+    are gathered over the axis, every shard steps the whole state (the
+    replicas stay equal) and returns its partial output of ``w_out_t``
+    from its columns of the readout, for the caller to sum; otherwise
+    each shard runs :func:`time_mix_decode` whole. Returns (outputs, new
+    caches)."""
+    if not tmix_split(ps[0], cfg):
+        res = [time_mix_decode(p, x, c, cfg)
+               for p, x, c in zip(ps, xs, caches)]
+        return [o for o, _ in res], [c for _, c in res]
+    parts = []
+    for j, (p, x, c) in enumerate(zip(ps, xs, caches)):
+        n = p.wr.shape[1]
+        parts.append(_decode_inputs(p, x, c["last"], cfg,
+                                    slice(j * n, (j + 1) * n)))
+    whole = [sharding.all_gather([q[i] for q in parts], -1)
+             for i in (0, 1, 2, 4)]                          # r, k, v, lw
+    outs, new = [], []
+    for j, (p, x, c) in enumerate(zip(ps, xs, caches)):
+        g = parts[j][3]
+        n = g.shape[-1]
+        y, state = _decode_readout(p, *(w[j] for w in whole), c["state"],
+                                   cfg)
+        outs.append((y[..., j * n:(j + 1) * n] * F.silu(g))
+                    @ p.w_out_t.to(cfg.cdtype))
+        new.append({"state": state, "last": x})
+    return outs, new
 
 
 def channel_mix(p, x, cfg: ModelConfig, last=None):
@@ -276,4 +321,5 @@ def make_rwkv_cache(cfg: ModelConfig, batch: int, device) -> dict:
 
 __all__ = ["HEAD_DIM", "LORA_DIM", "channel_mix", "cmix_split",
            "init_rwkv_block", "make_rwkv_cache", "n_heads", "time_mix",
-           "time_mix_decode", "time_mix_tp", "tmix_split", "wkv_inputs"]
+           "time_mix_decode", "time_mix_decode_tp", "time_mix_tp",
+           "tmix_split", "wkv_inputs"]

@@ -72,8 +72,8 @@ from .. import sharding
 from ..tensorized import (cpd_embed, cpd_logits, dense_table,
                           init_cpd_embedding)
 from . import layers, moe, rglru, rwkv
-from .common import (ModelConfig, Node, Params, apply_norm, as_node,
-                     dense_init, device_of, init_norm, param)
+from .common import (ModelConfig, Node, Params, ShapeOnly, apply_norm,
+                     as_node, dense_init, device_of, init_norm, param)
 
 #: The block kinds (the reference's).
 KINDS = ("attn", "moe", "rwkv", "rec", "local", "enc", "dec")
@@ -458,9 +458,13 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
 # --------------------------------------------------------------------------
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     """Random parameters on ``device``, drawn from a
-    ``torch.Generator`` on that device seeded with ``seed``."""
+    ``torch.Generator`` on that device seeded with ``seed``; on ``meta``
+    the shapes and dtypes alone (``ShapeOnly``: no values, nothing
+    allocated)."""
     _check_cfg(cfg)
-    gen = torch.Generator(device=device_of(device)).manual_seed(seed)
+    dev = device_of(device)
+    gen = (ShapeOnly() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     d = cfg.d_model
     if cfg.cpd_embedding:  # the paper's technique as the embedding layer
         tree = {"embed_cpd": init_cpd_embedding(
@@ -775,6 +779,234 @@ def decode_step(params, cache, cfg: ModelConfig, token):
     return _logits(params, x, cfg), new_cache
 
 
+def apply_block_decode_tp(ps, xs, caches, cfg: ModelConfig, kind: str,
+                          seq_split: bool = False, cross_split: bool = False,
+                          scale_rows: slice = slice(None)):
+    """:func:`apply_block_decode` over the model axis: ``ps`` each shard's
+    layer params (its working copies), ``xs`` its replica of the token's
+    residual stream (B, 1, D), ``caches`` its piece of the layer's cache
+    (``seq_split``: the model axis splits the KV cache's sequence;
+    ``cross_split``: a ``dec`` layer's cross cache's; ``scale_rows``:
+    the shard's batch rows within an int8 cache's whole scales). The
+    sublayers run their model-shard forms (``layers.attention_decode_tp``,
+    ``rwkv.time_mix_decode_tp``, ``rglru.apply_rglru_decode_tp``,
+    ``moe.apply_moe_tp``, the MLP's ``d_ff`` columns) and the partials
+    are summed over the axis by the sums the sharded prefill uses
+    (``sum_heads``, ``sum_ff``, ``sum_tmix``, ``sum_cmix``, ``sum_rec``,
+    ``sum_xattn``). Returns (the new replicas, the new caches)."""
+    _check_kind(kind)
+    if kind == "rwkv":
+        hs = [apply_norm(p.ln1, x, cfg) for p, x in zip(ps, xs)]
+        outs, tms = rwkv.time_mix_decode_tp(ps, hs, caches, cfg)
+        if rwkv.tmix_split(ps[0], cfg):
+            outs = sum_tmix(outs)
+        xs = _residual(xs, outs)
+        h2s = [apply_norm(p.ln2, x, cfg) for p, x in zip(ps, xs)]
+        outs = [rwkv.channel_mix(p, h2, cfg, last=c["last_c"])
+                for p, h2, c in zip(ps, h2s, caches)]
+        if rwkv.cmix_split(ps[0], cfg):
+            outs = sum_cmix(outs)
+        return _residual(xs, outs), [{**tm, "last_c": h2}
+                                     for tm, h2 in zip(tms, h2s)]
+    if kind == "rec":
+        hs = [apply_norm(p.ln1, x, cfg) for p, x in zip(ps, xs)]
+        outs, rcs = rglru.apply_rglru_decode_tp([p.rec for p in ps], hs,
+                                                caches, cfg)
+        if rglru.rec_split(ps[0].rec, cfg):
+            outs = sum_rec(outs)
+        return _mlp_tp(ps, _residual(xs, outs), cfg), rcs
+    use_rope = cfg.rope_theta > 0
+    heads = layers.heads_split(ps[0].attn, cfg)
+    if kind == "dec":
+        hs = [apply_norm(p.ln1, x, cfg) for p, x in zip(ps, xs)]
+        outs, scs = layers.attention_decode_tp(
+            [p.attn for p in ps], hs, [c["self"] for c in caches], cfg,
+            use_rope=use_rope, seq_split=seq_split, scale_rows=scale_rows)
+        xs = _residual(xs, sum_heads(outs) if heads else outs)
+        hs = [apply_norm(p.lnx, x, cfg) for p, x in zip(ps, xs)]
+        outs, _ = layers.attention_decode_tp(
+            [p.xattn for p in ps], hs, [c["cross"] for c in caches], cfg,
+            use_rope=False, cross=True, seq_split=cross_split)
+        if layers.heads_split(ps[0].xattn, cfg):
+            outs = sum_xattn(outs)
+        return _mlp_tp(ps, _residual(xs, outs), cfg), [
+            {**c, "self": sc} for c, sc in zip(caches, scs)]
+    # a vlm decodes causally, as the reference does (no prefix mask here)
+    mask = "window" if kind == "local" else "causal"
+    if cfg.parallel_block:
+        hs = [apply_norm(p.ln, x, cfg) for p, x in zip(ps, xs)]
+        outs, new = layers.attention_decode_tp(
+            [p.attn for p in ps], hs, caches, cfg, mask=mask,
+            use_rope=use_rope, seq_split=seq_split, scale_rows=scale_rows)
+        ffs = [layers.apply_mlp(p.mlp, h, cfg) for p, h in zip(ps, hs)]
+        split = layers.mlp_split(ps[0].mlp, cfg)
+        if heads and split:
+            outs = sum_heads([a + f for a, f in zip(outs, ffs)])
+        else:
+            outs = sum_heads(outs) if heads else outs
+            ffs = sum_ff(ffs) if split else ffs
+            outs = [a + f for a, f in zip(outs, ffs)]
+        return _residual(xs, outs), new
+    hs = [apply_norm(p.ln1, x, cfg) for p, x in zip(ps, xs)]
+    outs, new = layers.attention_decode_tp(
+        [p.attn for p in ps], hs, caches, cfg, mask=mask,
+        use_rope=use_rope, seq_split=seq_split, scale_rows=scale_rows)
+    xs = _residual(xs, sum_heads(outs) if heads else outs)
+    if kind == "moe":
+        hs = [apply_norm(p.ln2, x, cfg) for p, x in zip(ps, xs)]
+        return _residual(xs, moe.apply_moe_tp([p.moe for p in ps], hs,
+                                              cfg)), new
+    return _mlp_tp(ps, xs, cfg), new
+
+
+#: What a decode step does not read: the encoder, and the keys and values
+#: of a ``dec`` block's cross-attention (its cross cache holds them).
+_NOT_DECODED = ("enc", "enc_ln_f")
+_XATTN_NOT_DECODED = ("wk", "wv", "bk", "bv")
+
+
+def decode_params(tree: dict) -> dict:
+    """``tree`` (a params tree in either layout) without what
+    :func:`decode_step` does not read (the reference's jit drops those
+    from a decode step's arguments as unused)."""
+    def visit(node, key=""):
+        if not isinstance(node, dict):
+            return node
+        return {k: visit(v, k) for k, v in node.items()
+                if k not in _NOT_DECODED
+                and not (key == "xattn" and k in _XATTN_NOT_DECODED)}
+
+    return visit(tree)
+
+
+def _working(tree, pos, ctx):
+    """Position ``pos``'s working copies (``sharding.working_copy``: its
+    model-axis slice, gathered whole over the dp axes) of a tree of
+    ``Sharded`` leaves, as a :class:`Node`."""
+    if isinstance(tree, dict):
+        return Node({k: _working(v, pos, ctx) for k, v in tree.items()})
+    return sharding.working_copy(tree, pos, ctx)
+
+
+def _cache_at(cache, pos):
+    """Position ``pos``'s piece of a placed cache (counters as they
+    are)."""
+    if isinstance(cache, dict):
+        return {k: _cache_at(v, pos) for k, v in cache.items()}
+    return cache.at(pos) if isinstance(cache, sharding.Sharded) else cache
+
+
+def _cache_from(old, new: dict, pos0, rows: dict, name: str = ""):
+    """The placed cache laid out as ``old`` from ``new`` (position -> its
+    piece of the new cache; counters from ``pos0``'s). An int8 cache's
+    scales, whole on every position, take each dp slice's batch rows
+    (``rows``: position -> its rows) from that slice's positions: the
+    all-gather that keeps the replicas equal."""
+    if isinstance(old, dict):
+        return {k: _cache_from(v, {p: c[k] for p, c in new.items()}, pos0,
+                               None if k == "cross" else rows, k)
+                for k, v in old.items()}
+    if not isinstance(old, sharding.Sharded):
+        return new[pos0]
+    if name in ("k_scale", "v_scale") and rows \
+            and rows[pos0] != slice(None):
+        first = {}
+        for pos, sl in rows.items():
+            first.setdefault((sl.start, sl.stop), pos)
+        merged = sharding.gather_rows([new[p] for p in first.values()],
+                                      [rows[p] for p in first.values()],
+                                      old.mesh.size)
+        new = {pos: merged.to(old.mesh.devices[pos]) for pos in new}
+    return sharding.from_positions(old.mesh, old.spec, old.shape, new)
+
+
+def _seq_split(cache) -> bool:
+    return cache["k"].spec[1] is not None
+
+
+def _scale_rows(cache, pos) -> slice:
+    """The batch rows of ``pos``'s KV piece within the int8 cache's whole
+    scales (all of them where the scales are split alike)."""
+    while "k" not in cache:
+        cache = cache["self"]
+    k = cache["k"]
+    if "k_scale" not in cache or cache["k_scale"].spec[0] == k.spec[0]:
+        return slice(None)
+    n = k.at(pos).shape[0]
+    lo = sharding.block_of(k.mesh, k.spec, pos)[0] * n
+    return slice(lo, lo + n)
+
+
+def decode_step_tp(ps, caches, cfg: ModelConfig, tokens):
+    """:func:`decode_step` over a mesh: ``ps`` the params placed by
+    ``sharding.param_sharding_tree`` (the stage layout of
+    :func:`stack_layers`, each leaf ``Sharded``; what the step does not
+    read, :func:`decode_params`, may be left out), ``caches`` the cache
+    placed by ``launch.specs.cache_shardings``, ``tokens`` (B, 1) (placed
+    here over the dp axes where they divide B, if not placed). Each row
+    of model shards (``sharding.model_rows``: one dp slice of the batch)
+    runs the step: each position gathers its fsdp dims of one layer's
+    params at a time (``sharding.working_copy``; freed after the layer),
+    and :func:`apply_block_decode_tp` runs the layer. Returns (logits
+    (B, 1, Vp) laid out over the dp axes on the batch and, where the
+    head is vocab-split, the model axis on the vocab; the new cache in
+    the placement of ``caches``)."""
+    leaf = ps
+    while isinstance(leaf, (dict, list)):
+        leaf = next(iter(leaf.values())) if isinstance(leaf, dict) \
+            else leaf[0]
+    mesh = leaf.mesh
+    ctx = sharding.make_ctx(mesh)
+    check_tp(cfg, ctx.tp)
+    if not isinstance(tokens, sharding.Sharded):
+        tokens = sharding.place_tensor(tokens, ctx.resolve(
+            *sharding.fit_tags(tokens.shape, ("dp", None), ctx)), mesh)
+    node = unstack_layers(cfg, decode_params(ps))
+    top = {k: v for k, v in node.items() if k != "layers"}
+    kinds = layer_kinds(cfg)
+    offset = _first_cache_len(caches)
+    rows = sharding.model_rows(mesh, ctx.tp_axis)
+    new = [{} for _ in caches]
+    rows_of = [{} for _ in caches]
+    logits = {}
+    for row in rows:
+        tops = [_working(top, pos, ctx) for pos in row]
+        xs = embed_lookup_tp(tops, [tokens.at(pos) for pos in row], cfg)
+        if cfg.rope_theta == 0:
+            xs = [x + sinusoidal_pos(1, cfg.d_model, offset=offset,
+                                     device=x.device).to(cfg.cdtype)[None]
+                  for x in xs]
+        for i, kind in enumerate(kinds):
+            lps = [_working(node.layers[i], pos, ctx) for pos in row]
+            c = caches[i]
+            split = {}
+            if kind == "dec":
+                split = {"seq_split": _seq_split(c["self"]),
+                         "cross_split": _seq_split(c["cross"])}
+            elif kind not in ("rwkv", "rec"):
+                split = {"seq_split": _seq_split(c)}
+            if split:
+                split["scale_rows"] = rows_of[i].setdefault(
+                    row[0], _scale_rows(c, row[0]))
+                rows_of[i].update({pos: split["scale_rows"] for pos in row})
+            xs, cs = apply_block_decode_tp(
+                lps, xs, [_cache_at(c, pos) for pos in row], cfg, kind,
+                **split)
+            del lps
+            new[i].update(zip(row, cs))
+        for pos, p, x in zip(row, tops, xs):
+            logits[pos] = _logits(p, x, cfg)
+    pos0 = rows[0][0]
+    width = logits[pos0].shape[-1]
+    vocab = (ctx.tp_axis if not cfg.cpd_embedding
+             and width < cfg.vocab_padded else None)
+    shape = (tokens.shape[0], 1, width * (ctx.tp if vocab else 1))
+    out = sharding.from_positions(mesh, (tokens.spec[0], None, vocab),
+                                  shape, logits)
+    return out, [_cache_from(c, n, pos0, r)
+                 for c, n, r in zip(caches, new, rows_of)]
+
+
 def build_cross_caches(params, cfg: ModelConfig, enc_embeds, cache):
     """Run the encoder once and fill every ``dec`` layer's cross cache
     with its ``xattn`` keys and values of the encoder's output (and
@@ -796,9 +1028,11 @@ def build_cross_caches(params, cfg: ModelConfig, enc_embeds, cache):
     return new_cache
 
 
-__all__ = ["Model", "apply_block", "apply_block_decode", "apply_block_tp",
-           "build_cross_caches", "check_tp", "decode_step", "embed_lookup",
-           "embed_lookup_tp", "encode", "encode_tp", "forward", "forward_tp",
+__all__ = ["Model", "apply_block", "apply_block_decode",
+           "apply_block_decode_tp", "apply_block_tp", "build_cross_caches",
+           "check_tp", "decode_params", "decode_step", "decode_step_tp",
+           "embed_lookup", "embed_lookup_tp", "encode", "encode_tp",
+           "forward", "forward_tp",
            "head_matrix", "init_block", "init_cache", "init_model",
            "layer_kinds", "sinusoidal_pos", "stack_layers",
            "unstack_layers", "vocab_split"]

@@ -23,6 +23,15 @@ tuple of axis names, or ``None``, as the reference's ``PartitionSpec``
 entries are. The port keeps a stacked leaf as a list of per-layer
 tensors (``training.tree``), so a per-layer tensor takes the reference's
 tags without the leading ``"layer"``.
+
+Under :func:`accounting` (the dry-run's, ``launch.dryrun``) each move
+records the collective it stands for (:class:`CollectiveEvent`: the
+kind, the bytes of each device's result, the group's size and how many
+devices the call covers), from which ``analysis.collectives`` takes the
+per-device ring-algorithm bytes of the production collective, not what
+the single controller happens to copy; and it tells the accounting's
+tracker (``analysis.cost``) which mesh positions own what it makes. With
+no accounting open nothing is recorded and nothing changes.
 """
 from __future__ import annotations
 
@@ -76,6 +85,82 @@ _CTX: contextvars.ContextVar[Optional[ShardingCtx]] = contextvars.ContextVar(
 
 def current() -> Optional[ShardingCtx]:
     return _CTX.get()
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveEvent:
+    """One collective as one call records it: ``kind`` (``all-gather``,
+    ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``), ``result_bytes`` (R, the bytes of each
+    device's result), ``group`` (n, the devices that exchange) and
+    ``devices`` (how many devices this call stands for: the whole group
+    for a move over a model axis, one for a position's fsdp gather)."""
+    kind: str
+    result_bytes: float
+    group: int
+    devices: int
+
+
+@dataclasses.dataclass
+class Accounting:
+    """What :func:`accounting` collects: the :class:`CollectiveEvent`
+    list, and the tracker (``analysis.cost.CostMode``) told the owners
+    of what the moves make (``own(tensor, positions)``,
+    ``share(outs, ins)``), or ``None``."""
+    events: list
+    tracker: object = None
+
+
+_ACCT: contextvars.ContextVar[Optional[Accounting]] = contextvars.ContextVar(
+    "repro_torch_collective_accounting", default=None)
+
+
+@contextlib.contextmanager
+def accounting(tracker=None):
+    """Record every collective the moves of this module make while open
+    (yields the :class:`Accounting`)."""
+    acct = Accounting([], tracker)
+    tok = _ACCT.set(acct)
+    try:
+        yield acct
+    finally:
+        _ACCT.reset(tok)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _record(kind: str, result_bytes: float, group: int, devices: int):
+    acct = _ACCT.get()
+    if acct is not None and group > 1:
+        acct.events.append(CollectiveEvent(kind, float(result_bytes), group,
+                                           devices))
+
+
+def _own(t, positions) -> None:
+    """Tell the tracker, if any, that ``positions`` own ``t``."""
+    acct = _ACCT.get()
+    if acct is not None and acct.tracker is not None:
+        acct.tracker.own(t, positions)
+
+
+def _own_copy(t) -> bool:
+    """Whether each position's result of a sum must be its own tensor:
+    under a tracker on the ``meta`` device, which stands for every card
+    (on distinct cards the results are distinct anyway)."""
+    acct = _ACCT.get()
+    return acct is not None and acct.tracker is not None \
+        and t.device.type == "meta"
+
+
+def _share(outs, ins) -> None:
+    """Tell the tracker, if any, that ``outs[i]`` belongs where
+    ``ins[i]`` does (outputs that are one tensor, as a sum's on a device
+    that several positions share, belong to all of theirs)."""
+    acct = _ACCT.get()
+    if acct is not None and acct.tracker is not None:
+        acct.tracker.share(outs, ins)
 
 
 @contextlib.contextmanager
@@ -299,7 +384,38 @@ def place_tensor(x: torch.Tensor, spec, mesh: Mesh) -> Sharded:
             part = x.detach()[_slices(x.shape, mesh, spec, block)]
             pieces[key] = part.to(dev, copy=True).contiguous()
         where[pos] = key
-    return Sharded(mesh, spec, x.shape, x.dtype, pieces, where)
+    out = Sharded(mesh, spec, x.shape, x.dtype, pieces, where)
+    _own_pieces(out)
+    return out
+
+
+def _own_pieces(s: Sharded) -> None:
+    """Each piece of ``s`` owned by the positions that hold it."""
+    if _ACCT.get() is None:
+        return
+    holders: dict = {}
+    for pos, key in s.where.items():
+        holders.setdefault(key, []).append(pos)
+    for key, poss in holders.items():
+        _own(s.pieces[key], poss)
+
+
+def from_positions(mesh: Mesh, spec, shape, values: dict) -> Sharded:
+    """A :class:`Sharded` of ``shape`` laid out by ``spec`` from
+    ``values`` (mesh position -> its block, each on its device): the
+    block of the first position that holds each (device, block) key
+    (the replicas of a block are equal)."""
+    spec = tuple(spec)
+    pieces, where = {}, {}
+    for pos in positions(mesh):
+        key = (mesh.devices[pos], block_of(mesh, spec, pos))
+        if key not in pieces:
+            pieces[key] = values[pos]
+        where[pos] = key
+    first = next(iter(pieces.values()))
+    out = Sharded(mesh, spec, shape, first.dtype, pieces, where)
+    _own_pieces(out)
+    return out
 
 
 def place(tree, specs, ctx_or_mesh):
@@ -312,6 +428,8 @@ def place(tree, specs, ctx_or_mesh):
         return [place(v, s, mesh) for v, s in zip(tree, specs)]
     if isinstance(tree, Sharded):
         tree = gather(tree)
+    if not isinstance(tree, torch.Tensor):   # a cache's position counter
+        return tree
     return place_tensor(tree, specs, mesh)
 
 
@@ -377,17 +495,24 @@ def working_copy(s: Sharded, pos, ctx: ShardingCtx,
     dtype = dtype or s.dtype
     tp_dims = _split_entries(s, ctx)
     if not any(_axes(e) and not t for e, t in zip(s.spec, tp_dims)):
-        return s.at(pos).to(dev, dtype)       # nothing split over dp
+        out = s.at(pos).to(dev, dtype)        # nothing split over dp
+        if out is not s.at(pos):
+            _own(out, [pos])
+        return out
     mine = block_of(ctx.mesh, s.spec, pos)
     shape = [n // _coord(ctx.mesh, pos, e)[1] if t else n
              for n, e, t in zip(s.shape, s.spec, tp_dims)]
     out = torch.empty(shape, dtype=dtype, device=dev)
+    _own(out, [pos])
     for block, key in s.blocks().items():
         if any(t and b != m for b, m, t in zip(block, mine, tp_dims)):
             continue
         sl = _slices(s.shape, s.mesh, s.spec, block)
         out[tuple(slice(None) if t else x
                   for x, t in zip(sl, tp_dims))] = s.pieces[key]
+    n = math.prod(_coord(ctx.mesh, pos, e)[1]
+                  for e, t in zip(s.spec, tp_dims) if not t)
+    _record("all-gather", _nbytes(out), n, 1)
     return out
 
 
@@ -401,6 +526,7 @@ def reduce_grads(s: Sharded, grads: dict, ctx: ShardingCtx) -> Sharded:
     blocks (the reduce-scatter)."""
     tp_dims = _split_entries(s, ctx)
     pos_all = positions(ctx.mesh)
+    _record_grad_reduce(s, ctx, tp_dims)
     pieces = {}
     for key in s.keys():
         dev, block = key
@@ -414,18 +540,64 @@ def reduce_grads(s: Sharded, grads: dict, ctx: ShardingCtx) -> Sharded:
             part = grads[q][local].to(dev, torch.float32)
             total = part if total is None else total + part
         pieces[key] = total.contiguous()
-    return Sharded(s.mesh, s.spec, s.shape, torch.float32, pieces,
-                   dict(s.where))
+    out = Sharded(s.mesh, s.spec, s.shape, torch.float32, pieces,
+                  dict(s.where))
+    _own_pieces(out)
+    return out
+
+
+def _record_grad_reduce(s: Sharded, ctx: ShardingCtx, tp_dims) -> None:
+    """The production collectives of :func:`reduce_grads` for one leaf,
+    float32 pieces on every device: a reduce-scatter over the dp axes
+    that split the leaf and an all-reduce over its remaining replicas
+    (the positions that compute with one block)."""
+    if _ACCT.get() is None:
+        return
+    mesh = ctx.mesh
+    pos0 = positions(mesh)[0]
+    n_split = math.prod(_coord(mesh, pos0, e)[1]
+                        for e, t in zip(s.spec, tp_dims) if not t)
+    group = mesh.size // (ctx.tp if any(tp_dims) else 1)
+    piece = math.prod(n // _coord(mesh, pos0, e)[1]
+                      for n, e in zip(s.shape, s.spec)) * 4
+    _record("reduce-scatter", piece, n_split, mesh.size)
+    _record("all-reduce", piece, group // n_split, mesh.size)
 
 
 def psum(parts: list) -> list:
     """The sum over one mesh axis: ``parts`` holds one tensor a position
     (each on its device); returns the total on each of their devices,
-    summed in position order on the first one's. Differentiable."""
+    summed in position order on the first one's (under a tracker on
+    the ``meta`` device, each position's its own copy). Differentiable."""
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
-    return [total.to(p.device) for p in parts]
+    _record("all-reduce", _nbytes(total), len(parts), len(parts))
+    return _results(total, parts)
+
+
+def _results(total, parts) -> list:
+    """``total`` on each part's device (each position its own copy where
+    :func:`_own_copy` says so), owned where its part is."""
+    if len(parts) > 1 and _own_copy(total):
+        outs = []
+        for p in parts:
+            outs.append(total.to(p.device, copy=True))
+            _share(outs[-1:], [p])
+        return outs
+    outs = [total.to(p.device) for p in parts]
+    _share(outs, parts)
+    return outs
+
+
+def pmax(parts: list) -> list:
+    """The elementwise maximum over one mesh axis, as :func:`psum` sums
+    (an all-reduce); not differentiable."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = torch.maximum(total, p.to(total.device))
+    _record("all-reduce", _nbytes(total), len(parts), len(parts))
+    return _results(total, parts)
 
 
 def all_to_all(blocks: list) -> list:
@@ -434,15 +606,34 @@ def all_to_all(blocks: list) -> list:
     ``i`` of every position, stacked in position order on its device (the
     reference's untiled ``lax.all_to_all``, split and concat dim 0).
     Differentiable."""
-    return [torch.stack([b[i].to(dst.device) for b in blocks])
+    outs = [torch.stack([b[i].to(dst.device) for b in blocks])
             for i, dst in enumerate(blocks)]
+    _record("all-to-all", _nbytes(outs[0]), len(blocks), len(blocks))
+    _share(outs, blocks)
+    return outs
 
 
 def all_gather(parts: list, dim: int) -> list:
     """Every position's part concatenated along ``dim`` in position
     order, on each part's device. Differentiable."""
-    return [torch.cat([p.to(dst.device) for p in parts], dim=dim)
+    outs = [torch.cat([p.to(dst.device) for p in parts], dim=dim)
             for dst in parts]
+    _record("all-gather", _nbytes(outs[0]), len(parts), len(parts))
+    _share(outs, parts)
+    return outs
+
+
+def gather_rows(parts: list, rows: list, devices: int) -> torch.Tensor:
+    """One tensor whose batch rows ``rows[i]`` come from ``parts[i]``
+    (each a whole replica in which one dp slice wrote its own rows), on
+    the first part's device: the all-gather over the dp slices that keeps
+    the replicas of a leaf equal (recorded over ``devices`` devices)."""
+    merged = parts[0].clone()
+    for p, sl in zip(parts[1:], rows[1:]):
+        merged[sl] = p[sl].to(merged.device)
+    r = merged.shape[0] * merged[:1, :1].numel() * merged.element_size()
+    _record("all-gather", r, len(parts), devices)
+    return merged
 
 
 def model_rows(mesh: Mesh, tp_axis: Optional[str]) -> list[list]:
@@ -458,8 +649,11 @@ def model_rows(mesh: Mesh, tp_axis: Optional[str]) -> list[list]:
     return list(rows.values())
 
 
-__all__ = ["ShardingCtx", "Sharded", "all_gather", "all_to_all", "current",
-           "fill", "fit_tags", "gather", "gather_tensor", "is_sharded",
-           "make_ctx", "model_rows", "param_sharding_tree", "param_tags",
-           "place", "place_tensor", "positions", "psum", "reduce_grads",
-           "replicated", "shard", "use", "working_copy"]
+__all__ = ["Accounting", "CollectiveEvent", "ShardingCtx", "Sharded",
+           "accounting", "all_gather", "all_to_all", "current", "fill",
+           "fit_tags", "from_positions", "gather", "gather_rows",
+           "gather_tensor",
+           "is_sharded", "make_ctx", "model_rows", "param_sharding_tree",
+           "param_tags", "place", "place_tensor", "pmax", "positions",
+           "psum", "reduce_grads", "replicated", "shard", "use",
+           "working_copy"]

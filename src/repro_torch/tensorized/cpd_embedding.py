@@ -39,8 +39,9 @@ def init_cpd_embedding(vocab: int, d_model: int, rank: int,
     s = (1.0 / rank) ** 0.5
 
     def draw(rows):
-        t = torch.randn((rows, rank), generator=generator,
-                        device=generator.device)
+        dev = generator.device
+        t = (torch.empty((rows, rank), device=dev) if dev.type == "meta"
+             else torch.randn((rows, rank), generator=generator, device=dev))
         return (t * s).to(dtype)
 
     return {"A": draw(v1), "B": draw(v2), "C": draw(d_model)}
