@@ -210,6 +210,16 @@ times the kernels at each path's shapes.
        card: FLOPs, temporaries and the roofline bound against the
        card's ``FlopCounterMode`` count, ``max_memory_allocated`` and
        CUDA-event time
+  [21] ``all_modes`` as one CUDA graph replay (run after [7], on [3]'s
+       nell1 0.1 tensor and factors) on ``cuda_fused`` and ``cuda``: the
+       replay against ``N`` eager ``mttkrp`` calls, ms a rotation and an
+       ALS sweep (the rotation with the fold inside the graph), graph
+       and eager, and ``cp_als`` through the graph against the eager
+       loop
+  Serving ([10], [11], [15a], [18a], [18b], [19a]-[19d]) runs the graph
+       ``Engine`` (one captured ``decode_step`` replayed, bf16 working
+       copies), times it against the eager engine on the float32 masters
+       and holds its tokens and logits to that engine bitwise
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -432,10 +442,20 @@ function on absolute inputs) and ``u = 2**-24``:
     or the bytes (each op's inputs read once and outputs written once)
     over 3.35 TB/s, must not exceed the call's CUDA-event time: a bound
     above the measured time means a count is wrong.
+  * [21] and the graph gate of serving: bitwise. A replay runs the same
+    kernels on the same inputs as the eager code it captured: the
+    rotation's layouts always, its outputs where two eager rotations
+    repeat bitwise (the spMTTKRP kernels' atomics do not on an H100, so
+    their outputs are held to the oracle limit above); the graph engine's
+    tokens and last logits against the eager loop on the float32
+    masters (a bf16 working copy holds the values a cast at use
+    makes). ``cp_als`` through the graph within ``FIT_ATOL`` of the
+    eager loop (the same atomics).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -1600,6 +1620,133 @@ def phase_rect(kmt, report, reps):
     return coo, cache, rows, errs, launches
 
 
+ROTATION_REPS = 5              # [21]: CUDA-event rotations, median taken
+ROTATION_SWEEPS = 3            # [21]: cp_als sweeps, graph and eager
+
+
+@contextlib.contextmanager
+def eager_rotations():
+    """A context in which ``engine.all_modes`` is the eager loop
+    (``all_modes_eager``): ``cp_als`` then sweeps as it did before the
+    graph."""
+    from repro_torch import engine
+
+    graph = engine.all_modes
+    engine.all_modes = engine.all_modes_eager
+    try:
+        yield
+    finally:
+        engine.all_modes = graph
+
+
+def phase_rotation_graph(kmt, t, factors, oracle, report):
+    """[21] ``all_modes`` as one CUDA graph replay at nell1 0.1 ([3]'s
+    tensor and factors) on ``cuda_fused`` and ``cuda``: the replay's
+    layouts bitwise those of N eager ``mttkrp`` calls (and of the start),
+    its outputs bitwise the eager steps' where two eager rotations repeat
+    bitwise, else within the oracle's limit (the kernels' shared-memory
+    atomics add in another order each run: on an H100 neither
+    ``cuda_fused`` nor ``cuda`` repeats bitwise); each kernel's
+    launches counted at the replay; ms a rotation, graph (a state that
+    owns the graph's buffers: no copy in) and eager, medians of
+    ``ROTATION_REPS`` CUDA-event runs after a warm-up; an ALS sweep (the
+    rotation with the fold) the same; ``ROTATION_SWEEPS`` ``cp_als``
+    sweeps through the graph within ``FIT_ATOL`` of the eager ones."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import cp_als, cpd
+    from repro_torch.engine import ExecutionConfig
+
+    out = {}
+    n = t.nmodes
+    lam = torch.ones((RANK,), device="cuda")
+    for backend in ("cuda_fused", "cuda"):
+        cfg = ExecutionConfig(backend=backend, rank_hint=RANK)
+        state = engine.init(t, cfg)
+        eager, s = [], state
+        for _ in range(n):
+            o, s = engine.mttkrp(s, factors)
+            eager.append(o)
+        again, _ = engine.all_modes_eager(state, factors)
+        repeats = all(torch.equal(a, b) for a, b in zip(eager, again))
+        engine.all_modes(state, factors)      # the eager first, the capture
+        kmt.reset_launch_counts()
+        outs, nxt = engine.all_modes(state, factors)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kmt.LAUNCHES.items() if v}
+        if sum(launches.values()) < n:
+            raise AssertionError(f"[21] {backend}: the replay counted "
+                                 f"{launches}")
+        for name in ("val", "idx", "alpha"):
+            exact(f"[21] {backend} graph layout {name} vs {n} mttkrp",
+                  getattr(nxt, name), getattr(s, name))
+            exact(f"[21] {backend} graph layout {name} vs the start",
+                  getattr(nxt, name), getattr(state, name))
+        shares = []
+        for d in range(n):
+            if repeats:
+                exact(f"[21] {backend} graph mode {d} vs eager", outs[d],
+                      eager[d])
+            shares.append(close_to(f"[21] {backend} graph mode {d} vs "
+                                   "mttkrp_ref", outs[d], *oracle[d])[1])
+        del outs, eager, again, s
+        held = [nxt]
+
+        def chain():
+            held[0] = engine.all_modes(held[0], factors)[1]
+
+        graph_ms = cuda_median_ms(chain, ROTATION_REPS)
+        fresh_ms = cuda_median_ms(lambda: engine.all_modes(state, factors),
+                                  ROTATION_REPS)
+        eager_ms = cuda_median_ms(
+            lambda: engine.all_modes_eager(state, factors), ROTATION_REPS)
+        if held[0].val is not next(iter(state.graphs.values())).layout[0]:
+            raise AssertionError("[21] the donated chain copies its layout")
+        fold = dict(fold=cpd._als_fold, carry=lam)
+        engine.all_modes(state, factors, **fold)      # eager, the capture
+        sweep_ms = cuda_median_ms(
+            lambda: engine.all_modes(state, factors, **fold), ROTATION_REPS)
+        sweep_eager_ms = cuda_median_ms(
+            lambda: engine.all_modes_eager(state, factors, **fold),
+            ROTATION_REPS)
+        del held, state, nxt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits = cp_als(t, RANK, iters=ROTATION_SWEEPS, config=cfg,
+                      factors=factors).fits
+        graph_s = time.perf_counter() - t0
+        with eager_rotations():
+            t0 = time.perf_counter()
+            efits = cp_als(t, RANK, iters=ROTATION_SWEEPS, config=cfg,
+                           factors=factors).fits
+            eager_s = time.perf_counter() - t0
+        gap = max(abs(a - b) for a, b in zip(fits, efits))
+        if not gap <= FIT_ATOL:
+            raise AssertionError(f"[21] {backend} cp_als fits through the "
+                                 f"graph {fits} vs eager {efits}")
+        free_device_memory()
+        out[backend] = {
+            "eager_repeats_bitwise": repeats, "replay_launches": launches,
+            "max_err_shares": shares, "rotation_ms": graph_ms,
+            "rotation_copy_in_ms": fresh_ms, "rotation_eager_ms": eager_ms,
+            "sweep_ms": sweep_ms, "sweep_eager_ms": sweep_eager_ms,
+            "fits": fits, "eager_fits": efits, "fit_gap": gap,
+            "cp_als_s": graph_s, "cp_als_eager_s": eager_s}
+        log(f"[21] {backend}: graph all_modes layouts == {n} eager mttkrp "
+            f"(bitwise); outputs "
+            f"{'bitwise the eager steps' if repeats else 'within the oracle limit'}"
+            f" (max {max(shares):.3f} of the limit); replay launches "
+            f"{launches}; a rotation {graph_ms:.3f} ms graph (donated "
+            f"chain), {fresh_ms:.3f} ms with the layout copied in, "
+            f"{eager_ms:.3f} ms eager ({eager_ms / graph_ms:.2f}x); an ALS "
+            f"sweep (the rotation with the fold) {sweep_ms:.3f} ms graph, "
+            f"{sweep_eager_ms:.3f} ms eager; cp_als {ROTATION_SWEEPS} "
+            f"sweeps {fits} vs eager {efits} (max gap {gap:.2e} <= "
+            f"{FIT_ATOL}), {graph_s:.2f} s vs {eager_s:.2f} s with init "
+            f"(medians of {ROTATION_REPS})")
+    report["rotation_graph"] = out
+
+
 def phase_autotune(coo, cache, report):
     """[9] ``autotune`` over backend x schedule x P x dedup at nell1 scale
     0.01; ``measure`` is the median CUDA-event ms of ``MEASURE_REPS``
@@ -1821,11 +1968,42 @@ def free_device_memory():
     torch.cuda.empty_cache()
 
 
+GRAPH_TIMED_STEPS = 8          # replays timed with CUDA events a serving
+
+
+def graph_gate(tag, model, cfg, scfg, prompt, toks, logits, enc=None):
+    """The graph ``Engine``'s greedy tokens ``toks`` from ``prompt`` (one
+    captured ``decode_step`` replayed, on the bf16 working copies of
+    ``transformer.decode_working_copies``) and its logits after the last,
+    held bitwise to the eager ``decode_step`` loop on the float32 masters
+    (``Engine(graph=False, working_copies=False)``: the path before the
+    graph) on caches of the same size ``scfg`` (another size reduces the
+    attention in another order); an encoder-decoder's engine takes the
+    frames ``enc``."""
+    import torch
+    from repro_torch.serving import Engine
+
+    n = toks.shape[1]
+    eng = Engine(model, cfg, scfg, device="cuda", enc_embeds=enc,
+                 graph=False, working_copies=False)
+    et, el = eng.generate(prompt, n), eng.last_logits
+    if not (torch.equal(toks, et) and torch.equal(logits, el)):
+        raise AssertionError(
+            f"{tag} graph Engine vs the eager loop on the f32 masters: "
+            f"tokens equal {torch.equal(toks, et)}, last logits max |diff| "
+            f"{float((logits.float() - el.float()).abs().max()):.3e}")
+    log(f"{tag} {cfg.compute_dtype}: {n} greedy tokens and the last logits "
+        "of the graph Engine (working copies) == the eager decode_step "
+        "loop on the f32 masters, bitwise")
+
+
 def xcheck(tag, model4, cfg4, prompt, enc=None):
     """The float32 cross-check (module docstring): ``forward(prompt)[:,
     -1]`` against ``Engine.prefill(prompt)``, then 8 greedy tokens of
     ``Engine.generate`` from the first 16 against ``forward``'s; an
-    encoder-decoder's forward and engines take the frames ``enc``.
+    encoder-decoder's forward and engines take the frames ``enc``. On
+    the card both engines replay their captured step; the graph gate
+    (:func:`graph_gate`) holds the graph engine to the eager loop.
     Returns (max |diff|, max |logit|)."""
     import torch
     from repro_torch.models import transformer
@@ -1845,8 +2023,11 @@ def xcheck(tag, model4, cfg4, prompt, enc=None):
         raise AssertionError(f"{tag} f32 forward and Engine.prefill pick "
                              "different greedy tokens")
     seq = prompt[:, :16]
-    toks = Engine(model4, cfg4, ServeConfig(batch, 64), device="cuda",
-                  enc_embeds=enc).generate(seq, 8)
+    scfg = ServeConfig(batch, 64)
+    eng = Engine(model4, cfg4, scfg, device="cuda", enc_embeds=enc)
+    toks = eng.generate(seq, 8)
+    graph_gate(tag, model4, cfg4, scfg, seq, toks, eng.last_logits, enc)
+    del eng
     for _ in range(8):
         nxt = transformer.forward(model4, cfg4, seq,
                                   enc_embeds=enc)[:, -1, :vocab]
@@ -1864,26 +2045,32 @@ def xcheck(tag, model4, cfg4, prompt, enc=None):
 
 def serve_check(tag, model, cfg, batch, g, kernel, enc=None):
     """Serving at full depth, bf16: ``batch`` requests of 16 prompt + 32
-    new tokens, greedy, twice (the first run is cold; an
-    encoder-decoder's engine encodes the frames ``enc`` first), then one
-    decode step under ``torch.profiler`` (the caches hold 49 positions: a
-    causal cache refuses a step past its end)."""
+    new tokens, greedy, on the graph ``Engine`` (bf16 working copies; its
+    first step eager, then the capture; an encoder-decoder's engine
+    encodes the frames ``enc`` first) and on the eager engine on the
+    float32 masters (the path before the graph: a cast of every weight a
+    step); the graph's 32 tokens and last logits held bitwise to the
+    eager engine's (:func:`graph_gate`'s check); then on each engine
+    ``GRAPH_TIMED_STEPS`` more steps timed with CUDA events and one under
+    ``torch.profiler`` (kernels a step, device busy share). Caches hold
+    the 48 positions, the timed steps and their warm-up, and the profiled
+    step (``Engine.step`` refuses one past a causal cache's end)."""
     import torch
-    from repro_torch.models import transformer
     from repro_torch.serving import Engine, ServeConfig
 
-    free_device_memory()
     prompt = torch.randint(0, cfg.vocab, (batch, 16), generator=g,
                            device="cuda")
-    serve = []
-    for _ in range(2):
+    scfg = ServeConfig(batch, 16 + 32 + GRAPH_TIMED_STEPS + 2)
+    serve, out = [], []
+    for graph in (True, False):
+        free_device_memory()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        eng = Engine(model, cfg, ServeConfig(batch, 49), device="cuda",
-                     enc_embeds=enc)
+        eng = Engine(model, cfg, scfg, device="cuda", enc_embeds=enc,
+                     graph=graph, working_copies=graph)
         torch.cuda.synchronize()
         encode_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         toks = eng.generate(prompt, 32)
         torch.cuda.synchronize()
@@ -1892,27 +2079,66 @@ def serve_check(tag, model, cfg, batch, g, kernel, enc=None):
                 (toks >= 0) & (toks < cfg.vocab)).all():
             raise AssertionError(f"{tag} generate gave {tuple(toks.shape)} "
                                  "or tokens out of the vocabulary")
-        serve.append({"seconds": dt, "tokens_per_s": batch * 32 / dt,
-                      "ms_per_step": 1e3 * dt / (16 + 32),
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        out.append((toks, eng.last_logits))
+        run = {"graph": graph, "seconds": dt,
+               "tokens_per_s": batch * 32 / dt,
+               "ms_per_step": 1e3 * dt / (16 + 32)}
         if enc is not None:
-            serve[-1]["encode_s"] = encode_s
+            run["encode_s"] = encode_s
+        tok = toks[:, -1:]
+        with torch.no_grad():
+            run["step_ms"] = cuda_ms(lambda: eng.step(tok),
+                                     GRAPH_TIMED_STEPS)
+            prof = device_breakdown(lambda: eng.step(tok), kernel)
+        run["steady_tokens_per_s"] = 1e3 * batch / run["step_ms"]
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        run["step_profile"] = prof
+        # the profiler's own start and sync stretch its wall time: the
+        # busy share is the profiled device time over the step's CUDA-event
+        # time
+        busy = (sum(prof["device_ms"].values()) if prof["device_ms"]
+                else None)
+        run["busy_share"] = None if busy is None else busy / run["step_ms"]
+        run["host_launches_per_step"] = (2 if graph else prof["kernels"])
+        serve.append(run)
+        del eng
+    (gt, gl), (et, el) = out
+    if not (torch.equal(gt, et) and torch.equal(gl, el)):
+        raise AssertionError(
+            f"{tag} graph Engine vs the eager loop on the f32 masters: "
+            f"tokens equal {torch.equal(gt, et)}, last logits max |diff| "
+            f"{float((gl.float() - el.float()).abs().max()):.3e}")
+    del out, gt, gl, et, el
+    gr, ea = serve
+    speed = ea["step_ms"] / gr["step_ms"]
+
+    def busy(run):
+        share = run["busy_share"]
+        return "not measured" if share is None else f"{share:.1%}"
+
     log(f"{tag} Engine.generate ({batch} requests, 16 prompt + 32 new "
-        f"tokens, greedy, bf16): cold {serve[0]['seconds']:.2f} s, warm "
-        f"{serve[1]['seconds']:.2f} s = {serve[1]['tokens_per_s']:.1f} "
-        f"tokens/s ({serve[1]['ms_per_step']:.2f} ms a decode step); peak "
-        f"{serve[1]['peak_gib']:.2f} GiB" + (
+        f"tokens, greedy, bf16): graph, bf16 working copies: "
+        f"{gr['seconds']:.2f} s = {gr['tokens_per_s']:.1f} tokens/s with "
+        f"the eager first step and the capture; a replay "
+        f"{gr['step_ms']:.3f} ms (CUDA events, {GRAPH_TIMED_STEPS} "
+        f"replays) = {gr['steady_tokens_per_s']:.1f} tokens/s; eager on "
+        f"the f32 masters {ea['seconds']:.2f} s = "
+        f"{ea['tokens_per_s']:.1f} tokens/s, a step {ea['step_ms']:.3f} "
+        f"ms; graph {speed:.2f}x; peak {gr['peak_gib']:.2f} GiB with the "
+        f"working copies, {ea['peak_gib']:.2f} GiB eager; 32 tokens and "
+        "the last logits of the two engines bitwise equal" + (
             "" if enc is None else
             f"; the engine's encoder and cross caches over "
-            f"{tuple(enc.shape)} frames first: {serve[1]['encode_s']:.3f} "
-            "s (warm)"))
-    with torch.no_grad():
-        tok = toks[:, -1:]
-        prof = device_breakdown(
-            lambda: transformer.decode_step(model, eng.cache, cfg, tok),
-            kernel)
-    log(f"{tag} one decode step's profile: {breakdown_line(prof)}")
-    return {"serve": serve, "decode_step_profile": prof}
+            f"{tuple(enc.shape)} frames first: {gr['encode_s']:.3f} s"))
+    log(f"{tag} one replay's profile: {breakdown_line(gr['step_profile'])}"
+        f"; device busy {busy(gr)} of the replay's CUDA-event time; host "
+        "launches a step: 2 (the token copy and the replay)")
+    log(f"{tag} one eager step's profile: "
+        f"{breakdown_line(ea['step_profile'])}; device busy {busy(ea)} of "
+        "its CUDA-event time")
+    return {"serve": serve, "decode_step_profile": gr["step_profile"],
+            "eager_step_profile": ea["step_profile"],
+            "graph_speedup": speed}
 
 
 def rwkv_model(cfg, seed):
@@ -6192,8 +6418,11 @@ def main(argv=None) -> int:
     rows7, errs7, launches7 = phase_cuda_compact(
         kmt, coo, factors, oracle, report["nell1"]["torch_fits"],
         report["nell1"]["fit_witness"], report, args.reps)
-    del oracle
     per_kernel["mttkrp_fused_compact"] = (rows7, nell1)
+    t21 = time.perf_counter()
+    phase_rotation_graph(kmt, t, factors, oracle, report)
+    del oracle
+    log(f"[21] {time.perf_counter() - t21:.1f} s")
     coo8, cache8, rows8, errs8, launches8 = phase_rect(kmt, report,
                                                        args.reps)
     for k in RECT_NEW:

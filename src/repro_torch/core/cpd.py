@@ -10,9 +10,11 @@ in its ``fold`` hook. Fit uses the sparse-CPD identity
     ||X - X_hat||^2 = ||X||^2 - 2<X, X_hat> + ||X_hat||^2.
 
 The Gram products and the R x R solve stay library calls
-(``torch.matmul``, ``torch.linalg.solve``), as the reference leaves them
-to XLA; TF32 is switched off so they run in full f32, as the reference
-runs ``precision="float32"``. ``cp_als`` takes the reference's
+(``torch.matmul``, ``torch.linalg.solve_ex``), as the reference leaves
+them to XLA; on the card the fold runs inside the rotation's CUDA graph
+(``engine.all_modes``), as the reference's runs inside its scan. TF32 is
+switched off so they run in full f32, as the reference runs
+``precision="float32"``. ``cp_als`` takes the reference's
 resilience arguments (``ladder``, ``checkpoint``, ``checkpoint_every``,
 ``resume``; :mod:`repro_torch.resilience`) and its ``mesh`` / ``dist``:
 the sweep is then ``engine.dist.dist_all_modes`` over the shards, with
@@ -70,7 +72,10 @@ def _als_update(mttkrp_out, grams_other, eps=1e-8):
     r = v.shape[0]
     ridge = eps + 1e-6 * torch.trace(v) / r
     v = v + ridge * torch.eye(r, dtype=v.dtype, device=v.device)
-    y = torch.linalg.solve(v.T, mttkrp_out.T).T
+    # solve_ex without its error check: ``solve`` reads the LU info back
+    # (a sync that a CUDA graph's capture forbids); the same result, and a
+    # singular V still shows as NaN/Inf, which the sweep's guard catches
+    y = torch.linalg.solve_ex(v.T, mttkrp_out.T, check_errors=False)[0].T
     lam = torch.linalg.vector_norm(y, dim=0)
     lam = torch.where(lam < eps, 1.0, lam)
     return (y / lam).contiguous(), lam
@@ -177,8 +182,9 @@ def cp_als(tensor: FlycooTensor, rank: int, iters: int = 10,
       start, so ``(factors, lam)`` are the whole state, and on the CPU
       the result is bitwise the uninterrupted run's.
 
-    The rotation is eager (a Python loop, the fold after each mode), so a
-    build failure at mode d > 0 comes after modes 0..d-1 have updated the
+    A state's first rotation is the eager loop (the fold after each
+    mode; on the card later sweeps replay its CUDA graph), so a build
+    failure at mode d > 0 comes after modes 0..d-1 have updated the
     factors. The backend rung therefore restores the sweep's starting
     ``(factors, lam)`` and rebuilds the state from the tensor under the
     next backend before it replays the sweep.

@@ -28,8 +28,8 @@ counter label and a ``resilience.*`` span, every injected fault a
 rungs: ``permute -> all_gather`` on an exchange failure, a re-shard on
 the surviving mesh on a device loss, retries of a transient dispatch.
 """
-from .api import (DISPATCH_COUNTS, FoldFn, all_modes, init, mttkrp,
-                  reset_counters)
+from .api import (DISPATCH_COUNTS, FoldFn, Rotation, all_modes,
+                  all_modes_eager, init, mttkrp, reset_counters)
 from .autotune import (AutotuneResult, analytic_cost, autotune, hill_climb,
                        modeled_cost)
 from .backends import BACKENDS, get_backend, register_backend
@@ -43,7 +43,8 @@ from .stream import (StreamPlan, StreamState, StreamStats, cp_als_stream,
                      plan_stream, resident_bytes, stream_all_modes,
                      stream_init, stream_mttkrp, stream_transfer_model)
 
-__all__ = ["init", "mttkrp", "all_modes", "reset_counters",
+__all__ = ["init", "mttkrp", "all_modes", "all_modes_eager", "Rotation",
+           "reset_counters",
            "DISPATCH_COUNTS", "FoldFn", "BACKENDS", "get_backend",
            "register_backend", "ExecutionConfig",
            "EngineState", "ModeSched", "ModeStatic", "PlanSpec",

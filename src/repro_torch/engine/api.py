@@ -8,12 +8,17 @@ The paper's Alg. 5 as functions over an immutable
   mttkrp(state, factors[, mode])  -> (out, EngineState)    (one mode + remap)
   all_modes(state, factors)       -> (outs, EngineState)   (full rotation)
 
-The reference runs the rotation as one jitted ``lax.scan``; PyTorch runs
-eagerly, so here it is a plain Python loop over the modes (a CUDA graph of
-the rotation comes with a later slice). The rotation may start at any
-resident mode, and the optional ``fold`` hook runs after each mode's
-MTTKRP with that mode's output — how CPD-ALS updates the factors
-Gauss-Seidel style inside the sweep.
+The reference runs the rotation as one jitted ``lax.scan``, its layout
+donated and the ALS fold inside it. Here the rotation is a Python loop of
+mode steps (:func:`all_modes_eager`, what runs on the CPU); on the card
+``all_modes`` captures that loop, ``fold`` included, into one CUDA graph,
+keyed as the reference's jit cache is (``state.aux_key()``, ``fold`` and
+the factors' shapes), and replays it for every later call with the same
+key (:class:`Rotation`). The first call of a key runs the loop eagerly
+(its result is the caller's), then captures it. The rotation may start
+at any resident mode, and the optional ``fold`` hook runs after each
+mode's MTTKRP with that mode's output — how CPD-ALS updates the factors
+Gauss-Seidel style inside the sweep. ``mttkrp`` (one mode) stays eager.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.cuda_graphs import capture
+from repro_torch.kernels import mttkrp as _kmt
 from repro_torch.kernels.mttkrp import (WorkTable, block_starts,
                                         default_cap, rect_cap, rect_work,
                                         remap_plain, split_ranges,
@@ -229,10 +236,11 @@ def mode_layout(state: EngineState, layout3, d: int) -> dict:
             **state.sched[d]._asdict()}
 
 
-def _mode_step(state: EngineState, layout3, factors, d: int):
+def _mode_step(state: EngineState, layout3, factors, d: int, out3=None):
     """EC for mode ``d`` on the resident ``layout3 = (val, idx, alpha)``
-    and the remap into the mode-``d+1`` layout. Returns ``(out (I_d, R)
-    in user row space, next layout3)``."""
+    and the remap into the mode-``d+1`` layout (a fusing backend writes
+    it into ``out3`` when given). Returns ``(out (I_d, R) in user row
+    space, next layout3)``."""
     plan, config, smax = state.statics[d], state.config, state.smax
     nxt = (d + 1) % state.nmodes
     backend = get_backend(config)
@@ -242,7 +250,8 @@ def _mode_step(state: EngineState, layout3, factors, d: int):
     layout = mode_layout(state, layout3, d)
     if fused is not None:
         out_rel, nl = fused(layout, tuple(factors), d, plan=plan,
-                            config=config, smax=smax, next_mode=nxt)
+                            config=config, smax=smax, next_mode=nxt,
+                            **({} if out3 is None else {"out": out3}))
     else:
         out_rel = backend(layout, tuple(factors), d, plan=plan,
                           config=config)
@@ -277,6 +286,108 @@ def mttkrp(state: EngineState, factors: Sequence[torch.Tensor],
                               mode=(d + 1) % state.nmodes)
 
 
+def _rotate(state: EngineState, layout3, factors: tuple, fold, carry,
+            out3=None):
+    """The rotation's mode steps from ``layout3``, ``fold`` after each:
+    ``(outs, layout3, factors, carry)``; a fusing backend's last step
+    writes the rotated-back layout into ``out3`` when given."""
+    n, m0 = state.nmodes, state.mode
+    outs: list = [None] * n
+    for i in range(n):
+        d = (m0 + i) % n
+        last = {"out3": out3} if i == n - 1 and out3 is not None else {}
+        outs[d], layout3 = _mode_step(state, layout3, factors, d, **last)
+        if fold is not None:
+            factors, carry = fold(d, outs[d], factors, carry)
+    return outs, layout3, factors, carry
+
+
+class Rotation:
+    """One rotation captured into a CUDA graph on static buffers: the
+    layout ``(val, idx, alpha)``, the factors and the fold's carry (a
+    tensor or ``None``). The graph runs the mode steps from the layout
+    buffers, and its last step writes the rotated-back layout into them
+    (the fused remap; a copy after ``remap_plain``), which the first
+    step alone reads: so a donated state that holds them is replayed
+    with no copy in, and any other state's layout is copied in first.
+    The outputs, factors and carry are the graph's own buffers, which
+    the next replay overwrites (:func:`all_modes` hands out clones). A
+    replay launches the kernels its capture recorded, so their counts
+    (``kernels.mttkrp.LAUNCHES``) are added at each replay; the capture
+    itself launches nothing and counts nothing."""
+
+    def __init__(self, state: EngineState, factors: tuple, fold, carry):
+        self.layout = tuple(t.clone() for t in (state.val, state.idx,
+                                                state.alpha))
+        self.factors = tuple(f.clone() for f in factors)
+        self.carry = None if carry is None else carry.clone()
+        self.fold = fold is not None
+        before = dict(_kmt.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with capture(self.graph, state.val.device):
+                self.outs, layout3, self.out_factors, self.out_carry = \
+                    _rotate(state, self.layout, self.factors, fold,
+                            self.carry, out3=self.layout)
+                if layout3[0] is not self.layout[0]:
+                    for buf, new in zip(self.layout, layout3):
+                        buf.copy_(new)
+        finally:
+            self.launches = {k: _kmt.LAUNCHES[k] - v
+                             for k, v in before.items()}
+            _kmt.LAUNCHES.update(before)
+
+    def run(self, state: EngineState, factors: tuple, carry):
+        """Replay on ``state``'s layout, ``factors`` and ``carry``:
+        ``(outs, layout3, factors, carry)``, the outputs cloned, the
+        layout the graph's buffers themselves (cloned unless the state's
+        config donates)."""
+        layout3 = (state.val, state.idx, state.alpha)
+        if layout3[0] is not self.layout[0]:
+            for buf, t in zip(self.layout, layout3):
+                buf.copy_(t)
+        for buf, f in zip(self.factors, factors):
+            if f is not buf:
+                buf.copy_(f)
+        if carry is not None:
+            self.carry.copy_(carry)
+        self.graph.replay()
+        for k, v in self.launches.items():
+            _kmt.LAUNCHES[k] += v
+        layout3 = self.layout if state.config.resolve_donate() \
+            else tuple(t.clone() for t in self.layout)
+        if not self.fold:         # all_modes returns no factors or carry
+            return [o.clone() for o in self.outs], layout3, None, None
+        return ([o.clone() for o in self.outs], layout3,
+                tuple(f.clone() for f in self.out_factors),
+                None if self.out_carry is None else self.out_carry.clone())
+
+
+def _graph_rotation(state: EngineState, factors: tuple, fold, carry):
+    """The rotation on the card: a replay of the state's graph for this
+    key, or, the first time, the eager loop and then the capture."""
+    if carry is not None and not torch.is_tensor(carry):
+        raise TypeError(f"a rotation graph carries None or a tensor, not a "
+                        f"{type(carry).__name__}")
+    key = (state.aux_key(), fold, tuple(tuple(f.shape) for f in factors),
+           None if carry is None else (tuple(carry.shape), carry.dtype))
+    rot = state.graphs.get(key)
+    if rot is not None:
+        return rot.run(state, factors, carry)
+    res = _rotate(state, (state.val, state.idx, state.alpha), factors, fold,
+                  carry)
+    state.graphs[key] = Rotation(state, factors, fold, carry)
+    return res
+
+
+def _finish(state: EngineState, res, fold):
+    outs, (nval, nidx, nalpha), factors, carry = res
+    next_state = state.replace(val=nval, idx=nidx, alpha=nalpha)
+    if fold is None:
+        return list(outs), next_state
+    return list(outs), next_state, list(factors), carry
+
+
 def all_modes(state: EngineState, factors: Sequence[torch.Tensor], *,
               fold: FoldFn | None = None, carry=None):
     """spMTTKRP along all N modes, starting from the resident
@@ -285,30 +396,44 @@ def all_modes(state: EngineState, factors: Sequence[torch.Tensor], *,
 
     Without ``fold``: returns ``(outs, next_state)``.
     With ``fold``: returns ``(outs, next_state, factors, carry)`` — the
-    hook runs right after each mode's output.
+    hook runs right after each mode's output (``carry``: ``None`` or a
+    tensor on the card).
+
+    On the card the rotation is one replay of a CUDA graph
+    (:class:`Rotation`, cached on the state for every state made from
+    it); with ``config.resolve_donate()`` the returned state holds the
+    graph's layout buffers and the state passed in is consumed, else the
+    input state stays valid and the returned one owns copies. On the CPU
+    it is :func:`all_modes_eager`.
     """
-    n, m0 = state.nmodes, state.mode
     _c = _chaos.active()
     if _c is not None:
         _c.on_dispatch(state.config.backend)
     DISPATCH_COUNTS["all_modes"] += 1
     factors = tuple(factors)
-    outs: list = [None] * n
-    layout3 = (state.val, state.idx, state.alpha)
-    with span("engine.dispatch", kind="all_modes", start_mode=m0):
-        for i in range(n):
-            d = (m0 + i) % n
-            outs[d], layout3 = _mode_step(state, layout3, factors, d)
-            if fold is not None:
-                factors, carry = fold(d, outs[d], factors, carry)
-    nval, nidx, nalpha = layout3
-    next_state = state.replace(val=nval, idx=nidx, alpha=nalpha)
-    if fold is None:
-        return outs, next_state
-    return outs, next_state, list(factors), carry
+    with span("engine.dispatch", kind="all_modes", start_mode=state.mode):
+        if state.val.device.type == "cuda":
+            res = _graph_rotation(state, factors, fold, carry)
+        else:
+            res = _rotate(state, (state.val, state.idx, state.alpha),
+                          factors, fold, carry)
+    return _finish(state, res, fold)
 
 
-__all__ = ["init", "mttkrp", "all_modes", "reset_counters", "mode_layout",
+def all_modes_eager(state: EngineState, factors: Sequence[torch.Tensor], *,
+                    fold: FoldFn | None = None, carry=None):
+    """:func:`all_modes` as the eager loop of mode steps on any device
+    (the graph's body and its yardstick on the card); the input state
+    stays valid."""
+    with span("engine.dispatch", kind="all_modes_eager",
+              start_mode=state.mode):
+        res = _rotate(state, (state.val, state.idx, state.alpha),
+                      tuple(factors), fold, carry)
+    return _finish(state, res, fold)
+
+
+__all__ = ["init", "mttkrp", "all_modes", "all_modes_eager", "Rotation",
+           "reset_counters", "mode_layout",
            "mode_sched_arrays", "place_sched", "mode_work", "mode_cap",
            "layout_work", "as_flycoo",
            "DISPATCH_COUNTS", "FoldFn"]

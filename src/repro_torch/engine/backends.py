@@ -220,9 +220,11 @@ def ec_cuda_fused(layout, factors, mode: int, *, plan: ModeStatic,
 
 
 def _cuda_fused_remap(layout, factors, mode: int, *, plan: ModeStatic,
-                      config: ExecutionConfig, smax: int, next_mode: int):
+                      config: ExecutionConfig, smax: int, next_mode: int,
+                      out=None):
     """EC + Alg. 3 remap in ONE kernel pass (``mttkrp_fused_remap_compact``
-    or, under rect, ``mttkrp_fused_remap``)."""
+    or, under rect, ``mttkrp_fused_remap``); the next layout into ``out``
+    when given."""
     inputs = _inputs(factors, mode)
     if plan.schedule == "compact":
         out_rel, nval, nidx, nalpha = kmt.mttkrp_fused_remap_compact(
@@ -231,14 +233,14 @@ def _cuda_fused_remap(layout, factors, mode: int, *, plan: ModeStatic,
             inputs, kappa=plan.kappa, rows_pp=plan.rows_pp,
             nblocks=plan.nblocks, block_p=plan.block_p, smax=smax,
             next_mode=next_mode, pstart=layout.get("pstart"),
-            work=_work(layout))
+            work=_work(layout), out=out)
     else:
         out_rel, nval, nidx, nalpha = kmt.mttkrp_fused_remap(
             layout["val"], layout["idx"], layout["alpha"], layout["lrow"],
             fused_lidx(layout["idx"], mode), inputs, kappa=plan.kappa,
             rows_pp=plan.rows_pp, blocks_pp=plan.blocks_pp,
             block_p=plan.block_p, smax=smax, next_mode=next_mode,
-            pstart=layout.get("pstart"), work=_work(layout))
+            pstart=layout.get("pstart"), work=_work(layout), out=out)
     return out_rel, (nval, nidx, nalpha)
 
 

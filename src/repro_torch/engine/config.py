@@ -2,8 +2,11 @@
 
 ``ExecutionConfig`` mirrors ``repro.engine.config.ExecutionConfig``: the
 same fields and meanings, minus Pallas ``interpret`` (a CUDA kernel has no
-interpret mode) and ``donate`` (no meaning in eager PyTorch), plus
-``device``. The streaming fields (``residency``, ``chunk_nnz``,
+interpret mode), plus ``device``. ``donate`` keeps the reference's
+meaning for the rotation that ``engine.all_modes`` replays as one CUDA
+graph on the card: the returned state takes over the graph's layout
+buffers, with no second live copy, and the state passed in is consumed.
+The streaming fields (``residency``, ``chunk_nnz``,
 ``device_budget_bytes``, ``stream_ring``) are the reference's, with its
 validation.
 
@@ -88,6 +91,12 @@ class ExecutionConfig:
       rows_pp: rows per partition for the ``"smem"`` policy (``None`` =
         derive from ``smem_budget_bytes``).
       precision: accumulation dtype name (``"float32"``).
+      donate: hand the rotation graph's layout buffers to the returned
+        state (``engine.all_modes``: the paper's T_in/T_out swap without a
+        second live copy; the state passed in is consumed, as a donated
+        JAX buffer is). ``None`` = donate on the card, where the
+        reference donates on a TPU or GPU; the CPU runs the eager loop,
+        which never writes its input.
       fuse_remap: let a fusing backend (``cuda_fused``) emit the Alg. 3
         remap inside its kernel; ``False`` forces the ``index_copy_``
         remap for any backend (the comparison baseline).
@@ -118,6 +127,7 @@ class ExecutionConfig:
     kappa: int | None = None
     rows_pp: int | None = None
     precision: str = "float32"
+    donate: bool | None = None
     fuse_remap: bool = True
     dedup: bool = True
     smem_budget_bytes: int = SMEM_PER_BLOCK
@@ -159,6 +169,11 @@ class ExecutionConfig:
     @property
     def torch_device(self) -> torch.device:
         return torch.device(self.device or "cuda")
+
+    def resolve_donate(self) -> bool:
+        if self.donate is None:
+            return self.torch_device.type == "cuda"
+        return bool(self.donate)
 
     def accum_dtype(self) -> torch.dtype:
         return getattr(torch, self.precision)

@@ -15,7 +15,10 @@ Tensor fields:
   sched    N x ModeSched      per-mode block-schedule tables
 
 Plain fields: ``mode`` (resident layout), ``dims``, ``statics``
-(per-mode plan constants), ``config``.
+(per-mode plan constants), ``config``; and ``graphs``, the rotation
+graphs that ``engine.all_modes`` captured for this state and every state
+made from it by ``replace`` (they share its relabel and schedule
+tensors, which the graphs read): freed with the last of them.
 """
 from __future__ import annotations
 
@@ -109,6 +112,8 @@ class EngineState:
     dims: tuple[int, ...]
     statics: tuple[ModeStatic, ...]
     config: ExecutionConfig
+    graphs: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     @property
     def nmodes(self) -> int:
@@ -118,6 +123,11 @@ class EngineState:
     def smax(self) -> int:
         """Uniform physical slot count (max over per-mode padded sizes)."""
         return max(s.padded_nnz for s in self.statics)
+
+    def aux_key(self):
+        """Hashable key of every static property of this state (the
+        reference's)."""
+        return (self.mode, self.dims, self.statics, self.config)
 
     def replace(self, **kw) -> "EngineState":
         return dataclasses.replace(self, **kw)

@@ -618,10 +618,11 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _remap_outputs(s, remap, nm1, device):
+def _remap_outputs(s, remap, nm1, device, out=None):
     """Check the remap arguments; return them with the next layout filled
     with the pad pattern (the kernel writes the alive slots, a
-    permutation, over it)."""
+    permutation, over it): new tensors, or the caller's ``out`` (nval,
+    nidx, nalpha), which must not be the layout the kernel reads."""
     idx, alpha, smax, next_mode = remap
     n = idx.shape[1]
     if not (s <= smax and 0 <= next_mode < n and n == nm1 + 1):
@@ -630,9 +631,22 @@ def _remap_outputs(s, remap, nm1, device):
     i32 = torch.int32
     _check("idx", idx, i32, (s, n), device)
     _check("alpha", alpha, i32, (s, n), device)
-    nval = torch.zeros(smax, dtype=torch.float32, device=device)
-    nidx = torch.zeros((smax, n), dtype=i32, device=device)
-    nalpha = torch.full((smax, n), -1, dtype=i32, device=device)
+    if out is None:
+        nval = torch.zeros(smax, dtype=torch.float32, device=device)
+        nidx = torch.zeros((smax, n), dtype=i32, device=device)
+        nalpha = torch.full((smax, n), -1, dtype=i32, device=device)
+    else:
+        nval, nidx, nalpha = out
+        for name, t, dt, shape in (("out nval", nval, torch.float32,
+                                    (smax,)),
+                                   ("out nidx", nidx, i32, (smax, n)),
+                                   ("out nalpha", nalpha, i32, (smax, n))):
+            _check(name, t, dt, shape, device)
+        if nidx.data_ptr() == idx.data_ptr():
+            raise ValueError("remap: out is the layout the kernel reads")
+        nval.zero_()
+        nidx.zero_()
+        nalpha.fill_(-1)
     return idx, alpha, n, next_mode, nval, nidx, nalpha
 
 
@@ -677,6 +691,11 @@ def _table(work, *, kappa, nblocks, device, pstart=None, bpart=None):
     one device-to-host copy."""
     if work is not None:
         return work
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a kernel called without its work table inside "
+                           "a CUDA graph capture: deriving the table reads "
+                           "pstart back (a sync); engine.init builds the "
+                           "tables once per mode")
     if pstart is None:
         pstart = block_starts(bpart, kappa)
     return work_chunks(pstart.cpu(), default_cap(nblocks)).to(device)
@@ -748,13 +767,14 @@ def _vec(rank, factors):
 
 def balanced_passes(val, lrow, upos, bpart, uidx, nuniq, factors, *, kappa,
                     rows_pp, nblocks, block_p, pstart=None, work=None,
-                    remap=None):
+                    remap=None, out=None):
     """Validate and allocate for ``csrc/mttkrp_balanced.cu``; returns
     ``(outs, main, second)`` as :func:`_passes` does. The main kernel
     fills ``out_rel`` (and the next layout) except a split partition's
     rows, which the second pass writes. Without ``work`` the table is
     derived from ``pstart`` (or ``bpart``) with one device-to-host copy.
-    The wrappers run both passes; ``chip_smoke.py`` times them apart."""
+    The wrappers run both passes; ``chip_smoke.py`` times them apart.
+    ``out``: the remap's next-layout buffers (:func:`_remap_outputs`)."""
     device = val.device
     factors, nm1, rank = _inputs(factors)
     s = nblocks * block_p
@@ -775,7 +795,7 @@ def balanced_passes(val, lrow, upos, bpart, uidx, nuniq, factors, *, kappa,
         _check("pstart", pstart, i32, (kappa + 1,), device)
     if work is not None:
         _check_work(work, kappa, nblocks, device)
-    remap = remap and _remap_outputs(s, remap, nm1, device)
+    remap = remap and _remap_outputs(s, remap, nm1, device, out)
     _check_cuda(device)
     work = _table(work, kappa=kappa, nblocks=nblocks, device=device,
                   pstart=pstart, bpart=bpart)
@@ -789,7 +809,7 @@ def balanced_passes(val, lrow, upos, bpart, uidx, nuniq, factors, *, kappa,
 
 
 def gather_passes(val, lrow, lidx, factors, *, kappa, rows_pp, nblocks,
-                  block_p, pstart=None, work=None, remap=None):
+                  block_p, pstart=None, work=None, remap=None, out=None):
     """Validate and allocate for ``csrc/mttkrp_gather.cu`` (rect, each
     slot's rows read through ``lidx``); ``(outs, main, second)`` as
     :func:`balanced_passes`, the table derived from ``pstart`` when not
@@ -812,7 +832,7 @@ def gather_passes(val, lrow, lidx, factors, *, kappa, rows_pp, nblocks,
         _check("pstart", pstart, i32, (kappa + 1,), device)
     if work is not None:
         _check_work(work, kappa, nblocks, device)
-    remap = remap and _remap_outputs(s, remap, nm1, device)
+    remap = remap and _remap_outputs(s, remap, nm1, device, out)
     _check_cuda(device)
     work = _table(work, kappa=kappa, nblocks=nblocks, device=device,
                   pstart=pstart)
@@ -931,24 +951,35 @@ def mttkrp_fused_gather(val, lrow, lidx, factors, *, kappa, rows_pp,
     return out
 
 
+def _into(res, out):
+    """A plain remap's ``(out_rel, nval, nidx, nalpha)`` with the layout
+    copied into ``out`` when given."""
+    if out is None:
+        return res
+    for o, t in zip(out, res[1:]):
+        o.copy_(t)
+    return (res[0], *out)
+
+
 def mttkrp_fused_remap(val, idx, alpha, lrow, lidx, factors, *, kappa,
                        rows_pp, blocks_pp, block_p, smax, next_mode,
-                       pstart=None, work=None):
+                       pstart=None, work=None, out=None):
     """Rect EC + Alg. 3 remap in one pass; returns ``(out_rel, nval
-    (smax,), nidx (smax, N), nalpha (smax, N))``. ``work`` as in
-    :func:`mttkrp_fused`: a skipped block holds only pads, which the
+    (smax,), nidx (smax, N), nalpha (smax, N))``, the next layout written
+    into ``out`` when given (the rotation graph's buffers). ``work`` as
+    in :func:`mttkrp_fused`: a skipped block holds only pads, which the
     remap leaves in the pad-filled next layout."""
     if val.device.type == "cpu":
-        return mttkrp_fused_remap_plain(
+        return _into(mttkrp_fused_remap_plain(
             val, idx, alpha, lrow, lidx, factors, kappa=kappa,
             rows_pp=rows_pp, blocks_pp=blocks_pp, block_p=block_p,
-            smax=smax, next_mode=next_mode)
+            smax=smax, next_mode=next_mode), out)
     if pstart is None and work is None:
         pstart = rect_block_starts(kappa, blocks_pp, val.device)
     outs = _run(*gather_passes(
         val, lrow, lidx, factors, kappa=kappa, rows_pp=rows_pp,
         nblocks=kappa * blocks_pp, block_p=block_p, pstart=pstart,
-        work=work, remap=(idx, alpha, smax, next_mode)))
+        work=work, remap=(idx, alpha, smax, next_mode), out=out))
     LAUNCHES["mttkrp_fused_remap"] += 1
     return outs
 
@@ -978,20 +1009,21 @@ def mttkrp_fused_gather_compact(val, lrow, upos, bpart, uidx, nuniq, factors,
 def mttkrp_fused_remap_compact(val, idx, alpha, lrow, upos, bpart, uidx,
                                nuniq, factors, *, kappa, rows_pp, nblocks,
                                block_p, smax, next_mode, pstart=None,
-                               work=None):
+                               work=None, out=None):
     """Compact EC + Alg. 3 remap in one pass; returns ``(out_rel, nval
-    (smax,), nidx (smax, N), nalpha (smax, N))``. ``work`` as in
-    :func:`mttkrp_fused_gather_compact` (derived, with one sync, when not
-    given)."""
+    (smax,), nidx (smax, N), nalpha (smax, N))``, the next layout written
+    into ``out`` when given (the rotation graph's buffers). ``work`` as
+    in :func:`mttkrp_fused_gather_compact` (derived, with one sync, when
+    not given)."""
     if val.device.type == "cpu":
-        return mttkrp_fused_remap_compact_plain(
+        return _into(mttkrp_fused_remap_compact_plain(
             val, idx, alpha, lrow, upos, bpart, uidx, nuniq, factors,
             kappa=kappa, rows_pp=rows_pp, nblocks=nblocks, block_p=block_p,
-            smax=smax, next_mode=next_mode)
+            smax=smax, next_mode=next_mode), out)
     outs = _run(*balanced_passes(
         val, lrow, upos, bpart, uidx, nuniq, factors, kappa=kappa,
         rows_pp=rows_pp, nblocks=nblocks, block_p=block_p, pstart=pstart,
-        work=work, remap=(idx, alpha, smax, next_mode)))
+        work=work, remap=(idx, alpha, smax, next_mode), out=out))
     LAUNCHES["mttkrp_fused_remap_compact"] += 1
     return outs
 

@@ -15,7 +15,9 @@ whisper-large-v3 --smoke --device cpu`` runs the encoder-decoder here;
 its requests take 64 stub frame embeddings, standard normal from
 ``--seed``). ``--max-len`` sizes the attention layers' KV caches (a local
 layer keeps at most its window); a causal layer's must hold the prompt
-and the new tokens, or the engine refuses the request.
+and the new tokens, or the engine refuses the request. On the card the
+engine replays one captured decode step (a CUDA graph) on bf16 working
+copies of the weights (``serving.Engine``).
 """
 from __future__ import annotations
 

@@ -59,8 +59,8 @@ def cache_shardings(cache, ctx: shlib.ShardingCtx):
     only where its mesh extent divides that dimension; ``state``,
     ``conv``, ``last``, ``last_c`` and ``h`` take the dp axes on the batch
     where they divide it; every other leaf (``k_scale`` / ``v_scale`` of
-    the int8 cache) is replicated, and the position counters (``len``,
-    ``kv_len``: Python ints) get ``None``."""
+    the int8 cache, the 0-d ``len`` position, as the reference's) is
+    replicated, and ``kv_len`` (a Python int) gets ``None``."""
     def rule(name, leaf):
         if not isinstance(leaf, torch.Tensor):
             return None

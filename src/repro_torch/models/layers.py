@@ -94,6 +94,13 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+#: The attention leaves a decode step casts to the compute dtype at use
+#: (``q_scale`` / ``k_scale`` it reads in float32).
+ATTN_CAST = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+#: The MLP leaves :func:`apply_mlp` casts at use.
+MLP_CAST = ("w_gate", "w_up", "w_down")
+
+
 def _proj(x, w, dt):
     """einsum ``bsd,dhk->bshk`` as one matrix product."""
     b, s, _ = x.shape
@@ -255,40 +262,69 @@ def mlp_split(p, cfg: ModelConfig) -> bool:
     return p.w_up.shape[-1] < cfg.d_ff
 
 
+def position(cache: dict, device) -> torch.Tensor:
+    """A cache's position ``len``: a 0-d int64 tensor on the cache's
+    device (a Python int, as a hand-made cache may hold, becomes one on
+    ``device``)."""
+    pos = cache["len"]
+    return pos if torch.is_tensor(pos) else torch.tensor(pos, device=device)
+
+
+def check_room(pos: torch.Tensor, smax: int) -> None:
+    """Refuse a write at ``pos`` past a causal cache of ``smax``
+    positions. The check reads the position back (a sync on the card); a
+    ``meta`` position has no value, and a CUDA graph's capture cannot
+    read one, so both skip it: ``serving.Engine`` checks its host
+    counter before any work instead."""
+    if pos.device.type == "meta" or (
+            pos.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return
+    if int(pos) >= smax:
+        raise ValueError(f"attention_decode: the causal KV cache holds "
+                         f"{smax} positions and is full (position "
+                         f"{int(pos)})")
+
+
 def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
                      mask: str = "causal", use_rope: bool = True,
                      cross: bool = False):
-    """One-token decode. cache: {"k", "v": (B, Smax, KV, hd), "len": int}
-    (with ``kv_quant`` int8 ``k`` / ``v`` and float32 ``k_scale`` /
-    ``v_scale`` of (B, Smax, KV, 1)). Self-attention writes the new key
-    and value at ``len`` (modulo Smax for a windowed layer: a ring
-    buffer) into copies; returns (out, new cache). A full causal cache
-    raises (the reference clamps the write to its last slot).
-    Cross-attention (``cross``) reads the encoder's keys and values, the
-    first ``kv_len`` of them, and writes nothing."""
+    """One-token decode. cache: {"k", "v": (B, Smax, KV, hd), "len": a
+    0-d int64 tensor on the cache's device} (with ``kv_quant`` int8 ``k``
+    / ``v`` and float32 ``k_scale`` / ``v_scale`` of (B, Smax, KV, 1)).
+    Self-attention writes the new key and value at ``len`` (modulo Smax
+    for a windowed layer: a ring buffer) in place (``index_copy_`` at a
+    device slot, so a CUDA graph replays it at each step's position);
+    returns (out, new cache), the new cache holding the same key and
+    value tensors and ``len + 1``. The RoPE positions, the slot and the
+    valid keys come from the device position. A full causal cache raises
+    (:func:`check_room`; the reference clamps the write to its last
+    slot). Cross-attention (``cross``) reads the encoder's keys and
+    values, the first ``kv_len`` of them, and writes nothing."""
     b = xq.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kvh
     dt = cfg.cdtype
-    pos = cache["len"]
     smax = cache["k"].shape[1]
-    if not cross and mask != "window" and pos >= smax:
-        raise ValueError(f"attention_decode: the causal KV cache holds "
-                         f"{smax} positions and is full (position {pos})")
-    posv = torch.full((b, 1), pos, device=xq.device)
-
     q = _proj(xq, p.wq, dt)
     if hasattr(p, "bq"):
         q = q + p.bq.to(dt)
     if hasattr(p, "q_scale"):
         q = rms_head_norm(q, p.q_scale)
-    if use_rope:
-        q = apply_rope(q, posv, cfg.rope_theta)
     if cross:
+        if use_rope:
+            q = apply_rope(q, position(cache, xq.device).expand(b, 1),
+                           cfg.rope_theta)
         k, v = cache["k"], cache["v"]
-        n_valid = cache.get("kv_len", smax)
         new_cache = cache
+        valid = torch.arange(smax, device=xq.device) < cache.get("kv_len",
+                                                                 smax)
     else:
+        pos = position(cache, xq.device)
+        if mask != "window":
+            check_room(pos, smax)
+        posv = pos.expand(b, 1)
+        if use_rope:
+            q = apply_rope(q, posv, cfg.rope_theta)
         knew, vnew = _proj(xq, p.wk, dt), _proj(xq, p.wv, dt)
         if hasattr(p, "bk"):
             knew = knew + p.bk.to(dt)
@@ -302,16 +338,16 @@ def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
         if "k_scale" in cache:                          # int8 KV cache
             for name, row in (("k", knew), ("v", vnew)):
                 rq, rs = _quantize_rows(row)
-                new_cache[name] = _write(cache[name], slot, rq)
-                new_cache[f"{name}_scale"] = _write(cache[f"{name}_scale"],
-                                                    slot, rs)
-            k, v = ((new_cache[n].float() * new_cache[f"{n}_scale"]).to(dt)
+                _write(cache[name], slot, rq)
+                _write(cache[f"{name}_scale"], slot, rs)
+            k, v = ((cache[n].float() * cache[f"{n}_scale"]).to(dt)
                     for n in ("k", "v"))
         else:
-            k = new_cache["k"] = _write(cache["k"], slot, knew.to(dt))
-            v = new_cache["v"] = _write(cache["v"], slot, vnew.to(dt))
-        n_valid = min(pos + 1, smax) if mask == "window" else pos + 1
-    valid = torch.arange(smax, device=xq.device) < n_valid
+            k = _write(cache["k"], slot, knew.to(dt))
+            v = _write(cache["v"], slot, vnew.to(dt))
+        # a ring's slots all hold keys once it wrapped: arange < min(pos
+        # + 1, smax) is arange <= pos for both masks
+        valid = torch.arange(smax, device=xq.device) <= pos
 
     qg = q.reshape(b, kvh, g, hd)                    # heads as (n, g)
     logits = (qg @ k.permute(0, 2, 3, 1)).float()    # (B, KV, g, Smax)
@@ -322,9 +358,10 @@ def attention_decode(p, xq, cache: dict, cfg: ModelConfig, *,
     return o @ p.wo.to(dt).flatten(0, 1), new_cache
 
 
-def owns_slot(j: int, slot: int, s_loc: int) -> bool:
+def owns_slot(j: int, slot, s_loc: int):
     """Whether model shard ``j``'s slice of a sequence-split cache
-    (``s_loc`` positions from ``j * s_loc``) holds ``slot``."""
+    (``s_loc`` positions from ``j * s_loc``) holds ``slot`` (a 0-d
+    tensor: the answer is one too)."""
     return slot // s_loc == j
 
 
@@ -405,20 +442,18 @@ def attention_decode_tp(ps, xs, caches, cfg: ModelConfig, *,
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kvh
     dt = cfg.cdtype
-    pos = caches[0]["len"]
     s_loc = caches[0]["k"].shape[1]
     smax = s_loc * m if seq_split else s_loc
-    if not cross and mask != "window" and pos >= smax:
-        raise ValueError(f"attention_decode: the causal KV cache holds "
-                         f"{smax} positions and is full (position {pos})")
-    posvs = [torch.full((b, 1), pos, device=x.device) for x in xs]
+    poss = [position(c, x.device) for c, x in zip(caches, xs)]
+    if not cross and mask != "window":
+        check_room(poss[0], smax)
+    posvs = [pos.expand(b, 1) for pos in poss]
     q_split = ps[0].wq.shape[1] < h
     qs = [_decode_queries(p, x, cfg, j, q_split, posv, use_rope)
           for j, (p, x, posv) in enumerate(zip(ps, xs, posvs))]
     if q_split:
         qs = sharding.all_gather(qs, 2)                    # (B, 1, H, hd)
     if cross:
-        n_valid = caches[0].get("kv_len", smax)
         new_caches = list(caches)
     else:
         kv_split = ps[0].wk.shape[1] < kvh
@@ -428,21 +463,26 @@ def attention_decode_tp(ps, xs, caches, cfg: ModelConfig, *,
         if kv_split:
             knew, vnew = (sharding.all_gather(knew, 2),
                           sharding.all_gather(vnew, 2))
-        slot = pos % smax if mask == "window" else pos
         new_caches = []
-        for j, c in enumerate(caches):
+        for j, (c, pos) in enumerate(zip(caches, poss)):
+            slot = pos % smax if mask == "window" else pos
             nc = {**c, "len": pos + 1}
-            mine = not seq_split or owns_slot(j, slot, s_loc)
             for name, row in (("k", knew[j]), ("v", vnew[j])):
                 if "k_scale" in c:                      # int8 KV cache
                     row, rs = _quantize_rows(row)
-                    nc[f"{name}_scale"] = _write(c[f"{name}_scale"], slot,
-                                                 rs, scale_rows)
-                if mine:
-                    nc[name] = _write(c[name], slot % s_loc, row.to(
-                        c[name].dtype))
+                    nc[f"{name}_scale"] = _written(c[f"{name}_scale"],
+                                                   slot, rs, scale_rows)
+                row = row.to(c[name].dtype)
+                if seq_split:      # the owner writes; the others keep theirs
+                    local = slot % s_loc
+                    mine = torch.as_tensor(owns_slot(j, slot, s_loc),
+                                           device=row.device)
+                    row = torch.where(mine, row, c[name].index_select(
+                        1, local.reshape(1)))
+                    nc[name] = _written(c[name], local, row)
+                else:
+                    nc[name] = _written(c[name], slot, row)
             new_caches.append(nc)
-        n_valid = min(pos + 1, smax) if mask == "window" else pos + 1
     ms, ls, os_ = [], [], []
     for j, (q, c) in enumerate(zip(qs, new_caches)):
         lo = j * s_loc if seq_split else 0
@@ -452,7 +492,9 @@ def attention_decode_tp(ps, xs, caches, cfg: ModelConfig, *,
                     for n in ("k", "v"))
         else:
             k, v = c["k"], c["v"]
-        valid = lo + torch.arange(s_loc, device=q.device) < n_valid
+        keys = lo + torch.arange(s_loc, device=q.device)
+        valid = (keys < c.get("kv_len", smax)) if cross \
+            else keys <= poss[j]
         logits = (q.reshape(b, kvh, g, hd) @ k.permute(0, 2, 3, 1)).float()
         logits = torch.where(valid, logits / math.sqrt(hd), _NEG)
         if seq_split:
@@ -476,12 +518,18 @@ def attention_decode_tp(ps, xs, caches, cfg: ModelConfig, *,
     return outs, new_caches
 
 
-def _write(buf, slot: int, row, rows: slice = slice(None)):
-    """A copy of ``buf`` (B, Smax, ...) with ``row`` (b, 1, ...) at
-    ``slot`` of its batch rows ``rows``."""
-    out = buf.clone()
-    out[rows, slot] = row[:, 0]
-    return out
+def _write(buf, slot, row, rows: slice = slice(None)):
+    """``row`` (b, 1, ...) written into ``buf`` (B, Smax, ...) at
+    ``slot`` (a 0-d int64 tensor on ``buf``'s device) of its batch rows
+    ``rows``, in place; returns ``buf``."""
+    buf[rows].index_copy_(1, slot.reshape(1), row)
+    return buf
+
+
+def _written(buf, slot, row, rows: slice = slice(None)):
+    """A copy of ``buf`` with ``row`` at ``slot`` (:func:`_write` on a
+    clone): the sharded decode step keeps its input cache."""
+    return _write(buf.clone(), slot, row, rows)
 
 
 def make_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
@@ -495,10 +543,15 @@ def make_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                                        device=device),
                 "v_scale": torch.zeros(shape[:3] + (1,), dtype=torch.float32,
                                        device=device),
-                "len": 0}
+                "len": _zero_position(device)}
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-            "len": 0}
+            "len": _zero_position(device)}
+
+
+def _zero_position(device) -> torch.Tensor:
+    """A fresh cache's ``len``: 0 as a 0-d int64 tensor on ``device``."""
+    return torch.zeros((), dtype=torch.int64, device=device)
 
 
 def _quantize_rows(x):
@@ -542,4 +595,4 @@ __all__ = ["apply_mlp", "apply_rope", "attention_decode",
            "attention_decode_tp", "attention_full", "attention_shard",
            "check_q_len", "gelu", "heads_split", "init_attention",
            "init_mlp", "make_attn_cache", "merge_partials", "mlp_split",
-           "owns_slot"]
+           "owns_slot", "position", "check_room"]

@@ -51,6 +51,11 @@ to_experts = sharding.all_to_all      # each block of the buffer to its owner
 from_experts = sharding.all_to_all    # the experts' outputs back
 
 
+#: The expert leaves :func:`_expert_ffn` casts to the buffer's (the
+#: compute) dtype at use; the ``router`` it reads in float32.
+EXPERT_CAST = ("w_gate", "w_up", "w_down")
+
+
 def init_moe(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """``router`` (D, E) in float32; ``w_gate`` / ``w_up`` (E, D, F) and
     ``w_down`` (E, F, D) in ``cfg.pdtype`` (the reference's

@@ -34,6 +34,11 @@ from .layers import gelu
 
 _C = 8.0
 
+#: The ``rec`` leaves :func:`apply_rglru_decode` casts to the compute
+#: dtype at use; ``lam`` it reads in float32.
+DECODE_CAST = ("w_in_rec", "w_in_gate", "conv_w", "conv_b", "w_a", "b_a",
+               "w_x", "b_x", "w_out_rec")
+
 
 def init_rglru(cfg: ModelConfig, generator: torch.Generator) -> dict:
     d = cfg.d_model

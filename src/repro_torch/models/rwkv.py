@@ -32,6 +32,13 @@ HEAD_DIM = 64
 LORA_DIM = 64
 
 
+#: The block leaves a decode step casts to the compute dtype at use (the
+#: mixes, the projections and the decay's LoRA); ``w0``, ``u`` and
+#: ``ln_x`` it reads in float32.
+DECODE_CAST = ("mu", "wr", "wk_t", "wv_t", "wg", "wa_lora", "wb_lora",
+               "w_out_t", "mu_c", "wk_c", "wv_c", "wr_c")
+
+
 def n_heads(cfg: ModelConfig) -> int:
     return cfg.d_model // HEAD_DIM
 

@@ -73,7 +73,8 @@ from ..tensorized import (cpd_embed, cpd_logits, dense_table,
                           init_cpd_embedding)
 from . import layers, moe, rglru, rwkv
 from .common import (ModelConfig, Node, Params, ShapeOnly, apply_norm,
-                     as_node, dense_init, device_of, init_norm, param)
+                     as_node, dense_init, device_of, init_norm, param,
+                     tree_of)
 
 #: The block kinds (the reference's).
 KINDS = ("attn", "moe", "rwkv", "rec", "local", "enc", "dec")
@@ -485,10 +486,11 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     return Model(cfg, tree)
 
 
-def sinusoidal_pos(seq: int, d: int, offset: int = 0, device=None):
-    """(seq, d) float32 absolute positions from ``offset``: sin in the
-    even columns, cos in the odd, at frequencies 10000^(-i/d) (the
-    reference's)."""
+def sinusoidal_pos(seq: int, d: int, offset=0, device=None):
+    """(seq, d) float32 absolute positions from ``offset`` (an int, or a
+    decode step's 0-d int64 position on ``device``: the same float32
+    sums): sin in the even columns, cos in the odd, at frequencies
+    10000^(-i/d) (the reference's)."""
     pos = offset + torch.arange(seq, device=device)[:, None].float()
     div = torch.exp(torch.arange(0, d, 2, device=device)
                     * (-math.log(10000.0) / d))
@@ -754,10 +756,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
             for kind in layer_kinds(cfg)]
 
 
-def _first_cache_len(cache) -> int:
+def _first_cache_len(cache):
     """The first layer's cache position (its ``self`` cache's for a
-    ``dec`` layer; 0 for a cache without one, as a recurrent state), the
-    reference's offset of a decode step's sinusoidal position."""
+    ``dec`` layer: a 0-d tensor on the cache's device, or the cache's
+    placed piece of it; 0 for a cache without one, as a recurrent
+    state), the reference's offset of a decode step's sinusoidal
+    position."""
     if not cache:
         return 0
     c = cache[0]
@@ -767,7 +771,14 @@ def _first_cache_len(cache) -> int:
 
 
 def decode_step(params, cache, cfg: ModelConfig, token):
-    """token: (B, 1) int -> (logits (B, 1, Vp), new cache)."""
+    """token: (B, 1) int -> (logits (B, 1, Vp), new cache). The KV
+    caches are written in place (``layers.attention_decode``): the new
+    cache holds the same key and value tensors, new recurrent states and
+    positions; the old cache's positions and states stay as they were.
+    Every position is read from the cache's device tensors, so the step
+    can be captured (on the card ``serving.Engine`` replays it as one
+    CUDA graph; under capture the full-cache check, which reads a
+    position back, gives way to the engine's host count)."""
     x = embed_lookup(params, token, cfg)
     if cfg.rope_theta == 0:
         x = x + sinusoidal_pos(1, cfg.d_model, offset=_first_cache_len(cache),
@@ -879,6 +890,44 @@ def decode_params(tree: dict) -> dict:
     return visit(tree)
 
 
+#: The leaves a decode step casts to the compute dtype at use, by the
+#: sub-tree of a layer that holds them ("" for a block's own leaves: an
+#: ``rwkv`` block's).
+_CAST_AT_USE = {"attn": layers.ATTN_CAST, "xattn": layers.ATTN_CAST,
+                "mlp": layers.MLP_CAST, "moe": moe.EXPERT_CAST,
+                "rec": rglru.DECODE_CAST, "": rwkv.DECODE_CAST}
+
+
+def decode_working_copies(params, cfg: ModelConfig) -> Node:
+    """What :func:`decode_step` reads (:func:`decode_params`) as a
+    :class:`Node`, with every weight that the step casts to
+    ``cfg.cdtype`` at use cast once here: the layers' ``_CAST_AT_USE``
+    leaves, the embedding table (its rows are gathered, then cast) and
+    the head. The step then runs the same operations on the same values,
+    so its tokens and logits are bitwise the masters', with no cast
+    kernel a step. Leaves it reads in float32 (norm scales, the MoE
+    router, rwkv's ``u`` and ``w0``, the RG-LRU's ``lam``, QK-norm
+    scales, the CPD embedding's factors, which the lookup reads in
+    float32 too) are shared, not copied; with ``cdtype`` equal to the
+    masters' dtype nothing is copied."""
+    dt = cfg.cdtype
+    tree = decode_params(tree_of(params) if isinstance(params, nn.Module)
+                         else dict(params))
+
+    def cast(node, names):
+        return Node({k: v.to(dt) if k in names else v
+                     for k, v in node.items()})
+
+    def layer(node):
+        node = cast(node, _CAST_AT_USE[""])
+        return Node({k: cast(v, _CAST_AT_USE.get(k, ())) if isinstance(
+            v, dict) else v for k, v in node.items()})
+
+    out = as_node({k: v for k, v in tree.items() if k != "layers"})
+    out["layers"] = [layer(node) for node in _layer_list(tree["layers"])]
+    return cast(out, ("embed", "head"))
+
+
 def _working(tree, pos, ctx):
     """Position ``pos``'s working copies (``sharding.working_copy``: its
     model-axis slice, gathered whole over the dp axes) of a tree of
@@ -964,7 +1013,7 @@ def decode_step_tp(ps, caches, cfg: ModelConfig, tokens):
     node = unstack_layers(cfg, decode_params(ps))
     top = {k: v for k, v in node.items() if k != "layers"}
     kinds = layer_kinds(cfg)
-    offset = _first_cache_len(caches)
+    first = _first_cache_len(caches)
     rows = sharding.model_rows(mesh, ctx.tp_axis)
     new = [{} for _ in caches]
     rows_of = [{} for _ in caches]
@@ -973,9 +1022,10 @@ def decode_step_tp(ps, caches, cfg: ModelConfig, tokens):
         tops = [_working(top, pos, ctx) for pos in row]
         xs = embed_lookup_tp(tops, [tokens.at(pos) for pos in row], cfg)
         if cfg.rope_theta == 0:
-            xs = [x + sinusoidal_pos(1, cfg.d_model, offset=offset,
+            xs = [x + sinusoidal_pos(1, cfg.d_model,
+                                     offset=_cache_at(first, pos),
                                      device=x.device).to(cfg.cdtype)[None]
-                  for x in xs]
+                  for pos, x in zip(row, xs)]
         for i, kind in enumerate(kinds):
             lps = [_working(node.layers[i], pos, ctx) for pos in row]
             c = caches[i]
@@ -1031,6 +1081,7 @@ def build_cross_caches(params, cfg: ModelConfig, enc_embeds, cache):
 __all__ = ["Model", "apply_block", "apply_block_decode",
            "apply_block_decode_tp", "apply_block_tp", "build_cross_caches",
            "check_tp", "decode_params", "decode_step", "decode_step_tp",
+           "decode_working_copies",
            "embed_lookup", "embed_lookup_tp", "encode", "encode_tp",
            "forward", "forward_tp",
            "head_matrix", "init_block", "init_cache", "init_model",

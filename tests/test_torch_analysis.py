@@ -97,12 +97,18 @@ def _stack(cfg, cache) -> dict:
     return out
 
 
-def _stack_leaves(cyc):
+def _stack_leaves(cyc, name=""):
+    """A leaf's stacked (shape, dtype). A cache position (``len``) is a
+    0-d int64 tensor in the port, whose index ops take int64 slots, and
+    an int32 array in the reference: it stacks as the reference's."""
     first = cyc[0]
     if isinstance(first, dict):
-        return {k: _stack_leaves([c[k] for c in cyc]) for k in first}
+        return {k: _stack_leaves([c[k] for c in cyc], k) for k in first}
     if isinstance(first, torch.Tensor):
         assert all(c.shape == first.shape for c in cyc)
+        if name == "len":
+            assert first.shape == () and first.dtype == torch.int64
+            return ((len(cyc),), "int32")
         return ((len(cyc),) + tuple(first.shape), _dtype_name(first.dtype))
     assert isinstance(first, int)
     return ((len(cyc),), "int32")
@@ -587,15 +593,18 @@ def ref_arguments(tmp_path_factory):
 
 def _host_counters(arch, shape_name) -> int:
     """Bytes the reference keeps on the device that the port keeps on the
-    host: the train state's step counters, a decode cache's counters."""
+    host (the train state's step counters, a decode cache's ``kv_len``),
+    less the 4 bytes more of each cache position (``len``), an int64
+    tensor in the port and an int32 array in the reference."""
     step = configs.SHAPES[shape_name].step
     if step == "train":
         return 8
     if step == "decode":
         cfg = _smoke(arch)
         cache = configs.cache_specs(cfg, configs.SHAPES[shape_name])
-        return 4 * sum(1 for c in cache for v in _flat(c)
-                       if isinstance(v, int))
+        leaves = [v for c in cache for v in _flat(c)]
+        return 4 * sum(isinstance(v, int) for v in leaves) - 4 * sum(
+            isinstance(v, torch.Tensor) and v.dim() == 0 for v in leaves)
     return 0
 
 

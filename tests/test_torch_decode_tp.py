@@ -72,7 +72,8 @@ _TRAJECTORIES: dict = {}
 def _setup(arch, kv_quant):
     """The smoke model, its starting cache, its stage-layout tree and the
     token generator, made once a (arch, kv_quant) and shared by the
-    meshes (nothing here is modified in place)."""
+    meshes (nothing here is modified in place: the single-device steps,
+    which write their KV caches in place, run on copies)."""
     key = (arch, kv_quant)
     if key not in _SETUPS:
         _SETUPS[key] = _make_setup(arch, kv_quant)
@@ -114,16 +115,26 @@ def _trajectory(arch, kv_quant):
     key = (arch, kv_quant)
     if key not in _TRAJECTORIES:
         cfg, model, cache, _, gen = _setup(arch, kv_quant)
+        cache = _clone(cache)
         steps = []
         with torch.no_grad():
             for _ in range(STEPS):
                 tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen)
-                logits, new = transformer.decode_step(model, cache, cfg,
-                                                      tok)
-                steps.append((tok, cache, logits, new))
-                cache = new
+                before = _clone(cache)
+                logits, cache = transformer.decode_step(model, cache, cfg,
+                                                        tok)
+                steps.append((tok, before, logits, _clone(cache)))
         _TRAJECTORIES[key] = steps
     return _TRAJECTORIES[key]
+
+
+def _clone(tree):
+    """A copy of a cache (its tensors cloned, counters kept)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _detach(tree):
@@ -262,7 +273,7 @@ def test_decode_step_tp_layouts(shape):
             placed, pc, cfg, torch.zeros((B, 1), dtype=torch.int64))
     want = specs.cache_shardings(cache, ctx)
     for w, c in zip(want, new):
-        assert c["len"] == 1
+        assert sharding.gather(c["len"]) == 1 and c["len"].spec == ()
         for k in ("k", "v"):
             assert c[k].spec == w[k] and c[k].shape == cache[0][k].shape
     assert logits.shape == (B, 1, cfg.vocab_padded)

@@ -22,7 +22,11 @@ the MoE family (a layer at full width, a smoke ``forward`` and
 families (command-r's parallel block, paligemma's prefix-LM, whisper's
 encoder-decoder: ``forward`` and ``Engine.prefill``, the int8 KV cache,
 a train step and the sharded step, each against the CPU or the single
-device).
+device), and the two CUDA graphs (``serving.Engine``'s replayed decode
+step on bf16 working copies, bitwise the eager loop on the float32
+masters; the ``all_modes`` rotation and ALS sweep replayed, against
+eager mode steps, with and without ``donate``; each graph's pool freed
+with its engine or state).
 Every test is marked
 ``gpu`` and skips itself where torch sees no card. The file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with PyTorch and
@@ -2073,3 +2077,243 @@ def test_family_train_step_on_the_card(cuda, arch):
         d = (a.cpu() - b).abs()
         assert float(d.max()) <= 2e-3
         assert float(torch.where(m.abs() >= 1e-7, d, 0).max()) <= 1e-6
+
+
+# --------------------------------------------------------------------------
+# The two CUDA graphs: Engine's decode step and the all_modes rotation
+# --------------------------------------------------------------------------
+GRAPH_ARCHS = ("tinyllama-1.1b", "rwkv6-3b", "recurrentgemma-9b",
+               "olmoe-1b-7b", "whisper-large-v3")
+
+
+def _graph_model(arch, cuda):
+    """A smoke config on the card (bf16 compute, float32 masters) and its
+    extra inputs: 4 prompt tokens of 2 requests, whisper's 48 frames."""
+    from repro_torch.configs import smoke
+    from repro_torch.models import transformer
+
+    cfg = smoke(arch)
+    model = transformer.init_model(cfg, 0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 4),
+                           generator=torch.Generator().manual_seed(7))
+    enc = _family_inputs(cfg, 2, 8).get("enc_embeds")
+    return cfg, model, prompt.to(cuda), None if enc is None else enc.to(cuda)
+
+
+def _eager_loop(model, cfg, prompt, n, enc, cuda):
+    """Greedy ``decode_step``s on the float32 masters: the tokens and the
+    logits after the last."""
+    from repro_torch.models import transformer
+
+    cache = transformer.init_cache(cfg, 2, 16, device=cuda,
+                                   enc_len=0 if enc is None else 48)
+    with torch.no_grad():
+        if enc is not None:
+            cache = transformer.build_cross_caches(model, cfg, enc, cache)
+        for t in range(prompt.shape[1]):
+            logits, cache = transformer.decode_step(model, cache, cfg,
+                                                    prompt[:, t:t + 1])
+        toks = []
+        for _ in range(n):
+            nxt = logits[:, -1, :cfg.vocab].float().argmax(-1)
+            toks.append(nxt)
+            logits, cache = transformer.decode_step(model, cache, cfg,
+                                                    nxt[:, None])
+    return torch.stack(toks, 1), logits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_engine_bitwise_the_eager_masters(cuda, arch):
+    """``Engine.generate`` on the card (one captured step replayed, on
+    the bf16 working copies) gives tokens and last logits bitwise those of
+    the eager ``decode_step`` loop on the float32 masters; a second
+    ``generate`` on the same engine replays with no new capture."""
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving import engine as serving
+
+    cfg, model, prompt, enc = _graph_model(arch, cuda)
+    want_toks, want_logits = _eager_loop(model, cfg, prompt, 6, enc, cuda)
+    before = serving.CAPTURES["decode_step"]
+    eng = Engine(model, cfg, ServeConfig(2, 32), enc_embeds=enc)
+    assert eng.graph and eng.step_params is not model
+    toks = eng.generate(prompt, 6)
+    torch.cuda.synchronize()
+    assert serving.CAPTURES["decode_step"] == before + 1
+    assert torch.equal(toks, want_toks)
+    assert torch.equal(eng.last_logits, want_logits)
+    eng.generate(prompt, 3)
+    assert serving.CAPTURES["decode_step"] == before + 1
+    assert eng.pos == 2 * prompt.shape[1] + 9
+
+
+@pytest.mark.gpu
+def test_graph_engine_capture_failure_raises(cuda, monkeypatch):
+    """A step that fails while it is captured (its second call: the first
+    runs eagerly) raises out of ``generate``; the engine does not go on
+    eagerly."""
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving import engine as serving
+
+    cfg, model, prompt, _ = _graph_model("tinyllama-1.1b", cuda)
+    step = serving.decode_step
+    calls = []
+
+    def failing(*a):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("capture failed")
+        return step(*a)
+
+    monkeypatch.setattr(serving, "decode_step", failing)
+    eng = Engine(model, cfg, ServeConfig(2, 32))
+    with pytest.raises(RuntimeError, match="capture failed"):
+        eng.generate(prompt, 2)
+    assert calls == [False, True] and eng._graph is None
+
+
+def _allocated_after(fn):
+    """``memory_allocated`` after ``fn()`` returned and its garbage went
+    (the first capture of a process also leaves the capture stream's
+    cuBLAS workspace, so callers run ``fn`` once before the baseline)."""
+    import gc
+
+    fn()
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+@pytest.mark.gpu
+def test_dropping_a_graph_engine_frees_its_pool(cuda):
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg, model, prompt, _ = _graph_model("recurrentgemma-9b", cuda)
+    held = []
+
+    def serve():
+        eng = Engine(model, cfg, ServeConfig(2, 32))
+        eng.generate(prompt, 4)
+        assert eng._graph is not None
+        held.append(torch.cuda.memory_allocated())
+
+    base = _allocated_after(serve)
+    assert _allocated_after(serve) == base < held[-1]
+
+
+def _rotation_case(cuda, backend, donate=None, nmodes=3):
+    idx, val, dims, rng = _coo(nmodes, 2000, 3)
+    t = build_flycoo(idx, val, dims, rows_pp=4, block_p=8)
+    facs = [torch.from_numpy(rng.standard_normal((d, 32))
+                             .astype(np.float32)).to(cuda) for d in dims]
+    state = engine.init(t, ExecutionConfig(backend=backend, donate=donate))
+    ti, tv = torch.from_numpy(idx).to(cuda), torch.from_numpy(val).to(cuda)
+    return state, facs, [mttkrp_ref(ti, tv, facs, d, dims[d])
+                         for d in range(nmodes)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda_fused", "cuda"])
+@pytest.mark.parametrize("nmodes", [3, 5])
+def test_graph_all_modes_against_eager_mode_steps(cuda, backend, nmodes):
+    """The second ``all_modes`` of a state replays its graph: the layout
+    after each of its rotations bitwise that of N eager ``mttkrp`` calls,
+    the outputs bitwise where two eager rotations repeat bitwise, else
+    (both backends' shared-memory atomics add in another order each run,
+    an H100 showed) within the oracle's limit; the launches counted at
+    the replay."""
+    state, facs, oracle = _rotation_case(cuda, backend, nmodes=nmodes)
+    eager = []
+    s = state
+    for _ in range(nmodes):
+        out, s = engine.mttkrp(s, facs)
+        eager.append(out)
+    again, _ = engine.all_modes_eager(state, facs)
+    repeats = all(torch.equal(eager[d], again[d]) for d in range(nmodes))
+    engine.all_modes(state, facs)                 # eager, then the capture
+    assert len(state.graphs) == 1
+    name = {"cuda_fused": "mttkrp_fused_remap_compact",
+            "cuda": "mttkrp_fused_compact"}[backend]
+    before = kmt.LAUNCHES[name]
+    outs, nxt = engine.all_modes(state, facs)     # a replay
+    torch.cuda.synchronize()
+    assert kmt.LAUNCHES[name] == before + nmodes
+    for a in ("val", "idx", "alpha"):
+        assert torch.equal(getattr(nxt, a), getattr(s, a))
+        assert torch.equal(getattr(nxt, a), getattr(state, a))
+    for d in range(nmodes):
+        if repeats:
+            assert torch.equal(outs[d], eager[d])
+        torch.testing.assert_close(outs[d], oracle[d], **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("donate", [False, True])
+def test_graph_all_modes_donate(cuda, donate):
+    """Without ``donate`` the input state stays valid and the returned one
+    owns copies; with it the returned state holds the graph's layout
+    buffers, and the next rotation from it copies nothing in. The
+    default donates on the card."""
+    assert ExecutionConfig().resolve_donate()
+    state, facs, oracle = _rotation_case(cuda, "cuda_fused", donate)
+    keep = [t.clone() for t in (state.val, state.idx, state.alpha)]
+    engine.all_modes(state, facs)
+    outs, nxt = engine.all_modes(state, facs)
+    rot = next(iter(state.graphs.values()))
+    assert (nxt.val is rot.layout[0]) == donate
+    for t, k in zip((state.val, state.idx, state.alpha), keep):
+        assert torch.equal(t, k)
+    copies = []
+    orig = torch.Tensor.copy_
+
+    def count(dst, src, *a, **k):
+        copies.append(dst.data_ptr())
+        return orig(dst, src, *a, **k)
+
+    torch.Tensor.copy_ = count
+    try:
+        outs2, nxt2 = engine.all_modes(nxt, facs)
+    finally:
+        torch.Tensor.copy_ = orig
+    torch.cuda.synchronize()
+    layout_in = rot.layout[0].data_ptr() in copies
+    assert layout_in != donate
+    for d in range(3):
+        torch.testing.assert_close(outs2[d], oracle[d], **TOL)
+    for a, k in zip(("val", "idx", "alpha"), keep):
+        assert torch.equal(getattr(nxt2, a), k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("donate", [False, True])
+def test_dropping_a_state_frees_its_rotation_graph(cuda, donate):
+    """A state's graphs live as long as it or a state made from it does
+    (they share the tables the graph reads); then the pool goes."""
+    held = []
+
+    def rotate():
+        state, facs, _ = _rotation_case(cuda, "cuda_fused", donate)
+        engine.all_modes(state, facs)
+        nxt = engine.all_modes(state, facs)[1]
+        assert nxt.graphs is state.graphs and len(state.graphs) == 1
+        del state
+        held.append(torch.cuda.memory_allocated())
+        assert nxt.graphs           # kept by the state made from it
+
+    base = _allocated_after(rotate)
+    assert _allocated_after(rotate) == base < held[-1]
+
+
+@pytest.mark.gpu
+def test_cp_als_through_the_rotation_graph(cuda, monkeypatch):
+    """``cp_als`` (the ALS fold inside the graph from its second sweep)
+    against the same sweeps through the eager loop: fits within 1e-5."""
+    idx, val, dims, rng = _coo(3, 3000, 5)
+    t = build_flycoo(idx, val, dims, rows_pp=8, block_p=16)
+    init = [rng.random((d, 8)).astype(np.float32) for d in dims]
+    cfg = ExecutionConfig(backend="cuda_fused")
+    graph = cp_als(t, 8, iters=4, factors=init, config=cfg).fits
+    monkeypatch.setattr(engine, "all_modes", engine.all_modes_eager)
+    eager = cp_als(t, 8, iters=4, factors=init, config=cfg).fits
+    assert np.all(np.isfinite(graph))
+    assert graph == pytest.approx(eager, abs=1e-5)
