@@ -36,7 +36,10 @@ times the kernels at each path's shapes.
        ``Engine.generate`` serving 4 requests of 16 + 32 tokens
   [2d] the ``lru_scan`` kernel against its plain version at the
        reference kernel tests' shapes (float32 and float16 inputs), a
-       ragged shape and the model's rows (B 4, T 256, D 4096)
+       ragged shape, the model's rows (B 4, T 256, D 4096), the training
+       step's (2, 4096, 4096), a long T (1, 32768, 1024: 64 spans, each
+       read twice) and spans that do not divide T (1, 5000, 1000); the
+       backward kernel likewise
   [11] RecurrentGemma at the full width and depth of
        ``recurrentgemma-9b`` (38 layers, 26 RG-LRU + 12 local attention,
        f32 params, random weights from a seed): the prefill ``forward``
@@ -120,7 +123,8 @@ times the kernels at each path's shapes.
        recurrentgemma-9b at full width on 6 layers (two cycles of rec,
        rec, local: at full depth its 9.4B f32 parameters and gradients
        alone take 75 GB), B 2, 3 steps, then ``lru_scan_bwd`` at (4,
-       4096, 4096) the same way; [16e]
+       4096, 4096) the same way, and both kernels at the step's own (2,
+       4096, 4096) against their plain versions, timed; [16e]
        ``TrainController`` preempted at step 2 of 4 and resumed from its
        checkpoint against an uninterrupted run, a checkpoint's save and
        load timed
@@ -315,10 +319,19 @@ function on absolute inputs) and ``u = 2**-24``:
     step s reaches step t scaled by |a_{s+1} ... a_t|, and that product
     times A_s is at most A_t. So after t + 1 steps the state carries a
     random walk of at most 2 (t + 1) roundings of size u A_t, ~2 sqrt(t
-    + 1) of them in size; one share for each side. The limit is held
-    against itself: the kernel run with a shifted one step late (a_{t-1}
-    in step t) and with a zeroed at the kernel's first chunk boundary
-    (t = 32: a dropped carry) must fail it.
+    + 1) of them in size; one share for each side. The kernel splits T
+    into spans (``kernels.lru_scan.split_bounds``): a span's rounding
+    inside is the sequential scan's, and its carry in folds the earlier
+    spans' aggregates (the product P of a span's a, its end state from
+    0). A carry adds the rounding of one span's product, a walk of
+    ~sqrt(L) roundings of size u A_t (P times the carry is at most the
+    carry's share of A_t), and one of the fold's FMA; the first carried
+    step has t >= L, so with the walk inside the span the kernel's
+    roundings stay a walk of at most ~sqrt(2 (t + 1)) <= 2 sqrt(t + 1) of
+    them: within its share. The limit is held against itself: the kernel
+    run with a shifted one step late (a_{t-1} in step t), with a zeroed
+    at t = 32 (two ring stages), and with a zeroed at the first and at a
+    middle span boundary (a dropped carry) must fail it.
   * RecurrentGemma float32 cross-check, ``forward(prompt)[:, -1]`` (the
     kernel, the prefill attention) against ``Engine.prefill(prompt)``
     (the decode recurrence and the ring-buffer attention) at full width,
@@ -346,8 +359,11 @@ function on absolute inputs) and ``u = 2**-24``:
     A``: the state and its gradient each carry a random walk of ~2
     sqrt(T) roundings, a readout sums K terms, the bonus terms add ~4
     roundings. ``lru_scan_bwd`` likewise, ``LAMBDA * (2 sqrt(T - t) + 3)
-    * u * A_t``. Each limit is held against itself: the kernel run with
-    the carry dropped at step T / 2 (w, or a, zeroed there) must fail it.
+    * u * A_t`` (its spans' carries run from the later spans, with the
+    forward's argument in reverse). Each limit is held against itself:
+    the kernel run with the carry dropped at step T / 2 (w, or a, zeroed
+    there) must fail it, and ``lru_scan_bwd`` with a zeroed at the first
+    and at a middle span boundary.
   * [16a] the float32 4-layer step, card against CPU (TF32 off): each
     gradient leaf (the first moment after one step, (1 - b1) g) within
     ``GRAD_RTOL`` = 1e-3 of that leaf's largest element, the losses
@@ -2267,6 +2283,9 @@ def wkv6_record(wkv):
 # --------------------------------------------------------------------------
 LRU_SHAPES = ((1, 32, 8), (2, 64, 16), (3, 128, 32), (2, 64, 128))
 LRU_MORE = ((3, 1000, 4100), (4, 256, 4096))   # ragged; the model's rows
+# The training step's shape (one span), a long T (64 spans of 512 steps,
+# read twice) and spans that do not divide T.
+LRU_SPLIT = ((2, 4096, 4096), (1, 32768, 1024), (1, 5000, 1000))
 RG_ARCH = "recurrentgemma-9b"
 RG_BATCH, RG_SEQ = 4, 4096            # prefill_32k cut 8x in B and in S
 RG_XCHECK_SEQ = 64
@@ -2293,6 +2312,21 @@ def lru_limit(klru, a, x, sides=2):
     return sides * LAMBDA * 2 * (t + 1).sqrt()[None, :, None] * U * big_a
 
 
+def split_starts(klru, a):
+    """First steps of the kernels' first and middle span after span 0 at
+    ``a``'s shape on this card (none for one span)."""
+    bounds = klru.split_bounds(*a.shape, klru.device_sms(a.device))
+    return sorted({bounds[i][0] for i in (1, len(bounds) // 2)
+                   if len(bounds) > 1})
+
+
+def dropped_at(a, t):
+    """``a`` with step ``t`` zeroed: a carry dropped there."""
+    bad = a.clone()
+    bad[:, t] = 0
+    return bad
+
+
 def lru_check(klru, a, x, tag):
     """Kernel against plain within the limit, and the limit against
     itself; returns (max error, its share of the limit)."""
@@ -2302,11 +2336,10 @@ def lru_check(klru, a, x, tag):
     lim = lru_limit(klru, a, x)
     res = close_to(f"{tag} lru_scan", klru.lru_scan(a, x), want, lim)
     t = a.shape[1]
-    tb = klru.STEPS if t > klru.STEPS else t // 2
-    late = torch.cat([a[:, :1], a[:, :-1]], dim=1)
-    dropped = a.clone()
-    dropped[:, tb] = 0
-    for variant, bad in (("a_(t-1)", late), (f"a = 0 at t = {tb}", dropped)):
+    variants = [("a_(t-1)", torch.cat([a[:, :1], a[:, :-1]], dim=1))]
+    variants += [(f"a = 0 at t = {tb}", dropped_at(a, tb)) for tb in sorted(
+        {32 if t > 32 else t // 2, *split_starts(klru, a)})]
+    for variant, bad in variants:
         got = klru.lru_scan(bad, x)
         if not ((got.double() - want.double()).abs() > lim).any():
             raise AssertionError(f"{tag} lru_scan: the limit does not "
@@ -2322,15 +2355,17 @@ def phase_lru(klru):
 
     cases = [(s, dt) for s in LRU_SHAPES
              for dt in (torch.float32, torch.float16)]
-    cases += [(s, torch.float32) for s in LRU_MORE]
+    cases += [(s, torch.float32) for s in LRU_MORE + LRU_SPLIT]
     for i, (shape, dt) in enumerate(cases):
-        err, share = lru_check(klru, *lru_case(*shape, seed=i, dtype=dt),
-                               "[2d]")
+        a, x = lru_case(*shape, seed=i, dtype=dt)
+        spans = len(klru.split_bounds(*shape, klru.device_sms(a.device)))
+        err, share = lru_check(klru, a, x, "[2d]")
         torch.cuda.synchronize()
-        log(f"[2d] lru_scan (B, T, D) = {shape} {str(dt)[6:]} == plain (max "
-            f"err {err:.3e}, {share:.3f} of the limit); a_(t-1) and "
-            "dropped-carry variants fail it")
-    for i, shape in enumerate(LRU_SHAPES + LRU_MORE[:1]):
+        log(f"[2d] lru_scan (B, T, D) = {shape} {str(dt)[6:]}, {spans} "
+            f"span(s), == plain (max err {err:.3e}, {share:.3f} of the "
+            "limit); a_(t-1) and dropped-carry variants fail it")
+        del a, x
+    for i, shape in enumerate(LRU_SHAPES + LRU_MORE[:1] + LRU_SPLIT):
         a, x = lru_case(*shape, seed=50 + i, dtype=torch.float32)
         with torch.no_grad():
             h = klru.lru_scan(a, x)
@@ -2342,6 +2377,8 @@ def phase_lru(klru):
         log(f"[2d] lru_scan_bwd (B, T, D) = {shape} == float64 plain (max "
             f"err {err:.3e}, {share:.3f} of the limit); a dropped carry "
             "fails it")
+        del a, x, h, dh
+    free_device_memory()
 
 
 def phase_rg(klru, report, reps):
@@ -2447,9 +2484,12 @@ def phase_rg(klru, report, reps):
     return lru
 
 
-def lru_scan_record(lru):
+def lru_scan_record(lru, train_step):
     """The ``lru_scan`` entry of the ``kernels`` JSON line: one launch at
-    layer 0's inputs of the prefill forward."""
+    layer 0's inputs of the prefill forward, and under ``train_step`` one
+    at [16d]'s training shape."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "shape")
     return {
         "name": "lru_scan", "route": "cuda", "source": SOURCES["lru_scan"],
         "replaces": REPLACES["lru_scan"], "launches": lru["launches"],
@@ -2458,8 +2498,10 @@ def lru_scan_record(lru):
         "bound_by": lru["bound_by"], "library_ms": None,
         "per": f"one launch at layer 0 of the {RG_ARCH} prefill forward "
                f"(B {RG_BATCH}, S {RG_SEQ}), which launches it once a rec "
-               "layer; library_ms null: no single PyTorch call computes a "
-               "linear recurrence",
+               "layer; train_step: the same at the training step's (B "
+               f"{RG_TRAIN_BATCH}, S {TRAIN_SEQ}); library_ms null: no "
+               "single PyTorch call computes a linear recurrence",
+        "train_step": {k: train_step[k] for k in keys},
     }
 
 
@@ -3232,8 +3274,11 @@ def phase_residency_rung(ctx, tracer, report):
     and the resident ``init`` peak. ``make_engine(PlanSpec(residency=
     "full"))`` without a ladder must raise it; with ``ladder=True`` it
     must record ``oom: full -> stream`` and return the stream, whose
-    rotation holds [12d]'s oracle limit under the cap. The cap is lifted
-    after."""
+    rotation holds [12d]'s oracle limit under the cap. The capped work
+    allocates from a pool of its own, and the cap lies that midpoint
+    above all the memory reserved so far: free blocks that the earlier
+    phases leave reserved (a kept tensor pins its segment) cannot serve
+    it. The cap is lifted after."""
     import torch
     from repro_torch import obs
     from repro_torch.engine import PlanSpec, StreamState, make_engine
@@ -3246,54 +3291,59 @@ def phase_residency_rung(ctx, tracer, report):
                     device_budget_bytes=ctx["budget"])
     free_device_memory()
     held = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
     total = torch.cuda.get_device_properties(0).total_memory
     lo, hi = ctx["peak_stream"], ctx["peak_init"]
     if not hi > 1.5 * lo:
         raise AssertionError(f"[13c] resident init peak {hi} too close to "
                              f"the streamed peak {lo} for a cap between")
-    cap = held + (lo + hi) // 2
+    cap = reserved + (lo + hi) // 2
     degr = obs.REGISTRY.counter("resilience_degradations")
     before = degr.get("oom:full->stream", 0)
+    pool = torch.cuda.MemPool()
     torch.cuda.set_per_process_memory_fraction(cap / total)
     try:
-        t0 = time.perf_counter()
-        try:
-            make_engine(t, spec, cache=cache)
-        except torch.cuda.OutOfMemoryError as exc:
-            refused = str(exc).splitlines()[0][:120]
-        else:
-            raise AssertionError("[13c] the resident init fit under the "
-                                 "cap without a ladder")
-        no_ladder_s = time.perf_counter() - t0
-        free_device_memory()
-        torch.cuda.reset_peak_memory_stats()
-        t1 = time.perf_counter_ns()
-        ss = make_engine(t, spec, cache=cache, ladder=True)
-        rung_s = (time.perf_counter_ns() - t1) / 1e9
-        if not isinstance(ss, StreamState):
-            raise AssertionError(f"[13c] the rung returned "
-                                 f"{type(ss).__name__}")
-        peak_rung = torch.cuda.max_memory_allocated()
-        after_rung = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t2 = time.perf_counter()
-        outs, ss = stream_all_modes(ss, factors)
-        torch.cuda.synchronize()
-        rot_s = time.perf_counter() - t2
-        peak = torch.cuda.max_memory_allocated()
-        outs = [o.cpu() for o in outs]
+        with torch.cuda.use_mem_pool(pool):
+            t0 = time.perf_counter()
+            try:
+                make_engine(t, spec, cache=cache)
+            except torch.cuda.OutOfMemoryError as exc:
+                refused = str(exc).splitlines()[0][:120]
+            else:
+                raise AssertionError(
+                    f"[13c] the resident init fit under the cap without a "
+                    f"ladder (cap {cap}, held {held}, reserved "
+                    f"{torch.cuda.memory_reserved()} bytes)")
+            no_ladder_s = time.perf_counter() - t0
+            free_device_memory()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter_ns()
+            ss = make_engine(t, spec, cache=cache, ladder=True)
+            rung_s = (time.perf_counter_ns() - t1) / 1e9
+            if not isinstance(ss, StreamState):
+                raise AssertionError(f"[13c] the rung returned "
+                                     f"{type(ss).__name__}")
+            peak_rung = torch.cuda.max_memory_allocated()
+            after_rung = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t2 = time.perf_counter()
+            outs, ss = stream_all_modes(ss, factors)
+            torch.cuda.synchronize()
+            rot_s = time.perf_counter() - t2
+            peak = torch.cuda.max_memory_allocated()
+            outs = [o.cpu() for o in outs]
     finally:
         torch.cuda.set_per_process_memory_fraction(1.0)
     if degr.get("oom:full->stream", 0) != before + 1:
         raise AssertionError(f"[13c] degradations {degr.as_dict()}")
     shares = [close_to(f"[13c] vast mode {d} after the rung", outs[d],
                        *ctx["oracle"][d])[1] for d in range(t.nmodes)]
-    del ss, outs
+    del ss, outs, pool
     free_device_memory()
     init_ms = span_ms(tracer, "stream.init", t1)
     snap = snapshot_ms(factors, torch.ones(RANK, device="cuda"), [0.5])
     log(f"[13c] vast under a cap of {cap / 2**30:.3f} GiB ({held / 2**30:.3f}"
-        f" held; streamed peak {lo / 2**30:.3f}, resident init peak "
+        f" held, {reserved / 2**30:.3f} reserved; streamed peak {lo / 2**30:.3f}, resident init peak "
         f"{hi / 2**30:.3f} GiB): without a ladder make_engine raised "
         f"({refused!r}) after {no_ladder_s:.1f} s; with ladder=True "
         f"oom: full -> stream in {rung_s:.1f} s (stream.init "
@@ -3304,7 +3354,8 @@ def phase_residency_rung(ctx, tracer, report):
         f"it, {peak / 2**30:.3f} in the rotation; snapshot of {snap['mib']:.1f} MiB: save "
         f"{snap['save_ms']:.1f} ms, load {snap['load_ms']:.1f} ms")
     report["residency_rung"] = {
-        "cap_bytes": cap, "held_bytes": held, "peak_stream": lo,
+        "cap_bytes": cap, "held_bytes": held, "reserved_bytes": reserved,
+        "peak_stream": lo,
         "peak_init": hi, "refused": refused, "no_ladder_s": no_ladder_s,
         "rung_s": rung_s, "stream_init_ms": init_ms[-1],
         "rotation_s": rot_s, "peak_rung": peak_rung,
@@ -4723,8 +4774,9 @@ def lru_bwd_check(klru, a, h, dh, tag):
     """The backward kernel against the float64 plain backward within
     ``LAMBDA * (2 sqrt(T - t) + 3) * u * A`` (``A`` the same on ``|a|,
     |h|, |dh|``: the reverse scan's state carries a random walk of ~2
-    sqrt(T - t) roundings, da one more); the limit held against a run
-    that drops the carry at step T / 2 (a zeroed there)."""
+    sqrt(T - t) roundings, da one more); the limit held against runs that
+    drop the carry at step T / 2 and at the first and a middle span
+    boundary (a zeroed there)."""
     import torch
 
     t = a.shape[1]
@@ -4738,13 +4790,13 @@ def lru_bwd_check(klru, a, h, dh, tag):
     for n, g, w, lim in zip(("da", "dx"), got, want, lims):
         e, s = close_to(f"{tag} lru_scan_bwd {n}", g, w, lim)
         err, share = max(err, e), max(share, s)
-    a_drop = a.clone()
-    a_drop[:, t // 2] = 0
-    bad = klru.lru_scan_backward(a_drop, h, dh)
-    if not any(((b.double() - w).abs() > lim).any()
-               for b, w, lim in zip(bad, want, lims)):
-        raise AssertionError(f"{tag} lru_scan_bwd: the limit does not "
-                             "catch a backward that drops one carry")
+    for tb in sorted({t // 2, *split_starts(klru, a)}):
+        bad = klru.lru_scan_backward(dropped_at(a, tb), h, dh)
+        if not any(((b.double() - w).abs() > lim).any()
+                   for b, w, lim in zip(bad, want, lims)):
+            raise AssertionError(f"{tag} lru_scan_bwd: the limit does not "
+                                 f"catch a backward that drops the carry "
+                                 f"at t = {tb}")
     return err, share
 
 
@@ -4752,7 +4804,8 @@ def train_rg(tag, klru, reps):
     """[16d]: recurrentgemma-9b at full width, depth cut to
     ``RG_TRAIN_LAYERS`` (two cycles of rec, rec, local), then
     ``lru_scan_bwd`` at layer 0's prefill shape (4, 4096, 4096) against
-    the plain backward, timed."""
+    the plain backward, and both kernels at the step's own (2, 4096,
+    4096), each timed."""
     import dataclasses
 
     import torch
@@ -4773,26 +4826,54 @@ def train_rg(tag, klru, reps):
         f"{got['lru_scan']} (forward + recompute), lru_scan_bwd "
         f"{got['lru_scan_bwd']}")
     layer, x0 = layer0_input(cfg, state, RG_BATCH, RG_SEQ, 2)
+    _, x2 = layer0_input(cfg, state, RG_TRAIN_BATCH, TRAIN_SEQ, 5)
     del state
     free_device_memory()
     with torch.no_grad():
         a, b, _ = rglru.scan_inputs(layer.rec, x0, cfg)
         h = klru.lru_scan(a, b)
-    del layer, x0, b
+        a2, b2, _ = rglru.scan_inputs(layer.rec, x2, cfg)
+    del layer, x0, x2, b
     dh = torch.randn(a.shape, device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(4))
     err, share = lru_bwd_check(klru, a, h, dh, tag)
     rec = kernel_timing(lambda: klru.lru_scan_backward(a, h, dh),
                         lambda: klru.lru_scan_backward_plain(a, h, dh),
                         *klru.lru_scan_bwd_cost(*a.shape), reps)
-    rec.update(max_abs_err=err, launches=got["lru_scan_bwd"])
+    rec.update(max_abs_err=err, launches=got["lru_scan_bwd"],
+               shape=list(a.shape))
     log(f"{tag} lru_scan_bwd at layer 0 {tuple(a.shape)} == float64 plain "
-        f"(max err {err:.3e}, {share:.3f} of the limit); a dropped carry "
-        f"fails it: {rec['ms']:.3f} ms a launch (plain "
+        f"(max err {err:.3e}, {share:.3f} of the limit); dropped carries "
+        f"fail it: {rec['ms']:.3f} ms a launch (plain "
         f"{rec['plain_ms']:.1f}, bound {rec['bound_ms']:.4f} by "
         f"{rec['bound_by']})")
-    out["lru_scan_bwd"] = rec
     del a, h, dh
+    free_device_memory()
+    # Both kernels at the training step's own shape, layer 0's inputs.
+    ferr, fshare = lru_check(klru, a2, b2, tag)
+    fwd = kernel_timing(lambda: klru.lru_scan(a2, b2),
+                        lambda: klru.lru_scan_plain(a2, b2),
+                        *klru.lru_scan_cost(*a2.shape), reps)
+    fwd.update(max_abs_err=ferr, shape=list(a2.shape))
+    with torch.no_grad():
+        h2 = klru.lru_scan(a2, b2)
+    dh2 = torch.randn(a2.shape, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(6))
+    berr, bshare = lru_bwd_check(klru, a2, h2, dh2, tag)
+    bwd = kernel_timing(lambda: klru.lru_scan_backward(a2, h2, dh2),
+                        lambda: klru.lru_scan_backward_plain(a2, h2, dh2),
+                        *klru.lru_scan_bwd_cost(*a2.shape), reps)
+    bwd.update(max_abs_err=berr, shape=list(a2.shape))
+    for name, r, sh in (("lru_scan", fwd, fshare), ("lru_scan_bwd", bwd,
+                                                     bshare)):
+        log(f"{tag} {name} at the step's layer 0 {tuple(a2.shape)} == plain "
+            f"(max err {r['max_abs_err']:.3e}, {sh:.3f} of the limit; its "
+            f"variants fail it): {r['ms']:.3f} ms a launch (plain "
+            f"{r['plain_ms']:.1f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']})")
+    out["lru_scan_bwd"] = {**rec, "train_step": bwd}
+    out["lru_scan_train_step"] = fwd
+    del a2, b2, h2, dh2
     free_device_memory()
     return out
 
@@ -4884,7 +4965,8 @@ def phase_train(kw6, klru, report, reps):
     """[16] Training on the card: tinyllama-1.1b ([16a]) and its CPD
     variant ([16b]) at full width and depth, rwkv6-3b at full width and
     depth ([16c]), recurrentgemma-9b at full width on 6 layers ([16d]),
-    the controller ([16e]). Returns the two backward kernels' records."""
+    the controller ([16e]). Returns the two backward kernels' records and
+    ``lru_scan``'s at [16d]'s training shape."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4904,7 +4986,8 @@ def phase_train(kw6, klru, report, reps):
     report["train"] = out
     free_device_memory()
     log(f"[16] passed in {time.perf_counter() - t0:.1f} s")
-    return out["rwkv"]["wkv6_bwd"], out["rg"]["lru_scan_bwd"]
+    return (out["rwkv"]["wkv6_bwd"], out["rg"]["lru_scan_bwd"],
+            out["rg"]["lru_scan_train_step"])
 
 
 # --------------------------------------------------------------------------
@@ -6445,7 +6528,7 @@ def main(argv=None) -> int:
     del coo8, twitch
     lm_reps = min(args.reps, LM_REPS)
     phase_dense(report, lm_reps)
-    wbwd, lbwd = phase_train(kw6, klru, report, args.reps)
+    wbwd, lbwd, lru_train = phase_train(kw6, klru, report, args.reps)
     launches17, kernels17 = phase_shard(report, args.reps)
     phase_moe(report, lm_reps)
     phase_families(report, lm_reps)
@@ -6453,7 +6536,7 @@ def main(argv=None) -> int:
     kernels = kernels_record(per_kernel,
                              {**launches, **launches7, **launches8},
                              {**errs, **errs7, **errs8}) + [
-        wkv6_record(wkv), lru_scan_record(lru),
+        wkv6_record(wkv), lru_scan_record(lru, lru_train),
         bwd_record("wkv6_bwd", wbwd,
                    f"one launch at layer 0's shape of the {RWKV_ARCH} "
                    f"prefill (B {RWKV_BATCH}, S {RWKV_SEQ}: BH 160); "
@@ -6464,7 +6547,9 @@ def main(argv=None) -> int:
                    "null: no single PyTorch call computes a WKV backward"),
         bwd_record("lru_scan_bwd", lbwd,
                    f"one launch at layer 0's shape of the {RG_ARCH} "
-                   f"prefill (B {RG_BATCH}, S {RG_SEQ}); launches: [16d]'s "
+                   f"prefill (B {RG_BATCH}, S {RG_SEQ}); train_step: the "
+                   f"same at the training step's (B {RG_TRAIN_BATCH}, S "
+                   f"{TRAIN_SEQ}); launches: [16d]'s "
                    f"{RG_TRAIN_STEPS} train steps on {RG_TRAIN_LAYERS} "
                    "layers, one a rec layer a step; library_ms null: no "
                    "single PyTorch call computes a linear recurrence's "

@@ -49,8 +49,8 @@ SIGNATURES = {
         "wkv6_bwd_launch": (_I, [_VP] * 12 + [_I] * 2 + [_VP]),
     },
     "lru_scan": {
-        "lru_scan_launch": (_I, [_VP] * 3 + [_I] * 3 + [_VP]),
-        "lru_scan_bwd_launch": (_I, [_VP] * 5 + [_I] * 3 + [_VP]),
+        "lru_scan_launch": (_I, [_VP] * 3 + [_I] * 5 + [_VP] * 3),
+        "lru_scan_bwd_launch": (_I, [_VP] * 5 + [_I] * 5 + [_VP] * 3),
     },
 }
 

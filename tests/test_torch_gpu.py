@@ -907,17 +907,23 @@ def _lru_args(b, t, d, seed, device, dtype=torch.float32):
     return a.to(dtype).to(device), x.to(dtype).to(device)
 
 
+LRU_SPLIT_SHAPES = [(2, 4096, 4096), (1, 32768, 1024), (1, 5000, 1000)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,d", [
     (1, 32, 8), (2, 64, 128), (2, 33, 130), (3, 1000, 4100), (4, 256, 4096),
-    (1, 4096, 2048)])
+    (1, 4096, 2048)] + LRU_SPLIT_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 def test_lru_scan_kernel_matches_plain(cuda, b, t, d, dtype):
     """The reference kernel tests' shapes, T and D that are no multiple of
-    the kernel's 32-step buffer or 128-channel CTA, the model's rows at
-    T = 256, and a recurrentgemma-9b model shard's in a (data 2, model
-    2) training step (B 1, T 4096, 2048 of the 4096 channels); float16
-    inputs are cast to float32 first."""
+    the kernel's 16-step stage or 32-channel CTA, the model's rows at
+    T = 256, a recurrentgemma-9b model shard's in a (data 2, model 2)
+    training step (B 1, T 4096, 2048 of the 4096 channels: 32 spans), the
+    single-device training step's (2, 4096, 4096), a long T whose spans do
+    not fit the kernel's ring (1, 32768, 1024: 64 spans of 512, read
+    twice) and spans that do not divide T (1, 5000, 1000); float16 inputs
+    are cast to float32 first."""
     args = _lru_args(b, t, d, b + t + d, cuda, dtype)
     before = klru.LAUNCHES["lru_scan"]
     got = klru.lru_scan(*args)
@@ -944,14 +950,14 @@ def test_lru_scan_refuses_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,d", [
     (1, 32, 8), (2, 33, 130), (3, 1000, 4100), (4, 256, 4096),
-    (1, 4096, 2048)])
+    (1, 4096, 2048)] + LRU_SPLIT_SHAPES)
 def test_lru_scan_backward_kernel_matches_plain(cuda, b, t, d):
     """``lru_scan`` where autograd records: ``LRUScanFn`` launches the
     forward and the reverse-scan kernel once each; da and dx against
     ``lru_scan_backward_plain`` in float64 on the card (T and D no
-    multiple of the 32-step buffer or the 128-channel CTA included; a
+    multiple of the 16-step stage or the 32-channel CTA included; a
     recurrentgemma-9b model shard's (1, 4096, 2048) on (data 2, model
-    2))."""
+    2), and the forward test's split shapes)."""
     a, x = _lru_args(b, t, d, b + t + d, cuda)
     dh = torch.randn((b, t, d), generator=torch.Generator().manual_seed(
         t)).to(cuda)
@@ -966,6 +972,67 @@ def test_lru_scan_backward_kernel_matches_plain(cuda, b, t, d):
                                           dh.double())
     torch.testing.assert_close(la.grad.double(), wa, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lx.grad.double(), wx, rtol=1e-5, atol=1e-5)
+
+
+def _lru_limit(a, x):
+    """``chip_smoke.py``'s per-element limit of a float32 scan against
+    float64 (2 LAMBDA 2 sqrt(t + 1) u A_t, A the scan on |a|, |x|)."""
+    big = klru.lru_scan_steps(a.double().abs(), x.double().abs())
+    t = torch.arange(a.shape[1], device=a.device, dtype=torch.float64)
+    return 8 * (t + 1).sqrt()[None, :, None] * 2.0 ** -24 * big
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d", [(1, 4096, 2048), (1, 32768, 1024),
+                                   (1, 5000, 1000)])
+def test_lru_scan_kernels_carry_across_spans(cuda, b, t, d):
+    """a in [0.999, 1): a span's product P stays near 1, so every carry
+    and its P reach the next spans (with a in [0.3, 1) P underflows and a
+    wrong P would not show). Both kernels against the float64 plain
+    versions within ``chip_smoke.py``'s limits, and a carry dropped at the
+    first and at a middle split boundary fails them."""
+    a, x = _lru_args(b, t, d, t, cuda)
+    a = 0.999 + (a - 0.3) / 0.699 * 0.001
+    bounds = klru.split_bounds(b, t, d, klru.device_sms(a.device))
+    assert len(bounds) > 1
+    want = klru.lru_scan_steps(a.double(), x.double())
+    lim = _lru_limit(a, x)
+    got = klru.lru_scan(a, x)
+    assert ((got.double() - want).abs() <= lim).all()
+    dh = torch.randn((b, t, d), generator=torch.Generator().manual_seed(
+        t)).to(cuda)
+    h = want.float()
+    wda, wdx = klru.lru_scan_backward_plain(a.double(), want, dh.double())
+    steps = t - torch.arange(t, device=cuda, dtype=torch.float64)
+    scale = 2 * (2 * steps.sqrt() + 3)[None, :, None] * 2.0 ** -24
+    lims = [scale * v for v in klru.lru_scan_backward_plain(
+        a.double(), want.abs(), dh.double().abs())]
+    da, dx = klru.lru_scan_backward(a, h, dh)
+    for g, w, lm in ((da, wda, lims[0]), (dx, wdx, lims[1])):
+        assert ((g.double() - w).abs() <= lm).all()
+    for lo, _ in {bounds[1], bounds[len(bounds) // 2]}:
+        bad = a.clone()
+        bad[:, lo] = 0
+        assert ((klru.lru_scan(bad, x).double() - want).abs() > lim).any()
+        bda, bdx = klru.lru_scan_backward(bad, h, dh)
+        assert ((bdx.double() - wdx).abs() > lims[1]).any()
+
+
+@pytest.mark.gpu
+def test_lru_scan_kernels_repeat_bitwise(cuda):
+    """Two launches of each kernel at a shape of 32 spans give the same
+    bits: the carries are folded in a fixed order, whatever order the CTAs
+    run in."""
+    a, x = _lru_args(1, 4096, 2048, 5, cuda)
+    assert len(klru.split_bounds(1, 4096, 2048,
+                                 klru.device_sms(a.device))) > 1
+    h1, h2 = klru.lru_scan(a, x), klru.lru_scan(a, x)
+    dh = torch.randn_like(a)
+    g1, g2 = klru.lru_scan_backward(a, h1, dh), klru.lru_scan_backward(
+        a, h1, dh)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2)
+    assert torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
 
 
 @pytest.mark.gpu
